@@ -1,0 +1,70 @@
+"""State carried across between the JAX package and the port.
+
+The dynamical core has no learned weights: what a run carries is the grid
+operators (rebuilt from the configuration by either package), the reference
+state and the model state.  These functions move the last two across as
+numpy arrays, so a run can start in one package from the other's state.
+Nothing here imports jax: a JAX array converts through ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .physics.reference_state import ReferenceState
+from .timeintegration import ModelState
+
+_STATE_ARRAYS = ("spec", "expdot_nm1", "expdot_nm2", "impdot_nm1", "impdot_nm2")
+
+
+def _fields(src, names) -> dict:
+    if isinstance(src, Mapping) or hasattr(src, "files"):  # dict or NpzFile
+        return {k: src[k] for k in names}
+    return {k: getattr(src, k) for k in names}
+
+
+def state_from_numpy(d, device: Any = "cpu", dtype=None) -> ModelState:
+    """A ``ModelState`` from the JAX package's fields (a mapping, an
+    ``.npz`` file or a ``scythe_tpu.timeintegration.ModelState``): the five
+    arrays go to ``device`` (as ``dtype``, or their own dtype when None),
+    ``t`` becomes a Python int."""
+    f = _fields(d, _STATE_ARRAYS + ("t",))
+
+    def dev(a):
+        t = torch.from_numpy(np.array(a))
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    return ModelState(
+        **{k: dev(f[k]) for k in _STATE_ARRAYS}, t=int(np.asarray(f["t"]))
+    )
+
+
+def state_to_numpy(state: ModelState) -> dict[str, np.ndarray]:
+    """The fields of ``state`` as host numpy arrays, ``t`` as an int32
+    scalar, the layout ``scythe_tpu.io.save_checkpoint`` writes."""
+    out = {k: getattr(state, k).detach().cpu().numpy() for k in _STATE_ARRAYS}
+    out["t"] = np.asarray(state.t, np.int32)
+    return out
+
+
+def load_jax_checkpoint(path: str, device: Any = "cpu", dtype=None):
+    """Read the ``.npz`` written by ``scythe_tpu.io.save_checkpoint``;
+    returns (ModelState, t_sim)."""
+    from .io import load_checkpoint
+
+    return load_checkpoint(path, dtype, device)
+
+
+def reference_state_from_numpy(rs, device: Any = "cpu", dtype=torch.float64) -> ReferenceState:
+    """A port ``ReferenceState`` from the JAX package's (any object or
+    mapping with the six fields)."""
+    f = _fields(rs, ReferenceState._fields)
+    return ReferenceState(
+        **{
+            k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+            for k, v in f.items()
+        }
+    )

@@ -1,0 +1,148 @@
+"""Equation-set interface and registry, in PyTorch.
+
+An equation set is a function ``f(fields, ctx) -> EqResult`` computing
+pointwise tendencies from the synthesized physical fields (value + all
+derivative slots), as in ``scythe_tpu.equations.common``.  ``fields`` is a
+dict with keys val/dr/drr(/dl/dll)(/dz/dzz), each ``[nvars, *spatial]``.
+Dispatch is by the reference's equation-set names through REGISTRY.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import torch
+
+REGISTRY: dict[str, Callable] = {}
+
+
+def equation_set(name: str | None = None, geometry: str | None = None):
+    def deco(fn):
+        fn.geometry = geometry
+        REGISTRY[name or fn.__name__] = fn
+        return fn
+
+    return deco
+
+
+@dataclass
+class EqContext:
+    """Static per-run context handed to equation sets.  The six option
+    hooks below carry the JAX package's docstrings' behaviour one for one
+    (scythe_tpu.equations.common.EqContext)."""
+
+    grid: Any
+    coords: dict[str, torch.Tensor]
+    params: dict[str, float]  # physical_params (ref model.physical_params)
+    options: dict[str, Any]
+    ts: float
+    var_index: Callable[[str], int]
+    ref_state: Any = None  # physics.reference_state.ReferenceState or None
+    extras: dict = field(default_factory=dict)
+
+    def p(self, key: str, default=None) -> float:
+        if default is None:
+            return self.params[key]
+        return self.params.get(key, default)
+
+    def vertical_pgf(self, coeffs, s_z, xi_z, qv_z, default_exact=True):
+        """Perturbation-form vertical pressure gradient dp'/dz.  The exact
+        form adds P(local)·bar_z - P(bar)·bar_z, the cross term the
+        reference omits (testModels.jl:552).  MoistEuler* sets
+        (``default_exact``) use it unless options['reference_quirks'];
+        reference-parity sets only with options['exact_vertical_pgf']."""
+        from ..physics import thermodynamics as td
+
+        Ps, Pxi, Pqv = coeffs
+        base = Ps * s_z + Pxi * xi_z + Pqv * qv_z
+        if default_exact:
+            exact = not self.options.get("reference_quirks")
+        else:
+            exact = bool(self.options.get("exact_vertical_pgf"))
+        if not exact:
+            return base
+        rs = self.ref_state
+        qbar_z, pgf_bar = td.reference_pgf_columns(rs)
+        # [nz] columns broadcast over the trailing (z-last) spatial axis
+        return base + (
+            Ps * rs.sbar[:, 1] + Pxi * rs.xibar[:, 1] + Pqv * qbar_z - pgf_bar
+        )
+
+    def stiff_rate(self, rate):
+        """Stability limiter for explicit relaxation rates: identity, or with
+        options['stiff_relaxation']='exp' the exponential-integrator rate
+        (1-exp(-rate*ts))/ts capped at 0.4/ts (AB3 safety)."""
+        if self.options.get("stiff_relaxation") != "exp":
+            return rate
+        return torch.clamp(-torch.expm1(-rate * self.ts), max=0.4) / self.ts
+
+    def pxi_si(self):
+        """Coefficient of the semi-implicit acoustic term -Pxi xi_z: the
+        reference's column-mean scalar times options['si_scale'], or the
+        per-level profile with options['si_mode']='variable'."""
+        scale = float(self.options.get("si_scale", 1.0))
+        if self.options.get("si_mode", "constant") == "variable":
+            return scale * self.ref_state.Pxi_prof
+        return scale * self.ref_state.Pxi_bar
+
+    def cap_condensation(self, q_cond):
+        """Optional symmetric cap on the prognostic condensation rate
+        (options['condensation_rate_cap']); a no-op when unset or under
+        diagnostic condensation, which owns the cap."""
+        if self.options.get("condensation") == "diagnostic":
+            return q_cond
+        cap = self.options.get("condensation_rate_cap")
+        if cap is None:
+            return q_cond
+        cap = float(cap)
+        return torch.clamp(q_cond, -cap, cap)
+
+    def sedimentation(self, q_r, rho_d, Tk):
+        """Rain terminal velocity: the reference's always-zero quirk, or with
+        options['sedimentation']='active' the unclamped downward formula."""
+        from ..physics import microphysics as mp
+
+        if self.options.get("sedimentation") == "active":
+            return mp.sedimentation_active(q_r, rho_d, Tk)
+        return mp.sedimentation(q_r, rho_d, Tk)
+
+    def dmudq_source(self, mu, q):
+        """q->mu source-term Jacobian: the clamped guard, or the reference's
+        raw Jacobian with options['reference_quirks']."""
+        from ..physics import thermodynamics as td
+
+        if self.options.get("reference_quirks"):
+            return td.dmudq(mu, q)
+        return td.dmudq_source(mu, q)
+
+
+@dataclass
+class EqResult:
+    expdot: torch.Tensor  # [nvars, *spatial]
+    impdot: torch.Tensor | None = None
+    overrides: dict[int, torch.Tensor] = field(default_factory=dict)
+    # vertical eddy viscosity for options['implicit_vdiff'] (not ported)
+    k_v: torch.Tensor | None = None
+
+
+def get_equation_set(name: str) -> Callable:
+    # import submodules lazily so registration side effects happen
+    from . import test_models  # noqa: F401
+
+    if name not in REGISTRY:
+        raise KeyError(
+            f"Unknown equation_set {name!r}; known: {sorted(REGISTRY)}"
+        )
+    return REGISTRY[name]
+
+
+def stack_tendencies(nvars: int, shape, dtype, terms: dict[int, torch.Tensor]):
+    """Assemble [nvars, *spatial] from a non-empty {var_index: tendency}
+    mapping; the missing rows are zeros on the terms' device."""
+    device = next(iter(terms.values())).device
+    rows = [
+        terms[v] if v in terms else torch.zeros(shape, dtype=dtype, device=device)
+        for v in range(nvars)
+    ]
+    return torch.stack(rows, dim=0)

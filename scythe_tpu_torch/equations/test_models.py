@@ -1,0 +1,154 @@
+"""Idealized / test equation sets (ref src/testModels.jl), in PyTorch.
+
+Only ``MoistEulerRLZ`` is ported so far; the other sets of
+``scythe_tpu.equations.test_models`` are not registered here yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..physics import microphysics as mp
+from ..physics import thermodynamics as td
+from .common import EqContext, EqResult, equation_set, stack_tendencies
+
+
+@equation_set(geometry="RLZ")
+def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
+    """Full 3-D cylindrical moist compressible Euler core with warm rain:
+    the perturbation thermodynamics (s, xi, mu vs a hydrostatic reference
+    state) and Ooyama warm-rain microphysics of the reference's 2-D slab
+    sets on the full cylinder, term for term as
+    ``scythe_tpu.equations.test_models.MoistEulerRLZ``.
+
+    Vars: s xi mu u v w mu_c mu_r qss  (u radial, v tangential, w vertical).
+    options['smagorinsky'] > 0 and options['implicit_vdiff'] are not ported
+    and raise NotImplementedError.
+    """
+    if float(ctx.options.get("smagorinsky", 0.0) or 0.0) > 0.0:
+        raise NotImplementedError(
+            "options['smagorinsky'] is not ported to scythe_tpu_torch yet"
+        )
+    if ctx.options.get("implicit_vdiff"):
+        raise NotImplementedError(
+            "options['implicit_vdiff'] is not ported to scythe_tpu_torch yet"
+        )
+    K = ctx.p("K")
+    f_cor = ctx.p("f", 0.0)
+    rs = ctx.ref_state
+    r = ctx.coords["r"]
+    val, dr, drr, dl, dz, dzz = (
+        fields["val"],
+        fields["dr"],
+        fields["drr"],
+        fields["dl"],
+        fields["dz"],
+        fields["dzz"],
+    )
+    dll = fields["dll"]
+    s, xi, mu = val[0], val[1], val[2]
+    u, v, w = val[3], val[4], val[5]
+    mu_c, mu_r, qss = val[6], val[7], val[8]
+
+    # reference columns [1, 1, nz] against the z-last [r, l, z] fields
+    sbar_z = rs.sbar[None, None, :, 1]
+    xibar_z = rs.xibar[None, None, :, 1]
+    mubar_z = rs.mubar[None, None, :, 1]
+    q_v, rho_d, Tk, p = td.thermodynamic_tuple(
+        s + rs.sbar[None, None, :, 0],
+        xi + rs.xibar[None, None, :, 0],
+        mu + rs.mubar[None, None, :, 0],
+    )
+    mu_total = mu + rs.mubar[None, None, :, 0]
+    q_c = td.ahyp(mu_c)
+    q_r = td.ahyp(mu_r)
+    q_l = q_c + q_r
+    rho_t = rho_d * (1.0 + q_v + q_l)
+    mu_fac = td.dmudq(mu_total, q_v)
+    rhobar = td.dry_density(rs.xibar[None, None, :, 0]) * (
+        1.0
+        + td.ahyp(rs.mubar[None, None, :, 0])
+        + td.ahyp(rs.mu_lbar[None, None, :, 0])
+    )
+    rho_p = rho_t - rhobar
+
+    # advection + masked diffusion over the full [nvars, ...] tensors, in
+    # the JAX package's association order ((adv + lap) + sources)
+    u3, v3, w3 = val[3:4], val[4:5], val[5:6]
+    zrow = torch.zeros_like(sbar_z)
+    barz = torch.stack(
+        [sbar_z, xibar_z, mubar_z, zrow, zrow, zrow, zrow, zrow, zrow]
+    )
+    adv_all = -u3 * dr - (v3 / r) * dl - w3 * dz - w3 * barz
+    lap_mask = torch.tensor(
+        [1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0],
+        dtype=dr.dtype, device=dr.device,
+    )[:, None, None, None]
+    # physical_params['K_v']: separate constant vertical diffusivity
+    K_v_const = float(ctx.p("K_v", K))
+    # the JAX package picks the two-term form whenever
+    # options['smagorinsky_axes'] is 'rl', even with the closure off
+    smag_h = str(ctx.options.get("smagorinsky_axes", "rlz")) == "rl"
+    horiz = drr + dr / r + dll / (r * r)
+    if K_v_const == K and not smag_h:
+        lap_all = lap_mask * (K * (horiz + dzz))
+    else:
+        lap_all = lap_mask * (K * horiz + K_v_const * dzz)
+
+    # pressure gradients (perturbation form; the vertical carries the exact
+    # reference-gradient cross term, EqContext.vertical_pgf)
+    coeffs = td.pressure_gradient_coeffs(Tk, rho_d, q_v)
+    Ps, Pxi, Pqv = coeffs
+    dpdr = Ps * dr[0] + Pxi * dr[1] + Pqv * (dr[2] / mu_fac)
+    dpdl = Ps * dl[0] + Pxi * dl[1] + Pqv * (dl[2] / mu_fac)
+    dpdz = ctx.vertical_pgf(coeffs, dz[0], dz[1], dz[2] / mu_fac)
+
+    # microphysics (rainfall_test rates, testModels.jl:387-585)
+    N_c, r_c = 100.0, 10.0
+    cloudtau = ctx.stiff_rate(mp.invtau_condensation(Tk, p, N_c, r_c))
+    raintau = ctx.stiff_rate(mp.rain_evaporation(q_r, rho_d, Tk, p))
+    q_cond = mp.q_condensation(qss, Tk, p, q_v, q_l, N_c, r_c, invtau=cloudtau)
+    q_cond = ctx.cap_condensation(q_cond)
+    s_cond = mp.s_condensation(q_cond, Tk, rho_d, q_v, q_l, p)
+    q_evap = -qss * raintau
+    if ctx.options.get("condensation") == "diagnostic":
+        # phase change moves to the post-step adjustment; rain evaporation
+        # takes the Kessler-style subsaturation form
+        q_cond = torch.zeros_like(Tk)
+        s_cond = torch.zeros_like(Tk)
+        q_evap = raintau * torch.clamp(td.q_sat_liquid(Tk, p) - q_v, min=0.0)
+    q_auto = mp.autoconversion(q_c, rho_d)
+    q_coll = mp.collection(q_c, q_r, rho_d, Tk)
+    Vt = ctx.sedimentation(q_r, rho_d, Tk)
+    Vt_flux = ctx.grid.column_flux_derivative(q_r * Vt) / rho_d
+    Cm = (q_l * td.Cl) / (td.Cvd + q_v * td.Cvv + q_l * td.Cl)
+    div3 = u / r + dr[3] + dl[4] / r + dz[5]
+    s_div = Cm * (td.Rd + q_v * td.Rv) * div3
+    qss_cond = (
+        mp.dqsdp(Tk, p, rho_d, q_v, q_l)
+        * (u * dpdr + (v / r) * dpdl + w * (dpdz - rhobar * td.GRAVITY))
+        - qss * (cloudtau + raintau)
+    )
+
+    nvars = ctx.grid.nvars
+    sh, dt = u.shape, u.dtype
+    extra, imp = {}, {}
+    extra[0] = s_cond + s_div
+    extra[1] = -div3
+    imp[1] = -dz[5]
+    extra[2] = mu_fac * (q_evap - q_cond)
+    imp[2] = q_v
+    extra[3] = (f_cor + v / r) * v - dpdr / rho_t - K * u / (r * r)
+    extra[4] = -(f_cor + v / r) * u - dpdl / (r * rho_t) - K * v / (r * r)
+    extra[5] = ((-td.GRAVITY * rho_p) - dpdz) / rho_t
+    imp[5] = -(ctx.pxi_si() * dz[1])
+    extra[6] = ctx.dmudq_source(mu_c, q_c) * (q_cond - q_auto - q_coll)
+    extra[7] = ctx.dmudq_source(mu_r, q_r) * (
+        q_auto + q_coll - q_evap - Vt_flux
+    )
+    extra[8] = qss_cond
+    imp[8] = qss
+    return EqResult(
+        expdot=adv_all + lap_all + stack_tendencies(nvars, sh, dt, extra),
+        impdot=stack_tendencies(nvars, sh, dt, imp),
+    )

@@ -1,0 +1,84 @@
+"""scythe_tpu_torch imports and runs with jax (and the JAX package) blocked:
+a fresh interpreter with sys.modules['jax'] = None imports the package and
+runs 3 steps of the moist RLZ core on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import os, sys, tempfile
+    sys.modules["jax"] = None
+    sys.modules["scythe_tpu"] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    import scythe_tpu_torch as tx
+    from scythe_tpu_torch.ops import column_solve
+
+    tmp = tempfile.mkdtemp()
+    gp = tx.GridParameters(
+        geometry="RLZ", xmin=0.0, xmax=8000.0, num_cells=4, lDim=8,
+        zmin=0.0, zmax=8000.0, zDim=8,
+        BCL={"u": tx.BC.R1T0, "v": tx.BC.R1T0, "w": tx.BC.R1T1},
+        BCR={"u": tx.BC.R1T0, "v": tx.BC.R0},
+        vars=("s", "xi", "mu", "u", "v", "w", "mu_c", "mu_r", "qss"),
+    )
+    with open(os.path.join(tmp, "snd.txt"), "w") as f:
+        f.write("1015.0 300.0 14.0\\n")
+        for z in np.linspace(300.0, 12000.0, 20):
+            f.write(f"{z} {300.0 + 0.004 * z} {14.0 * np.exp(-z / 2500.0)}\\n")
+    pts = tx.create_grid(gp, torch.float64).gridpoints()
+    cols = np.zeros((len(pts), 12))
+    cols[:, :3] = pts
+    cols[:, 3] = 2.0 * np.exp(-((pts[:, 0] - 3000.0) ** 2 + (pts[:, 2] - 2000.0) ** 2) / 1e6)
+    np.savetxt(os.path.join(tmp, "ics.csv"), cols, delimiter=",", comments="",
+               header="r,l,z," + ",".join(gp.vars))
+    model = tx.ModelParameters(
+        ts=0.25, integration_time=0.75, output_interval=0.75,
+        equation_set="MoistEulerRLZ",
+        initial_conditions=os.path.join(tmp, "ics.csv"),
+        output_dir=os.path.join(tmp, "out"),
+        ref_state_file=os.path.join(tmp, "snd.txt"), grid_params=gp,
+        physical_params={"K": 10.0, "f": 5e-5}, options={"semiimplicit": True},
+    )
+    grid, phys = tx.integrate_model(model, dtype=torch.float64, device="cpu")
+    assert np.isfinite(phys).all() and phys.shape == (9, 12, 8, 8)
+    assert column_solve.launches == 0
+    assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
+                   for m in sys.modules if sys.modules[m] is not None)
+    print("NOJAX_OK", sorted(os.listdir(os.path.join(tmp, "out"))))
+    """
+)
+
+
+def test_port_imports_and_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX_")}
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NOJAX_OK" in proc.stdout
+    assert "physical_out_0.75.csv" in proc.stdout
+
+
+def test_port_source_never_imports_jax():
+    pkg = os.path.join(REPO, "scythe_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    for line in f:
+                        s = line.strip()
+                        assert not s.startswith(("import jax", "from jax")), (name, s)
+                        assert not s.startswith(("import scythe_tpu.", "from scythe_tpu ",
+                                                 "from scythe_tpu.")), (name, s)
