@@ -9,28 +9,52 @@ Phases, each printing PASS, its wall time and its numbers on a line:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the TF32 switches (both off, float32 matmul precision
    "highest");
-2. build: the CUDA kernels from scythe_tpu_torch/ops/csrc with nvcc;
-3. kernel against its plain PyTorch version on the card: the AI2* column
-   solve for nz in {24, 40, 48, 100}, ncols in {37, 9216} and both stages,
-   f64 kernel vs f64 plain (1e-12 of max|ref|) and f32 kernel vs f64 plain
-   (1e-5 of max|ref|), then kernel and plain timed at 9216 x 48 f32 with
-   CUDA events, in turns (plain, kernel, kernel, plain);
-4. main path at full width: integrate_model on the moist3d configuration
-   (MoistEulerRLZ, semi-implicit, 48 cells x 64 azimuths x 48 levels,
-   9 vars, ts 0.15 s) on "cuda" in f32, 120 steps with output every 60;
-   the kernel must have run exactly once a step, the fields stay finite, the
-   warm bubble rises (w.max() > 0.01) and three CSV outputs exist; then
-   steps/s timed on the card after a warm-up, and a torch.profiler pass
-   over 10 steps (device busy time and kernel launches a step; the kernel
-   table goes to chiprun_out/moist3d_profile.txt);
-5. port parity on the card: a small configuration 20 steps CUDA f64 (kernel)
-   against CPU f64 (plain), 1e-9 of each field's max|ref|; moist3d 20 steps
-   CUDA f32 against CUDA f64, 1e-4 of each field's max|f64|.
+2. build: the CUDA kernels from scythe_tpu_torch/ops/csrc with nvcc (one
+   nvcc a source, all started together), with ptxas' registers, shared
+   memory and spills for each kernel;
+3. column solve against its plain PyTorch version on the card: nz in
+   {24, 40, 48, 100}, ncols in {37, 9216}, both stages, f64 kernel vs f64
+   plain (1e-12 of max|ref|) and f32 kernel vs f64 plain (1e-5), then both
+   timed at 9216 x 48 f32 with CUDA events in turns (plain, kernel, kernel,
+   plain);
+4. RLZ analysis against its plain version on the card: moist3d
+   [9, 144, 64, 48], the TC grid [9, 300, 4, 24], the RLZ transform bench
+   [8, 192, 128, 60], the two shapes of tests/test_pallas_transforms.py and
+   one large-nl shape [2, 24, 1024, 16] (l streamed through shared memory);
+   f64 kernel vs f64 plain (1e-12 of max|ref|), f32 kernel vs f64 plain
+   (1e-5); then timed at the moist3d, transform and TC shapes in f32, in
+   turns;
+5. tendency-stage probe (Triton) against its plain version at
+   [9, 144, 3072] f32 (rel err 1e-5 of max|ref|), timed in turns, then its
+   entry point (python -m scythe_tpu_torch.ops.elementwise_probe) run once;
+6. moist3d main path at full width: integrate_model (MoistEulerRLZ,
+   semi-implicit, 48 cells x 64 azimuths x 48 levels, 9 vars, ts 0.15 s) on
+   "cuda" in f32, 120 steps with output every 60; the column solve ran once
+   a step and the analysis once a step plus the initial analysis, fields
+   finite, the bubble rises (w.max() > 0.01), three CSV outputs; steps/s on
+   the card after a warm-up and a torch.profiler pass (table in
+   chiprun_out/moist3d_profile.txt);
+7. the mature-TC path at full width: integrate_model on tc_mature_model
+   (models/tc_mature_rlz.py: 100 cells x 4 azimuths x 24 levels, 9 vars, ts
+   2 s, Smagorinsky + implicit vertical diffusion, surface fluxes, sponge)
+   in f32 on "cuda", 900 steps (30 simulated minutes) with output every 450;
+   the column solve ran once a step, the analysis once a step plus once,
+   fields finite, condensation fired (q_c max > 1e-6: PERF.md sets this band
+   from a CPU f64 run of the same 900 steps), the vortex intact
+   (12 < v.max() < 20 m/s), three CSV outputs; steps/s after a warm-up and a
+   profiler pass (chiprun_out/tc_mature_profile.txt);
+8. port parity on the card: the small moist configuration 20 steps and the
+   TC bundle at 16 cells 50 steps, CUDA f64 (kernels) against CPU f64
+   (plain), 1e-9 of each field's max|ref|; moist3d and the full-width TC 20
+   steps CUDA f32 against CUDA f64, 1e-4 of each field's max|f64| (the TC's
+   u, which starts at zero, has the bound PERF.md derives from the same
+   comparison on the CPU).
 
 No phase catches its own failure: any failed check raises and the script
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
-The last two lines of standard output are a JSON object describing the
-kernels, then {"ok": true, "device": {...}}.  It imports nothing of jax.
+The last lines of standard output are the card's name and power limit, a
+JSON object describing the kernels, then {"ok": true, "device": {...}}.  It
+imports nothing of jax.
 """
 
 from __future__ import annotations
@@ -47,6 +71,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MOIST3D_VARS = ("s", "xi", "mu", "u", "v", "w", "mu_c", "mu_r", "qss")
+# f32 against f64 after 20 full-width TC steps: 1e-4 of each field's max,
+# except u: it starts at zero, and its 20-step max (0.14 m/s) sits under the
+# round-off of the 15 m/s gradient-wind balance; the same comparison on the
+# CPU measured 1.03e-4 (PERF.md), so its bound is 3e-4
+TC_F32_BOUND = {"u": 3e-4}
+TC_QC_MIN = 1e-6  # q_c max after 30 min: 6.09e-6 in the CPU f64 run (PERF.md)
 
 
 def say(phase, t0, msg):
@@ -134,6 +164,17 @@ def cuda_time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def in_turns(plain, kernel, n):
+    """(kernel ms list, plain ms list) timed plain, kernel, kernel, plain
+    after a warm-up of each."""
+    for fn in (plain, kernel):
+        cuda_time_ms(fn, max(2, n // 10))
+    times = {plain: [], kernel: []}
+    for fn in (plain, kernel, kernel, plain):
+        times[fn].append(cuda_time_ms(fn, n))
+    return times[kernel], times[plain]
+
+
 def per_field_rel(got, ref):
     """max|got - ref| / max|ref| per leading-axis field (fields whose ref is
     identically zero are compared absolutely and reported as such)."""
@@ -145,7 +186,11 @@ def per_field_rel(got, ref):
     return out
 
 
-def phase_kernel(torch, tti, cs, pxi):
+def fmt_rel(rel):
+    return json.dumps(dict(zip(MOIST3D_VARS, [float(f"{e:.3e}") for e in rel])))
+
+
+def phase_column_solve(torch, tti, cs, pxi):
     """Phase 3; returns (max_abs_err, ms, plain_ms) at 9216 x 48 f32."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
@@ -177,34 +222,159 @@ def phase_kernel(torch, tti, cs, pxi):
                     worst["f32"] = max(worst["f32"], e32 / scale)
                     if nz == 48 and ncols == 9216 and stage == "ab":
                         main_err = max(main_err or 0.0, e32)
-    say("kernel-vs-plain", t0,
+    say("column-solve-vs-plain", t0,
         f"nz {{24,40,48,100}} x ncols {{37,9216}} x 2 stages; max rel err "
         f"f64 {worst['f64']:.3e} (tol 1e-12), f32 vs f64 {worst['f32']:.3e} (tol 1e-5)")
 
-    # timing at the main path's shape, f32: plain, kernel, kernel, plain
     t0 = time.perf_counter()
     nz, ncols = 48, 9216
     o32 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float32, "cuda")
     ops = (o32.col_filter, o32.col_deriv, o32.hinv, o32.synth, o32.dsynth)
     x = torch.from_numpy(rng.normal(size=(ncols, nz))).float().cuda()
     w = torch.from_numpy(rng.normal(size=(ncols, nz))).float().cuda()
+    kt, pt = in_turns(lambda: cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts, pxi),
+                      lambda: cs.fused_column_solve(x, w, *ops, 1.25 * ts, pxi), 200)
+    say("column-solve-timing", t0,
+        f"9216 x 48 f32, 200 calls a run: kernel {kt} ms, plain {pt} ms a call "
+        f"(min {min(kt):.5f} vs {min(pt):.5f})")
+    return main_err, min(kt), min(pt)
 
-    def plain():
-        cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts, pxi)
 
-    def kernel():
-        cs.fused_column_solve(x, w, *ops, 1.25 * ts, pxi)
+def analysis_grid(tx, torch, nv, cells, ldim, nz, dtype):
+    gp = tx.GridParameters(
+        geometry="RLZ", xmin=0.0, xmax=3.0e5, num_cells=cells, lDim=ldim,
+        zmin=0.0, zmax=1.0e4, zDim=nz,
+        vars={n: i + 1 for i, n in enumerate("abcdefghi"[:nv])},
+    )
+    g = tx.create_grid(gp, dtype, device="cuda")
+    return g, (g.l_analysis, g.ring_mask, g.analysis_r, g.analysis_z)
 
-    for fn in (plain, kernel):  # warm-up
-        cuda_time_ms(fn, 20)
-    times = {"plain": [], "kernel": []}
-    for name, fn in (("plain", plain), ("kernel", kernel), ("kernel", kernel), ("plain", plain)):
-        times[name].append(cuda_time_ms(fn, 200))
-    ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    say("kernel-timing", t0,
-        f"9216 x 48 f32, 200 calls a run: kernel {times['kernel']} ms, plain "
-        f"{times['plain']} ms a call (min {ms:.5f} vs {plain_ms:.5f})")
-    return main_err, ms, plain_ms
+
+# (nvars, cells, lDim, nz): moist3d, the TC grid, the RLZ transform bench,
+# tests/test_pallas_transforms.py's two, and a large nl (l streamed)
+ANALYSIS_SHAPES = {
+    "moist3d": (9, 48, 64, 48),
+    "tc": (9, 100, 4, 24),
+    "transform": (8, 64, 128, 60),
+    "pallas_test_a": (4, 16, 64, 20),
+    "pallas_test_b": (2, 12, 32, 16),
+    "large_nl": (2, 8, 1024, 16),
+}
+
+
+def phase_analysis(tx, torch, ra):
+    """Phase 4; returns (max_abs_err at the TC shape f32, {shape: (ms,
+    plain_ms)})."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    lines, tc_err = [], None
+    for name, (nv, cells, ldim, nz) in ANALYSIS_SHAPES.items():
+        g64, ops64 = analysis_grid(tx, torch, nv, cells, ldim, nz, torch.float64)
+        _, ops32 = analysis_grid(tx, torch, nv, cells, ldim, nz, torch.float32)
+        x = torch.from_numpy(rng.normal(size=(nv,) + g64.spatial_shape)).cuda()
+        ref = ra.rlz_analysis_plain(x, *ops64)
+        k64 = ra.rlz_analysis(x, *ops64)
+        k32 = ra.rlz_analysis(x.float(), *ops32)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        e64 = float((k64 - ref).abs().max())
+        e32 = float((k32.double() - ref).abs().max())
+        assert torch.isfinite(k64).all() and torch.isfinite(k32).all()
+        assert e64 <= 1e-12 * scale, (name, "f64", e64, scale)
+        assert e32 <= 1e-5 * scale, (name, "f32", e32, scale)
+        if name == "tc":
+            tc_err = e32
+        p64 = ra.plan(x.shape, g64.params.b_rDim, torch.float64)
+        p32 = ra.plan(x.shape, g64.params.b_rDim, torch.float32)
+        lines.append(f"{name} {list(x.shape)}->b_rDim {g64.params.b_rDim}: rel err f64 "
+                     f"{e64 / scale:.2e}, f32 {e32 / scale:.2e}; tiles f64 {p64}, f32 {p32}")
+    say("analysis-vs-plain", t0,
+        "tol f64 1e-12, f32 vs f64 1e-5 of max|ref|; " + " | ".join(lines))
+
+    t0 = time.perf_counter()
+    times = {}
+    for name in ("moist3d", "transform", "tc"):
+        nv, cells, ldim, nz = ANALYSIS_SHAPES[name]
+        g, ops = analysis_grid(tx, torch, nv, cells, ldim, nz, torch.float32)
+        x = torch.from_numpy(rng.normal(size=(nv,) + g.spatial_shape)).float().cuda()
+        kt, pt = in_turns(lambda: ra.rlz_analysis_plain(x, *ops),
+                          lambda: ra.rlz_analysis(x, *ops), 100)
+        times[name] = (min(kt), min(pt))
+        print(f"  analysis {name} {list(x.shape)} f32: kernel {kt} ms, plain {pt} ms",
+              flush=True)
+    say("analysis-timing", t0,
+        "f32, 100 calls a run, min ms kernel vs plain: "
+        + ", ".join(f"{k} {a:.5f} vs {b:.5f}" for k, (a, b) in times.items()))
+    return tc_err, times
+
+
+def phase_probe(torch, ep):
+    """Phase 5; returns (max_abs_err, ms, plain_ms, entry-point launches)."""
+    t0 = time.perf_counter()
+    args = ep.probe_inputs("cuda")
+    ref = ep.probe_expr_plain(*args)
+    got = ep.probe_expr(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    assert torch.isfinite(got).all() and rel <= 1e-5, rel
+    kt, pt = in_turns(lambda: ep.probe_expr_plain(*args), lambda: ep.probe_expr(*args), 100)
+    say("probe-vs-plain", t0,
+        f"{list(ep.SHAPE)} f32: rel err {rel:.3e} (tol 1e-5), abs {err:.3e}; kernel "
+        f"{kt} ms, plain {pt} ms a call (min {min(kt):.5f} vs {min(pt):.5f})")
+    t0 = time.perf_counter()
+    ep.launches = 0
+    assert ep.main() == 0
+    launches = ep.launches
+    assert launches > 0
+    say("probe-entry-point", t0, f"python -m scythe_tpu_torch.ops.elementwise_probe "
+        f"in process: Triton kernel launches {launches}")
+    return err, min(kt), min(pt), launches
+
+
+def time_steps(torch, tmodel, model, n):
+    """(ms/step by CUDA events, steps/s by host clock, state) over ``n``
+    steps after 10 warm-up steps."""
+    grid, ctx, state = tmodel.initialize(model, torch.float32, "cuda")
+    step = tmodel.build_step(model, grid, ctx, torch.float32)
+    for _ in range(10):  # warm-up (and the Euler/AB2 ramp)
+        state = step(state)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        state = step(state)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - h0
+    assert torch.isfinite(state.spec).all()
+    return start.elapsed_time(end) / n, n / host_s, state, step
+
+
+def profile_steps(torch, state, step, card, label, path, n=10):
+    """torch.profiler over ``n`` steps; returns (busy us/step, wall us/step,
+    kernel launches/step) and writes the kernel table to ``path``."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        for _ in range(n):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - h0) * 1e6
+    avg = prof.key_averages()
+    # device rows only: an aten op's row repeats its kernels' time
+    kernels = [e for e in avg
+               if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    table = avg.table(sort_by="self_device_time_total", row_limit=40)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(f"{card}\n{n} steps of {label} f32, host wall {wall_us:.1f} us "
+                f"(profiled), device busy {busy_us:.1f} us\n{table}\n")
+    return busy_us / n, wall_us / n, sum(e.count for e in kernels) / n
 
 
 def main():
@@ -222,8 +392,12 @@ def main():
     import scythe_tpu_torch as tx
     from scythe_tpu_torch import model as tmodel
     from scythe_tpu_torch import timeintegration as tti
+    from scythe_tpu_torch.examples.tc_intensification_rlz import tc_mature_model
     from scythe_tpu_torch.ops import _build
     from scythe_tpu_torch.ops import column_solve as cs
+    from scythe_tpu_torch.ops import elementwise_probe as ep
+    from scythe_tpu_torch.ops import rlz_analysis as ra
+    from scythe_tpu_torch.physics import thermodynamics as td
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -241,82 +415,92 @@ def main():
     t0 = time.perf_counter()
     built = _build.load()
     assert built.lib.scythe_column_solve_max_nz() == cs.MAX_NZ
-    ptxas = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
+    assert built.lib.scythe_rlz_analysis_max_nz() == ra.MAX_NZ
+    assert built.lib.scythe_rlz_analysis_max_nl() == ra.MAX_NL
+    ptxas = [ln.strip() for ln in built.log.splitlines()
+             if ln.startswith("==") or "registers" in ln or "spill" in ln]
     say("build", t0,
-        f"{built.path.name} in {built.seconds:.2f} s (nvcc); " + " | ".join(ptxas))
+        f"{built.path.name} in {built.seconds:.2f} s (nvcc, sources in parallel); "
+        + " | ".join(ptxas))
 
+    out_dir = os.path.join(ROOT, "chiprun_out")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         model = moist3d(tx, tmp, n_steps=120, out_every=60)
         ref = tmodel.build_context(
             model, tx.create_grid(model.grid_params, torch.float64), torch.float64
         ).ref_state
-        pxi = float(ref.Pxi_bar)
-        main_err, ms, plain_ms = phase_kernel(torch, tti, cs, pxi)
+        cs_err, cs_ms, cs_plain_ms = phase_column_solve(torch, tti, cs, float(ref.Pxi_bar))
+        ra_err, ra_times = phase_analysis(tx, torch, ra)
+        ep_err, ep_ms, ep_plain_ms, ep_launches = phase_probe(torch, ep)
 
-        # ---- phase 4: the main path, counts reset just before it
+        # ---- phase 6: moist3d, the counts reset just before it
         t0 = time.perf_counter()
-        cs.launches = 0
+        cs.launches = ra.launches = 0
         grid, phys = tx.integrate_model(model, dtype=torch.float32, device="cuda")
-        launches = cs.launches
-        assert launches == model.num_ts == 120, launches
+        m3d_launches = (cs.launches, ra.launches)
+        assert m3d_launches == (model.num_ts, model.num_ts + 1) == (120, 121), m3d_launches
         assert phys.shape == (9, 144, 64, 48) and np.isfinite(phys).all()
         wmax = float(phys[MOIST3D_VARS.index("w")].max())
         assert wmax > 0.01, wmax
         outs = sorted(f for f in os.listdir(model.output_dir) if f.startswith("physical_out_"))
         assert len(outs) == 3, outs
-        say("main-path", t0,
-            f"integrate_model moist3d f32 on cuda, 120 steps: kernel launches "
-            f"{launches}, all fields finite, w.max {wmax:.4f} m/s, outputs {outs}")
-
+        say("moist3d-path", t0,
+            f"integrate_model moist3d f32 on cuda, 120 steps: column-solve launches "
+            f"{m3d_launches[0]}, analysis launches {m3d_launches[1]}, all fields finite, "
+            f"w.max {wmax:.4f} m/s, outputs {outs}")
         t0 = time.perf_counter()
-        grid, ctx, state = tmodel.initialize(model, torch.float32, "cuda")
-        step = tmodel.build_step(model, grid, ctx, torch.float32)
-        for _ in range(10):  # warm-up (and the Euler/AB2 ramp)
-            state = step(state)
-        torch.cuda.synchronize()
-        n = 100
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        start.record()
-        for _ in range(n):
-            state = step(state)
-        end.record()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - h0
-        ms_step = start.elapsed_time(end) / n
-        assert torch.isfinite(state.spec).all()
-        say("steps-per-second", t0,
-            f"moist3d f32, {n} steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s "
-            f"({ms_step:.4f} ms/step by CUDA events; {n / host_s:.2f} steps/s by host "
-            f"clock) on {card}")
+        ms_step, host_sps, state, step = time_steps(torch, tmodel, model, 100)
+        say("moist3d-steps-per-second", t0,
+            f"100 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
+            f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
         t0 = time.perf_counter()
-        from torch.profiler import ProfilerActivity, profile as tprof
+        busy, wall, nk = profile_steps(torch, state, step, card, "moist3d",
+                                       os.path.join(out_dir, "moist3d_profile.txt"))
+        say("moist3d-profile", t0,
+            f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
+            f"(profiled), {nk:.0f} kernel launches/step; table in "
+            f"chiprun_out/moist3d_profile.txt")
+        del state, step, grid
 
-        torch.cuda.synchronize()
-        with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            h0 = time.perf_counter()
-            for _ in range(10):
-                state = step(state)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - h0) * 1e6
-        avg = prof.key_averages()
-        # device rows only: an aten op's row repeats its kernels' time
-        kernels = [e for e in avg
-                   if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        table = avg.table(sort_by="self_device_time_total", row_limit=40)
-        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(ROOT, "chiprun_out", "moist3d_profile.txt"), "w") as f:
-            f.write(f"{card}\n10 steps of moist3d f32, host wall {wall_us:.1f} us "
-                    f"(profiled), device busy {busy_us:.1f} us\n{table}\n")
-        say("profile", t0,
-            f"10 steps: device busy {busy_us / 10:.1f} us/step of {wall_us / 10:.1f} "
-            f"us/step wall (profiled), {sum(e.count for e in kernels) / 10:.0f} "
-            f"kernel launches/step; table in chiprun_out/moist3d_profile.txt")
-        del state, step, ctx, grid
+        # ---- phase 7: the mature-TC path, the counts reset just before it
+        t0 = time.perf_counter()
+        tc = tc_mature_model(os.path.join(tmp, "tc_mature"), t_end=1800.0,
+                             output_interval=900.0)
+        cs.launches = ra.launches = 0
+        grid, phys = tx.integrate_model(tc, dtype=torch.float32, device="cuda")
+        tc_launches = (cs.launches, ra.launches)
+        assert tc_launches == (tc.num_ts, tc.num_ts + 1) == (900, 901), tc_launches
+        assert phys.shape == (9, 300, 4, 24) and np.isfinite(phys).all()
+        qc = float(td.ahyp(torch.from_numpy(phys[6]).double()).max())
+        qr = float(td.ahyp(torch.from_numpy(phys[7]).double()).max())
+        vmax = float(phys[4].max())
+        assert qc > TC_QC_MIN, qc
+        assert 12.0 < vmax < 20.0, vmax
+        outs = sorted(f for f in os.listdir(tc.output_dir) if f.startswith("physical_out_"))
+        assert len(outs) == 3, outs
+        say("tc-mature-path", t0,
+            f"integrate_model tc_mature_model f32 on cuda, 900 steps (30 min): "
+            f"column-solve launches {tc_launches[0]}, analysis launches "
+            f"{tc_launches[1]}, all fields finite, v.max {vmax:.4f} m/s, q_c max "
+            f"{qc:.4e} (> {TC_QC_MIN}), q_r max {qr:.4e}, w.max "
+            f"{float(phys[5].max()):.4f} m/s, outputs {outs}")
+        t0 = time.perf_counter()
+        ms_step, host_sps, state, step = time_steps(torch, tmodel, tc, 200)
+        say("tc-steps-per-second", t0,
+            f"200 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
+            f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
+        tc_sps = 1000.0 / ms_step
+        t0 = time.perf_counter()
+        busy, wall, nk = profile_steps(torch, state, step, card, "tc_mature",
+                                       os.path.join(out_dir, "tc_mature_profile.txt"))
+        say("tc-profile", t0,
+            f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
+            f"(profiled), {nk:.0f} kernel launches/step; table in "
+            f"chiprun_out/tc_mature_profile.txt")
+        del state, step, grid
 
-        # ---- phase 5: parity on the card
+        # ---- phase 8: parity on the card
         t0 = time.perf_counter()
         sm = small(tx, tmp, 20)
         _, p_gpu = tx.integrate_model(sm, dtype=torch.float64, device="cuda",
@@ -325,6 +509,19 @@ def main():
                                       write_outputs=False)
         rel_small = per_field_rel(p_gpu, p_cpu)
         assert max(rel_small) <= 1e-9, rel_small
+        tc16 = tc_mature_model(os.path.join(tmp, "tc16"), t_end=200.0,
+                               output_interval=200.0, num_cells=16, ts=4.0)
+        _, p_gpu = tx.integrate_model(tc16, dtype=torch.float64, device="cuda",
+                                      write_outputs=False)
+        _, p_cpu = tx.integrate_model(tc16, dtype=torch.float64, device="cpu",
+                                      write_outputs=False)
+        rel_tc16 = per_field_rel(p_gpu, p_cpu)
+        assert max(rel_tc16) <= 1e-9, rel_tc16
+        say("parity-f64", t0,
+            f"cuda f64 (kernels) vs cpu f64 (plain), rel err per field (tol 1e-9): small "
+            f"20 steps {fmt_rel(rel_small)}; TC bundle 16 cells 50 steps {fmt_rel(rel_tc16)}")
+
+        t0 = time.perf_counter()
         m20 = moist3d(tx, tmp, n_steps=20, out_every=20, name="moist3d_20")
         _, p32 = tx.integrate_model(m20, dtype=torch.float32, device="cuda",
                                     write_outputs=False)
@@ -333,25 +530,59 @@ def main():
         rel_m3d = per_field_rel(p32, p64)
         checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
         assert all(rel_m3d[v] <= 1e-4 for v in checked), rel_m3d
-        say("parity", t0,
-            "small 20 steps cuda f64 vs cpu f64, rel err per field "
-            + json.dumps(dict(zip(MOIST3D_VARS, [float(f"{e:.3e}") for e in rel_small])))
-            + " (tol 1e-9); moist3d 20 steps cuda f32 vs cuda f64 "
-            + json.dumps(dict(zip(MOIST3D_VARS, [float(f"{e:.3e}") for e in rel_m3d])))
-            + f" (tol 1e-4 on fields {[MOIST3D_VARS[v] for v in checked]})")
+        tc20 = tc_mature_model(os.path.join(tmp, "tc20"), t_end=40.0, output_interval=40.0)
+        _, p32 = tx.integrate_model(tc20, dtype=torch.float32, device="cuda",
+                                    write_outputs=False)
+        _, p64 = tx.integrate_model(tc20, dtype=torch.float64, device="cuda",
+                                    write_outputs=False)
+        rel_tc = per_field_rel(p32, p64)
+        tc_checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
+        bounds = [TC_F32_BOUND.get(MOIST3D_VARS[v], 1e-4) for v in range(9)]
+        print(f"  TC 20 steps cuda f32 vs f64 rel err {fmt_rel(rel_tc)}", flush=True)
+        assert all(rel_tc[v] <= bounds[v] for v in tc_checked), rel_tc
+        say("parity-f32", t0,
+            f"cuda f32 vs cuda f64, 20 steps, rel err per field: moist3d {fmt_rel(rel_m3d)} "
+            f"(tol 1e-4 on {[MOIST3D_VARS[v] for v in checked]}); TC full width "
+            f"{fmt_rel(rel_tc)} (tol {TC_F32_BOUND} else 1e-4, on "
+            f"{[MOIST3D_VARS[v] for v in tc_checked]})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_column_solve",
-        "route": "cuda",
-        "source": "scythe_tpu_torch/ops/csrc/column_solve.cu",
-        "replaces": "scythe_tpu/ops/pallas_semiimplicit.py:118",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(f"  TC mature path: {tc_sps:.2f} steps/s; moist3d launches {m3d_launches}",
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "fused_column_solve",
+            "route": "cuda",
+            "source": "scythe_tpu_torch/ops/csrc/column_solve.cu",
+            "replaces": "scythe_tpu/ops/pallas_semiimplicit.py:118",
+            "launches": tc_launches[0],
+            "max_abs_err": cs_err,
+            "ms": cs_ms,
+            "plain_ms": cs_plain_ms,
+        },
+        {
+            "name": "rlz_analysis",
+            "route": "cuda",
+            "source": "scythe_tpu_torch/ops/csrc/rlz_analysis.cu",
+            "replaces": "scythe_tpu/ops/pallas_transforms.py:105",
+            "launches": tc_launches[1],
+            "max_abs_err": ra_err,
+            "ms": ra_times["moist3d"][0],
+            "plain_ms": ra_times["moist3d"][1],
+        },
+        {
+            "name": "probe_expr",
+            "route": "triton",
+            "source": "scythe_tpu_torch/ops/elementwise_probe.py",
+            "replaces": "tools/probe_pallas_elementwise.py:48",
+            "launches": ep_launches,
+            "max_abs_err": ep_err,
+            "ms": ep_ms,
+            "plain_ms": ep_plain_ms,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

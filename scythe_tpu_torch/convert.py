@@ -2,7 +2,8 @@
 
 The dynamical core has no learned weights: what a run carries is the grid
 operators (rebuilt from the configuration by either package), the reference
-state and the model state.  These functions move the last two across as
+state, the model state and the context extras its options read (the
+sponge's reference state).  These functions move the last three across as
 numpy arrays, so a run can start in one package from the other's state.
 Nothing here imports jax: a JAX array converts through ``np.asarray``.
 """
@@ -18,6 +19,8 @@ from .physics.reference_state import ReferenceState
 from .timeintegration import ModelState
 
 _STATE_ARRAYS = ("spec", "expdot_nm1", "expdot_nm2", "impdot_nm1", "impdot_nm2")
+# ctx.extras a ported option reads (model._set_boundary_refs builds them)
+_CONTEXT_EXTRAS = ("sponge_ref",)
 
 
 def _fields(src, names) -> dict:
@@ -56,6 +59,20 @@ def load_jax_checkpoint(path: str, device: Any = "cpu", dtype=None):
     from .io import load_checkpoint
 
     return load_checkpoint(path, dtype, device)
+
+
+def context_extras_from_numpy(extras, device: Any = "cpu", dtype=None) -> dict:
+    """The context extras a run carries besides its state, from the JAX
+    package's ``ctx.extras`` (a mapping of arrays): ``sponge_ref``, the
+    filtered initial state the radial sponge relaxes toward.  Merge the
+    result into the port's ``ctx.extras`` to continue a run begun in the
+    JAX package."""
+    out = {}
+    for k in _CONTEXT_EXTRAS:
+        if k in extras:
+            t = torch.from_numpy(np.array(extras[k]))
+            out[k] = t.to(device=device, dtype=dtype or t.dtype)
+    return out
 
 
 def reference_state_from_numpy(rs, device: Any = "cpu", dtype=torch.float64) -> ReferenceState:

@@ -122,7 +122,7 @@ class EqResult:
     expdot: torch.Tensor  # [nvars, *spatial]
     impdot: torch.Tensor | None = None
     overrides: dict[int, torch.Tensor] = field(default_factory=dict)
-    # vertical eddy viscosity for options['implicit_vdiff'] (not ported)
+    # vertical eddy viscosity [*spatial] for options['implicit_vdiff']
     k_v: torch.Tensor | None = None
 
 

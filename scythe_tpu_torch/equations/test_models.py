@@ -10,6 +10,7 @@ import torch
 
 from ..physics import microphysics as mp
 from ..physics import thermodynamics as td
+from ..physics import turbulence as tb
 from .common import EqContext, EqResult, equation_set, stack_tendencies
 
 
@@ -22,17 +23,12 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
     ``scythe_tpu.equations.test_models.MoistEulerRLZ``.
 
     Vars: s xi mu u v w mu_c mu_r qss  (u radial, v tangential, w vertical).
-    options['smagorinsky'] > 0 and options['implicit_vdiff'] are not ported
-    and raise NotImplementedError.
+    With options['smagorinsky'] = Cs the diffusivity takes the capped
+    Smagorinsky closure (physics/turbulence.py); with
+    options['implicit_vdiff'] the vertical K dzz term leaves the explicit
+    tendency and the vertical diffusivity is returned as ``EqResult.k_v``
+    for the backward-Euler column solve (model.build_implicit_vdiff).
     """
-    if float(ctx.options.get("smagorinsky", 0.0) or 0.0) > 0.0:
-        raise NotImplementedError(
-            "options['smagorinsky'] is not ported to scythe_tpu_torch yet"
-        )
-    if ctx.options.get("implicit_vdiff"):
-        raise NotImplementedError(
-            "options['implicit_vdiff'] is not ported to scythe_tpu_torch yet"
-        )
     K = ctx.p("K")
     f_cor = ctx.p("f", 0.0)
     rs = ctx.ref_state
@@ -86,14 +82,35 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
     )[:, None, None, None]
     # physical_params['K_v']: separate constant vertical diffusivity
     K_v_const = float(ctx.p("K_v", K))
-    # the JAX package picks the two-term form whenever
-    # options['smagorinsky_axes'] is 'rl', even with the closure off
+    cs = float(ctx.options.get("smagorinsky", 0.0) or 0.0)
+    ivd = bool(ctx.options.get("implicit_vdiff"))
+    # options['smagorinsky_axes'] = 'rl': the horizontal-only closure; the
+    # JAX package picks the two-term Laplacian form whenever it is 'rl',
+    # even with the closure off
     smag_h = str(ctx.options.get("smagorinsky_axes", "rlz")) == "rl"
+    K_eff, Kz_eff, k_v = K, K_v_const, (K_v_const if ivd else None)
+    if cs > 0.0:
+        k_t = tb.smagorinsky_viscosity(
+            ctx.grid, ctx.ts, cs,
+            (dr[3], dl[3] / r, dz[3]), (dr[4], dl[4] / r, dz[4]),
+            (dr[5], dl[5] / r, dz[5]), dr.dtype,
+            n2=None if smag_h else (td.GRAVITY / td.Cpd) * (dz[0] + sbar_z),
+            split_vertical=ivd and not smag_h,
+            horizontal_only=smag_h,
+        )
+        if smag_h:
+            K_eff = K + k_t
+        elif ivd:
+            K_eff, k_v = K + k_t[0], K_v_const + k_t[1]
+        else:
+            K_eff, Kz_eff = K + k_t, K_v_const + k_t
     horiz = drr + dr / r + dll / (r * r)
-    if K_v_const == K and not smag_h:
-        lap_all = lap_mask * (K * (horiz + dzz))
+    if ivd:
+        lap_all = lap_mask * (K_eff * horiz)
+    elif K_v_const == K and not smag_h:
+        lap_all = lap_mask * (K_eff * (horiz + dzz))
     else:
-        lap_all = lap_mask * (K * horiz + K_v_const * dzz)
+        lap_all = lap_mask * (K_eff * horiz + Kz_eff * dzz)
 
     # pressure gradients (perturbation form; the vertical carries the exact
     # reference-gradient cross term, EqContext.vertical_pgf)
@@ -151,4 +168,8 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
     return EqResult(
         expdot=adv_all + lap_all + stack_tendencies(nvars, sh, dt, extra),
         impdot=stack_tendencies(nvars, sh, dt, imp),
+        k_v=(
+            torch.broadcast_to(torch.as_tensor(k_v, dtype=dt, device=u.device), sh)
+            if ivd else None
+        ),
     )

@@ -11,6 +11,9 @@ The counterpart of ``scythe_tpu.grids.base`` in its plain-matmul mode:
   with ``torch.einsum``: cubic B-splines in r, real-DFT matrices with a
   per-ring wavenumber mask in lambda, Chebyshev (dense DCT matrices) in z.
   These are plain GEMMs; the JAX package also leaves them to the compiler.
+  The RLZ analysis is the exception: on the card it is one hand-written
+  CUDA kernel (``ops/rlz_analysis.py``), as the JAX package reserves its
+  fused Pallas analysis for RLZ.
 * ``synthesis`` returns every derivative slot of the reference physical
   layout: value, d/dr, d2/dr2 (+ d/dl, d2/dl2) (+ d/dz, d2/dz2).
 * ``project`` + ``solve_spectral`` factor the analysis into a local
@@ -30,6 +33,7 @@ import torch
 
 from ..basis import bspline, chebyshev, fourier
 from ..config import GridParameters
+from ..ops import rlz_analysis
 
 GEOMETRIES = ("R", "RL", "RZ", "RLZ")
 _NOT_PORTED = ("XYZ", "SL", "SLZ")
@@ -177,7 +181,17 @@ class Grid:
         return self._mm("vKz,vbkz->vbkK", self.analysis_z, rc)
 
     def analysis(self, phys: torch.Tensor) -> torch.Tensor:
-        """physical [nvars, *spatial] -> spectral [nvars, b_rDim, ...]."""
+        """physical [nvars, *spatial] -> spectral [nvars, b_rDim, ...].  On
+        RLZ the whole chain is ``ops.rlz_analysis``: the CUDA kernel for
+        tensors on the card, its plain einsum version on the CPU."""
+        if self.geometry == "RLZ":
+            if phys.device.type == "cuda":
+                # the kernel reads row-major; a field computed from the
+                # synthesis' einsum outputs may carry their permuted strides
+                phys = phys.contiguous()
+            return rlz_analysis.rlz_analysis(
+                phys, self.l_analysis, self.ring_mask, self.analysis_r, self.analysis_z
+            )
         return self._analysis_with(self.analysis_r, "vbr", phys)
 
     def project(self, phys: torch.Tensor) -> torch.Tensor:
@@ -282,7 +296,8 @@ def create_grid(
         )
 
     def prep(op):
-        return torch.as_tensor(np.asarray(op), dtype=dtype, device=device)
+        # contiguous: the RLZ analysis kernel reads the operators row-major
+        return torch.as_tensor(np.ascontiguousarray(op), dtype=dtype, device=device)
 
     # --- radial spline operators, per variable BC pair ------------------
     an, ms = [], []

@@ -8,10 +8,12 @@ of eager steps; the host touches data only at output boundaries (CSV write
 + NaN watchdog), the reference cadence (semiimplicit.jl:288-293).
 
 Ported options: ``semiimplicit`` (constant ``si_mode`` only), ``si_scale``,
-the equation-set hooks (``reference_quirks``, ``exact_vertical_pgf``,
-``stiff_relaxation``, ``condensation``, ``condensation_rate_cap``,
-``condensation_tau``, ``sedimentation``).  Every other option the JAX
-``build_step`` reads raises NotImplementedError naming it.
+the radial sponge (``sponge_width``, ``sponge_tau``), ``surface_fluxes``,
+``implicit_vdiff`` (with ``vdiff_exclude``), and the equation-set hooks
+(``reference_quirks``, ``exact_vertical_pgf``, ``stiff_relaxation``,
+``condensation``, ``condensation_rate_cap``, ``condensation_tau``,
+``sedimentation``, ``smagorinsky``, ``smagorinsky_axes``).  Every other
+option the JAX ``build_step`` reads raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -26,23 +28,22 @@ import torch
 
 from . import io as sio
 from . import timeintegration as ti
+from .basis import chebyshev
 from .config import ModelParameters
 from .equations.common import EqContext, get_equation_set
 from .grids.base import Grid, create_grid
 from .physics import microphysics as mp
 from .physics import reference_state as rsmod
+from .physics import thermodynamics as td
 
 log = logging.getLogger("scythe_tpu_torch")
 
 # options of the JAX build_step / run loop that are not ported yet: each
 # raises when it is switched on (a value that is not falsy)
 _UNPORTED_OPTIONS = (
-    "sponge_width",
     "sponge_top_width",
     "radiation_width",
     "modal_filter_tau",
-    "surface_fluxes",
-    "implicit_vdiff",
     "incremental_analysis",
     "topography_file",
     "checkpoint_interval",
@@ -81,6 +82,129 @@ def build_context(model: ModelParameters, grid: Grid, dtype) -> EqContext:
         var_index=grid.params.var_index,
         ref_state=ref,
     )
+
+
+def build_surface_fluxes(grid: Grid, ctx: EqContext, cfg: dict, dtype):
+    """Bulk-aerodynamic air-sea fluxes (``scythe_tpu.model.
+    build_surface_fluxes``): options['surface_fluxes'] = {'sst': K,
+    'Ck': 1.2e-3, 'Cd': 1.5e-3, 'depth': 600.0, 'wind_floor': 1.0}.
+
+    Enthalpy and moisture fluxes Ck |U| (x_sea* - x_air) toward the
+    saturated sea-surface state at the SST, and momentum drag -Cd |U| u,
+    evaluated at the lowest level and deposited over an exp(-z/depth)
+    profile of unit column integral on the model levels.  The sea-surface
+    state comes from the reference state's surface pressure, on the host in
+    float64.  Returns apply(expdot, phys) -> expdot, which adds into
+    ``expdot`` in place (the step hands it the tendency the equation set
+    made this step, which nothing else holds yet)."""
+    p = grid.params
+    vi = p.var_index
+    rs = ctx.ref_state
+    if rs is None:
+        raise ValueError("options['surface_fluxes'] requires a ref_state_file")
+    for need in ("s", "mu", "u"):
+        if need not in p.vars:
+            raise ValueError(
+                f"options['surface_fluxes'] needs variable {need!r} "
+                f"(moist Euler family); got {list(p.vars)}"
+            )
+    sst = float(cfg["sst"])
+    ck = float(cfg.get("Ck", 1.2e-3))
+    cd = float(cfg.get("Cd", 1.5e-3))
+    depth = float(cfg.get("depth", 600.0))
+    floor = float(cfg.get("wind_floor", 1.0))
+
+    z = np.asarray(grid.z_mish, np.float64)
+    wz = np.exp(-(z - z[0]) / depth)
+    trapz = getattr(np, "trapezoid", None) or np.trapz
+    wz = torch.as_tensor(wz / trapz(wz, z), dtype=dtype, device=grid.device)
+
+    def host(x):
+        return torch.tensor(float(x), dtype=torch.float64)
+
+    sbar0, xibar0, mubar0 = (float(a[0, 0]) for a in (rs.sbar, rs.xibar, rs.mubar))
+    _, rho0, _, p0 = td.thermodynamic_tuple(host(sbar0), host(xibar0), host(mubar0))
+    q_star = float(td.q_sat_liquid(host(sst), p0))
+    s_star = float(td.entropy(host(sst), rho0, host(q_star)))
+
+    i_s, i_mu, i_u = vi("s"), vi("mu"), vi("u")
+    i_v = vi("v") if "v" in p.vars else None
+
+    def apply(expdot, phys):
+        u1 = phys[i_u][..., 0]
+        spd2 = u1 * u1 + floor * floor
+        if i_v is not None:
+            v1 = phys[i_v][..., 0]
+            spd2 = spd2 + v1 * v1
+        spd = torch.sqrt(spd2)
+        s1 = phys[i_s][..., 0] + sbar0
+        mu1 = phys[i_mu][..., 0] + mubar0
+        q1 = td.ahyp(mu1)
+        f_s = ck * spd * (s_star - s1)
+        f_mu = ck * spd * (q_star - q1) * td.dmudq(mu1, q1)
+        expdot[i_s] += f_s[..., None] * wz
+        expdot[i_mu] += f_mu[..., None] * wz
+        expdot[i_u] += (-cd * spd * u1)[..., None] * wz
+        if i_v is not None:
+            expdot[i_v] += (-cd * spd * v1)[..., None] * wz
+        return expdot
+
+    return apply
+
+
+def build_implicit_vdiff(grid: Grid, dtype, exclude=("xi", "qss")):
+    """Backward-Euler implicit vertical diffusion (``scythe_tpu.model.
+    build_implicit_vdiff``).  Every K-diffused variable phi solves, per
+    column, after the explicit and semi-implicit update,
+
+        (I + ts W^-1 D^T diag(w_q K_v) D) phi^{n+1} = phi*
+
+    the symmetric flux form of -d/dz(K d/dz): D the unconstrained spectral
+    derivative on the Gauss points, w_q the Chebyshev-Gauss quadrature
+    weights, K_v the closure field the equation set returns
+    (``EqResult.k_v``).  The [nz, nz] systems are assembled batched over all
+    columns and solved with ``torch.linalg.solve`` (the JAX package also
+    leaves this solve to its linear-algebra library), the diffused
+    variables as shared right-hand sides.
+
+    ``exclude`` names the variables left out (xi and qss are not
+    K-diffused, as in the equation sets' Laplacian mask;
+    options['vdiff_exclude']).  A bare string names one variable; the JAX
+    package's ``tuple(exclude)`` splits it into characters."""
+    p = grid.params
+    if isinstance(exclude, str):
+        exclude = (exclude,)
+    for name in exclude:
+        if name not in p.vars:
+            raise ValueError(
+                f"options['vdiff_exclude'] names unknown variable "
+                f"{name!r} (vars: {list(p.vars)})"
+            )
+    nz = p.zDim
+    z0 = chebyshev.build_ops(nz, p.zmin, p.zmax, p.b_zDim)
+    d_r0 = z0.dsynth @ (z0.constrain @ z0.analysis)
+    theta = np.pi * (np.arange(nz) + 0.5) / nz
+    wq = 0.5 * (p.zmax - p.zmin) * (np.pi / nz) * np.sin(theta)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=grid.device)
+
+    dmat, wq_t, winv = dev(d_r0), dev(wq), dev(1.0 / wq)
+    idxs = tuple(v for v, name in enumerate(p.vars) if name not in exclude)
+    eye = torch.eye(nz, dtype=dtype, device=grid.device)
+
+    def apply(var_np1, k_v, ts):
+        # k_v: [*spatial] (z last); writes the diffused rows of var_np1 in
+        # place (the step's own new tensor) and returns it
+        s = torch.einsum("mi,...m,mj->...ij", dmat, wq_t * k_v, dmat)
+        m = eye + ts * (winv[:, None] * s)
+        rhs = torch.stack([var_np1[i] for i in idxs], dim=-1)
+        sol = torch.linalg.solve(m, rhs)
+        for k, i in enumerate(idxs):
+            var_np1[i] = sol[..., k]
+        return var_np1
+
+    return apply
 
 
 def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
@@ -124,6 +248,38 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
 
     ts = model.ts
 
+    # optional Rayleigh sponge over the outer ``sponge_width`` meters toward
+    # the filtered initial state (ctx.extras['sponge_ref']), cos^2 ramp,
+    # timescale ``sponge_tau``
+    sponge_sigma = sponge_ref = None
+    sp_w = float(opts.get("sponge_width", 0.0) or 0.0)
+    if sp_w > 0.0:
+        tau = float(opts.get("sponge_tau", 600.0))
+        ramp = torch.clamp((ctx.coords["r"] - (p.xmax - sp_w)) / sp_w, 0.0, 1.0)
+        sponge_sigma = (torch.sin(0.5 * np.pi * ramp) ** 2 / tau).to(dtype)
+        if "sponge_ref" not in ctx.extras:
+            raise ValueError(
+                "options['sponge_width'] needs ctx.extras['sponge_ref'] (the "
+                "initial far-field state); initialize() sets it"
+            )
+        sponge_ref = ctx.extras["sponge_ref"]
+
+    sfx_apply = None
+    sfx_cfg = opts.get("surface_fluxes")
+    if sfx_cfg:
+        sfx_apply = build_surface_fluxes(grid, ctx, dict(sfx_cfg), dtype)
+
+    vdiff_apply = None
+    if opts.get("implicit_vdiff"):
+        if model.equation_set not in ("MoistEulerRLZ", "MoistEulerXYZ", "MoistEulerSLZ"):
+            raise ValueError(
+                "options['implicit_vdiff'] is supported by the MoistEuler* "
+                f"equation sets, not {model.equation_set!r}"
+            )
+        vdiff_apply = build_implicit_vdiff(
+            grid, dtype, opts.get("vdiff_exclude", ("xi", "qss"))
+        )
+
     def step(state: ti.ModelState) -> ti.ModelState:
         fields = grid.synthesis(state.spec)
         res = eqset(fields, ctx)
@@ -132,8 +288,13 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
             phys = phys.clone()  # fields["val"] is a view of a synthesis buffer
             for v, arr in res.overrides.items():
                 phys[v] = arr
+        expdot = res.expdot
+        if sfx_apply is not None:
+            expdot = sfx_apply(expdot, phys)
+        if sponge_sigma is not None:
+            expdot = expdot - sponge_sigma[None] * (phys - sponge_ref)
         var_np1, e_nm1, e_nm2 = ti.explicit_step(
-            phys, res.expdot, state.expdot_nm1, state.expdot_nm2, state.t, ts
+            phys, expdot, state.expdot_nm1, state.expdot_nm2, state.t, ts
         )
         # var_np1 is a new tensor made by explicit_step, held by no history,
         # so the corrector and the condensation adjustment write into it in
@@ -170,6 +331,8 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
         if impdot is not None:
             i_n = torch.stack([impdot[w_i], impdot[xi_i]]) if slim else impdot
             i_nm1, i_nm2 = i_n, state.impdot_nm1
+        if vdiff_apply is not None:
+            var_np1 = vdiff_apply(var_np1, res.k_v, ts)
         if needs_condensation:
             var_np1 = mp.condensation_adjustment(var_np1, impdot, ctx)
         return ti.ModelState(
@@ -198,6 +361,7 @@ def initialize(model: ModelParameters, dtype=None, device: Any = "cpu"):
     ctx = build_context(model, grid, dtype)
     phys0 = sio.read_physical_grid(model.initial_conditions, grid)
     spec0 = grid.analysis(torch.as_tensor(phys0, dtype=dtype, device=grid.device))
+    _set_boundary_refs(ctx, grid, spec0)
     state = ti.initial_state(
         spec0,
         (grid.nvars,) + grid.spatial_shape,
@@ -205,6 +369,15 @@ def initialize(model: ModelParameters, dtype=None, device: Any = "cpu"):
         imp_rows=imp_history_rows(model),
     )
     return grid, ctx, state
+
+
+def _set_boundary_refs(ctx, grid, spec0):
+    """The radial sponge's reference: the *filtered* initial state, what the
+    spline space represents, not the raw ICs (``scythe_tpu.model.
+    _set_boundary_refs``; the top sponge and the radiation boundary, which
+    also read it there, are not ported)."""
+    if float(ctx.options.get("sponge_width", 0.0) or 0.0) > 0.0:
+        ctx.extras["sponge_ref"] = grid.synthesis(spec0)["val"].clone()
 
 
 def integrate_model(

@@ -1,10 +1,15 @@
 """Build the port's CUDA kernels at first use.
 
-``load()`` compiles every ``ops/csrc/*.cu`` with nvcc for Hopper (sm_90a)
-into one shared library with a plain C interface under
-``scythe_tpu_torch/_build/``, keyed by a hash of the sources and flags, and
-loads it with ctypes.  Nothing is built when the package is imported: the
-CPU path never needs nvcc.  A failed build raises with nvcc's output.
+``load()`` compiles every ``ops/csrc/*.cu`` with nvcc for Hopper (sm_90a),
+one nvcc per source, all started together, and links the objects into one
+shared library with a plain C interface under ``scythe_tpu_torch/_build/``,
+keyed by a hash of the sources and flags; it loads it with ctypes.  Nothing
+is built when the package is imported: the CPU path never needs nvcc.  A
+failed build raises with nvcc's output.
+
+The Triton kernels (``ops/elementwise_probe.py``) compile at their first
+launch; ``triton_cache_dir()`` points Triton's cache into the same
+directory.
 """
 
 from __future__ import annotations
@@ -21,9 +26,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills
 )
 
@@ -58,17 +64,64 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 9 + [i32, i32, f64, f64, ptr]
         fn.restype = i32
-    lib.scythe_column_solve_max_nz.argtypes = []
-    lib.scythe_column_solve_max_nz.restype = i32
+    for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64"):
+        fn = getattr(lib, name)
+        # x, l_analysis, ring_mask, analysis_r, analysis_z, out; V R L Z B
+        fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        fn.restype = i32
+    lib.scythe_rlz_analysis_plan.argtypes = [i32] * 5 + [ptr]
+    lib.scythe_rlz_analysis_plan.restype = None
+    for name in (
+        "scythe_column_solve_max_nz",
+        "scythe_rlz_analysis_max_nz",
+        "scythe_rlz_analysis_max_nl",
+    ):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
     lib.scythe_cuda_error_string.argtypes = [i32]
     lib.scythe_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _compile(sources: list[Path], path: Path) -> str:
+    """nvcc -c for every source at once, then one link; returns the log."""
+    nvcc = _nvcc()
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    procs = [
+        (src, subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+        for src, obj in zip(sources, objs)
+    ]
+    log, failed = "", []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        log += f"== {src.name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+    return log
 
 
 @functools.cache
 def load() -> Built:
     """Build (if needed) and load the kernel library; cached per process."""
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -76,18 +129,18 @@ def load() -> Built:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile(sources, path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(path))
     _declare(lib)
     return Built(lib=lib, path=path, seconds=seconds, log=log)
+
+
+def triton_cache_dir() -> str:
+    """Point Triton's kernel cache into the build directory (before the
+    first ``import triton``), so a run writes nothing outside the checkout."""
+    cache = BUILD_DIR / "triton"
+    cache.mkdir(parents=True, exist_ok=True)
+    os.environ["TRITON_CACHE_DIR"] = str(cache)
+    return str(cache)

@@ -178,12 +178,9 @@ def test_state_round_trip(case):
 @pytest.mark.parametrize(
     "options,named",
     [
-        ({"sponge_width": 1000.0}, "sponge_width"),
         ({"sponge_top_width": 1000.0}, "sponge_top_width"),
         ({"radiation_width": 1000.0}, "radiation_width"),
         ({"modal_filter_tau": 30.0}, "modal_filter_tau"),
-        ({"surface_fluxes": {"sst": 300.0}}, "surface_fluxes"),
-        ({"implicit_vdiff": True}, "implicit_vdiff"),
         ({"incremental_analysis": True}, "incremental_analysis"),
         ({"topography_file": "hs.csv"}, "topography_file"),
         ({"checkpoint_interval": 1.0}, "checkpoint_interval"),
@@ -203,12 +200,20 @@ def test_unported_options_raise(case, options, named):
         tmodel.build_step(m, grid, ctx, torch.float64)
 
 
-def test_smagorinsky_raises_in_the_equation_set(case):
-    m = _model(tx, case, 1, {"smagorinsky": 0.2})
+@pytest.mark.parametrize(
+    "options",
+    [{"sponge_width": 3000.0}, {"surface_fluxes": {"sst": 300.0}},
+     {"implicit_vdiff": True}, {"smagorinsky": 0.2}],
+    ids=lambda o: next(iter(o)),
+)
+def test_options_ported_with_the_tc_slice_run(case, options):
+    """Options ported with the mature-TC slice build and step on this
+    configuration too (tests/test_torch_tc_slice.py holds them against the
+    JAX package)."""
+    m = _model(tx, case, 1, options)
     grid, ctx, state = tmodel.initialize(m, torch.float64)
-    step = tmodel.build_step(m, grid, ctx, torch.float64)
-    with pytest.raises(NotImplementedError, match="smagorinsky"):
-        step(state)
+    out = tmodel.build_step(m, grid, ctx, torch.float64)(state)
+    assert torch.isfinite(out.spec).all()
 
 
 @pytest.mark.parametrize(

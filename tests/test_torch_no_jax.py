@@ -1,6 +1,7 @@
 """scythe_tpu_torch imports and runs with jax (and the JAX package) blocked:
-a fresh interpreter with sys.modules['jax'] = None imports the package and
-runs 3 steps of the moist RLZ core on the CPU."""
+a fresh interpreter with sys.modules['jax'] = None imports the package (its
+kernels' modules and the TC example included) and runs 3 steps of the moist
+RLZ core on the CPU, importing no triton."""
 
 import os
 import subprocess
@@ -22,7 +23,9 @@ SCRIPT = textwrap.dedent(
     import torch
     torch.set_num_threads(2)
     import scythe_tpu_torch as tx
-    from scythe_tpu_torch.ops import column_solve
+    from scythe_tpu_torch.ops import column_solve, elementwise_probe, rlz_analysis
+    from scythe_tpu_torch.examples import tc_intensification_rlz  # noqa: F401
+    from scythe_tpu_torch.physics import turbulence  # noqa: F401
 
     tmp = tempfile.mkdtemp()
     gp = tx.GridParameters(
@@ -52,7 +55,8 @@ SCRIPT = textwrap.dedent(
     )
     grid, phys = tx.integrate_model(model, dtype=torch.float64, device="cpu")
     assert np.isfinite(phys).all() and phys.shape == (9, 12, 8, 8)
-    assert column_solve.launches == 0
+    assert column_solve.launches == rlz_analysis.launches == 0
+    assert elementwise_probe.launches == 0 and "triton" not in sys.modules
     assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NOJAX_OK", sorted(os.listdir(os.path.join(tmp, "out"))))
