@@ -19,11 +19,15 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    plain);
 4. RLZ analysis against its plain version on the card: moist3d
    [9, 144, 64, 48], the TC grid [9, 300, 4, 24], the RLZ transform bench
-   [8, 192, 128, 60], the two shapes of tests/test_pallas_transforms.py and
-   one large-nl shape [2, 24, 1024, 16] (l streamed through shared memory);
-   f64 kernel vs f64 plain (1e-12 of max|ref|), f32 kernel vs f64 plain
-   (1e-5); then timed at the moist3d, transform and TC shapes in f32, in
-   turns;
+   [8, 192, 128, 60], the two shapes of tests/test_pallas_transforms.py, one
+   large-nl shape [2, 24, 1024, 16] (l streamed through shared memory) and a
+   ragged one [3, 21, 12, 13] (nz 13: x copied element by element); f64
+   kernel vs f64 plain (1e-12 of max|ref|), f32 kernel vs f64 plain (1e-5,
+   and at most 4x the f32 plain chain's own error), two calls bitwise equal
+   in each dtype, the plan and its block count printed; then the f32 kernel
+   and plain chain timed at the moist3d, transform and TC shapes, and f64 at
+   moist3d, in turns, each as device time (the calls queued behind a sleep
+   kernel, so host time between launches does not count) and back to back;
 5. tendency-stage probe (Triton) against its plain version at
    [9, 144, 3072] f32 (rel err 1e-5 of max|ref|), timed in turns, then its
    entry point (python -m scythe_tpu_torch.ops.elementwise_probe) run once;
@@ -164,14 +168,35 @@ def cuda_time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def in_turns(plain, kernel, n):
+def queued_time_ms(fn, n):
+    """ms a call on the device alone: the ``n`` calls are queued behind a
+    sleep kernel that outlasts their enqueueing, so the device runs them
+    back to back whatever the host costs a call."""
+    import torch
+
+    h0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_s = time.perf_counter() - h0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)  # cycles: ~2x at ~2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def in_turns(plain, kernel, n, timer=cuda_time_ms):
     """(kernel ms list, plain ms list) timed plain, kernel, kernel, plain
     after a warm-up of each."""
     for fn in (plain, kernel):
         cuda_time_ms(fn, max(2, n // 10))
     times = {plain: [], kernel: []}
     for fn in (plain, kernel, kernel, plain):
-        times[fn].append(cuda_time_ms(fn, n))
+        times[fn].append(timer(fn, n))
     return times[kernel], times[plain]
 
 
@@ -251,7 +276,8 @@ def analysis_grid(tx, torch, nv, cells, ldim, nz, dtype):
 
 
 # (nvars, cells, lDim, nz): moist3d, the TC grid, the RLZ transform bench,
-# tests/test_pallas_transforms.py's two, and a large nl (l streamed)
+# tests/test_pallas_transforms.py's two, a large nl (l streamed) and a
+# ragged one (every tile ragged; nz 13 rows are not 16-byte units)
 ANALYSIS_SHAPES = {
     "moist3d": (9, 48, 64, 48),
     "tc": (9, 100, 4, 24),
@@ -259,12 +285,13 @@ ANALYSIS_SHAPES = {
     "pallas_test_a": (4, 16, 64, 20),
     "pallas_test_b": (2, 12, 32, 16),
     "large_nl": (2, 8, 1024, 16),
+    "ragged": (3, 7, 12, 13),
 }
 
 
 def phase_analysis(tx, torch, ra):
-    """Phase 4; returns (max_abs_err at the TC shape f32, {shape: (ms,
-    plain_ms)})."""
+    """Phase 4; returns (max_abs_err at the TC shape f32, {"moist3d" |
+    "transform" | "tc" | "moist3d_f64": (ms, plain_ms)}), device times."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
     lines, tc_err = [], None
@@ -273,37 +300,46 @@ def phase_analysis(tx, torch, ra):
         _, ops32 = analysis_grid(tx, torch, nv, cells, ldim, nz, torch.float32)
         x = torch.from_numpy(rng.normal(size=(nv,) + g64.spatial_shape)).cuda()
         ref = ra.rlz_analysis_plain(x, *ops64)
-        k64 = ra.rlz_analysis(x, *ops64)
-        k32 = ra.rlz_analysis(x.float(), *ops32)
+        plain32 = ra.rlz_analysis_plain(x.float(), *ops32)
+        k64, k64b = ra.rlz_analysis(x, *ops64), ra.rlz_analysis(x, *ops64)
+        k32, k32b = ra.rlz_analysis(x.float(), *ops32), ra.rlz_analysis(x.float(), *ops32)
         torch.cuda.synchronize()
         scale = float(ref.abs().max())
         e64 = float((k64 - ref).abs().max())
         e32 = float((k32.double() - ref).abs().max())
+        ep = float((plain32.double() - ref).abs().max())
         assert torch.isfinite(k64).all() and torch.isfinite(k32).all()
         assert e64 <= 1e-12 * scale, (name, "f64", e64, scale)
         assert e32 <= 1e-5 * scale, (name, "f32", e32, scale)
+        assert e32 <= 4.0 * ep, (name, "f32 vs the plain f32 chain", e32, ep)
+        assert torch.equal(k64, k64b) and torch.equal(k32, k32b), (name, "not repeatable")
         if name == "tc":
             tc_err = e32
         p64 = ra.plan(x.shape, g64.params.b_rDim, torch.float64)
         p32 = ra.plan(x.shape, g64.params.b_rDim, torch.float32)
         lines.append(f"{name} {list(x.shape)}->b_rDim {g64.params.b_rDim}: rel err f64 "
-                     f"{e64 / scale:.2e}, f32 {e32 / scale:.2e}; tiles f64 {p64}, f32 {p32}")
+                     f"{e64 / scale:.2e}, f32 {e32 / scale:.2e} (plain f32 {ep / scale:.2e}); "
+                     f"f32 {p32} {p32.ctas} blocks; f64 {p64} {p64.ctas} blocks")
     say("analysis-vs-plain", t0,
-        "tol f64 1e-12, f32 vs f64 1e-5 of max|ref|; " + " | ".join(lines))
+        "tol f64 1e-12, f32 vs f64 1e-5 of max|ref| and <= 4x the plain f32 chain's "
+        "error, two calls bitwise equal in each dtype; " + " | ".join(lines))
 
     t0 = time.perf_counter()
     times = {}
-    for name in ("moist3d", "transform", "tc"):
-        nv, cells, ldim, nz = ANALYSIS_SHAPES[name]
-        g, ops = analysis_grid(tx, torch, nv, cells, ldim, nz, torch.float32)
-        x = torch.from_numpy(rng.normal(size=(nv,) + g.spatial_shape)).float().cuda()
-        kt, pt = in_turns(lambda: ra.rlz_analysis_plain(x, *ops),
-                          lambda: ra.rlz_analysis(x, *ops), 100)
+    for name, dtype in (("moist3d", torch.float32), ("transform", torch.float32),
+                        ("tc", torch.float32), ("moist3d_f64", torch.float64)):
+        nv, cells, ldim, nz = ANALYSIS_SHAPES[name.removesuffix("_f64")]
+        g, ops = analysis_grid(tx, torch, nv, cells, ldim, nz, dtype)
+        x = torch.from_numpy(rng.normal(size=(nv,) + g.spatial_shape)).to("cuda", dtype)
+        plain = lambda: ra.rlz_analysis_plain(x, *ops)  # noqa: E731
+        kernel = lambda: ra.rlz_analysis(x, *ops)  # noqa: E731
+        kt, pt = in_turns(plain, kernel, 100, timer=queued_time_ms)
+        kb, pb = in_turns(plain, kernel, 100)
         times[name] = (min(kt), min(pt))
-        print(f"  analysis {name} {list(x.shape)} f32: kernel {kt} ms, plain {pt} ms",
-              flush=True)
+        print(f"  analysis {name} {list(x.shape)}: device time kernel {kt} ms, plain {pt} ms; "
+              f"back to back kernel {kb} ms, plain {pb} ms", flush=True)
     say("analysis-timing", t0,
-        "f32, 100 calls a run, min ms kernel vs plain: "
+        "100 calls a run, min device ms kernel vs plain (f32 unless named): "
         + ", ".join(f"{k} {a:.5f} vs {b:.5f}" for k, (a, b) in times.items()))
     return tc_err, times
 
@@ -571,6 +607,12 @@ def main():
             "max_abs_err": ra_err,
             "ms": ra_times["moist3d"][0],
             "plain_ms": ra_times["moist3d"][1],
+            "tc_ms": ra_times["tc"][0],
+            "tc_plain_ms": ra_times["tc"][1],
+            "transform_ms": ra_times["transform"][0],
+            "transform_plain_ms": ra_times["transform"][1],
+            "moist3d_f64_ms": ra_times["moist3d_f64"][0],
+            "moist3d_f64_plain_ms": ra_times["moist3d_f64"][1],
         },
         {
             "name": "probe_expr",

@@ -66,11 +66,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64"):
         fn = getattr(lib, name)
-        # x, l_analysis, ring_mask, analysis_r, analysis_z, out; V R L Z B
-        fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        # x, l_analysis, ring_mask, analysis_r, analysis_z, out; V R L Z B;
+        # the plan (ops/rlz_analysis.py): KT BT C RC LC ZC ST, threads, smem
+        fn.argtypes = [ptr] * 6 + [i32] * 5 + [i32] * 9 + [ptr]
         fn.restype = i32
-    lib.scythe_rlz_analysis_plan.argtypes = [i32] * 5 + [ptr]
-    lib.scythe_rlz_analysis_plan.restype = None
     for name in (
         "scythe_column_solve_max_nz",
         "scythe_rlz_analysis_max_nz",

@@ -11,17 +11,19 @@ Replaces the Pallas TPU kernel ``scythe_tpu/ops/pallas_transforms.py``
 
 with the grid's own operators in its dtype (f32 or f64); the bf16 hi/lo
 split of the TPU kernel is not ported.  The kernel (``csrc/rlz_analysis.cu``)
-tiles the output by (k-tile, b-tile, variable) and keeps each tile's
-accumulator in shared memory; its header says how the tiles are sized and
-what bounds it.  The wrapper ``rlz_analysis`` checks its inputs, then takes
-the plain version for tensors on the CPU and launches the kernel for
-tensors on a CUDA device; there is no fallback between the two.
-``launches`` counts kernel launches only.
+launches one thread-block cluster per (variable, k-tile, b-tile) whose
+blocks split r and reduce their partial sums over distributed shared
+memory; ``plan`` sizes its tiles, and the kernel's header says what bounds
+it.  The wrapper ``rlz_analysis`` checks its inputs, then takes the plain
+version for tensors on the CPU and launches the kernel for tensors on a
+CUDA device; there is no fallback between the two.  ``launches`` counts
+kernel launches only.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -30,7 +32,202 @@ import torch
 MAX_NZ = 128
 MAX_NL = 2048
 
+THREADS = (256, 512)  # a block (its last warp produces): the kernel's two
+BARRIER_BYTES = 128  # the kernel's mbarriers, ahead of the tiles
+SMEM_MAX = 232_448  # dynamic shared memory a block may use on Hopper
+SMEM_TWO_A_SM = 115_712  # half the SM's 228 KiB, less 1 KiB reserved a block
+ACC_MAX = 136 * 1024  # accumulator bytes a block
+NUM_SMS = 132  # H100 SXM
+# the share of the SMs that clusters of c blocks fill at one block an SM
+# (cudaOccupancyMaxActiveClusters on an H100 SXM: 66, 39, 30 and 30
+# clusters of 2, 3, 4 and 8); 5-7 taken as 4's
+CLUSTER_FILL = {1: 1.0, 2: 1.0, 3: 117 / 132, 4: 120 / 132, 5: 0.9, 6: 0.9, 7: 0.9,
+                8: 120 / 132}
+SMALL_ACC = 48 * 1024  # accumulator bytes under which two blocks share an SM
+MAX_CLUSTER = 8  # the portable cluster size
+MAX_KT = 16  # azimuthal wavenumbers a tile (the kernel's kMaxKt)
+MAX_RC = 64  # radial rows a chunk (the kernel's kMaxRc)
+MAX_ST = 4  # slots in the staging ring (the kernel takes 2 to 4)
+MIN_SLICE_ROWS = 8  # r rows a block at least, before r is split further
+
+# what the kernel returns when it refuses a plan (rlz_analysis.cu)
+PLAN_ERRORS = {
+    -1: "shape out of range",
+    -2: "tile out of range",
+    -3: "shared memory differs from the layout or exceeds 232448 bytes",
+    -4: "no cluster of this plan fits on an SM",
+    -5: "cuTensorMapEncodeTiled is missing or refused the tensor map of x",
+}
+
 launches = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up4(n: int) -> int:
+    return _cdiv(n, 4) * 4
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch's tiles.  A block owns (r-slice, k-tile of ``kt``
+    wavenumbers, b-tile of ``bt`` radial coefficients, variable); the ``c``
+    r-slices of one (k-tile, b-tile, variable) form a cluster.  A block
+    streams its rows in chunks of ``rc`` rows and ``lc`` azimuths, and
+    stages the vertical operator in chunks of ``zc`` rows.  ``grid`` is
+    (c, k-tiles x b-tiles, V); ``smem`` the bytes of dynamic shared memory a
+    block, as the kernel lays them out."""
+
+    kt: int
+    bt: int
+    c: int
+    rc: int
+    lc: int
+    zc: int
+    st: int
+    threads: int
+    smem: int
+    grid: tuple[int, int, int]
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def smem_layout(Z: int, es: int, kt: int, bt: int, c: int, rc: int, lc: int,
+                zc: int, st: int) -> tuple[int, int, int]:
+    """Bytes of (accumulator, main-loop staging, epilogue) as the kernel lays
+    them out; a block takes BARRIER_BYTES + accumulator + max(staging,
+    epilogue).  Rows of z are padded to a multiple of 4, as are the k and b
+    extents."""
+    zp, ktp, btp = _up4(Z), _up4(kt), _up4(bt)
+    acc = btp * ktp * zp
+    # x pieces (st slots, each 128-byte aligned for the copy engine),
+    # l_analysis pieces (st slots), analysis_r and ring_mask chunks (two
+    # slots), and the chunk's lambda coefficients
+    x = _cdiv(rc * lc * zp, 128 // es) * (128 // es)
+    stage = st * (x + lc * ktp) + 2 * (rc * btp + rc * ktp) + rc * ktp * zp
+    # this block's reduced rows, and a chunk of the vertical operator
+    epilogue = _up4(_cdiv(bt * kt, c)) * zp + _up4(zc) * zp
+    return acc * es, stage * es, epilogue * es
+
+
+def _smem(Z, es, *tiles) -> int:
+    acc, stage, epi = smem_layout(Z, es, *tiles)
+    return BARRIER_BYTES + acc + max(stage, epi)
+
+
+def lanes_a_row(kt: int, Z: int) -> int:
+    """Consumer threads one radial row of a chunk takes in the lambda stage,
+    a 4 k x 4 z tile each (the kernel's per_r)."""
+    return _up4(kt) // 4 * (_up4(Z) // 4)
+
+
+def _est_cycles(R, L, Z, B, V, kt, bt, c, bps) -> float:
+    """The plan's cost model: the waves of the grid times the cycles of one
+    block, with rates measured on the card (H100 SXM, clock64 phases):
+    ~34 FMA a clock on an SM in the lambda and radial stages, ~25 in the
+    vertical stage, ~12k clocks of set-up, barriers and reduction; ``bps``
+    blocks an SM."""
+    zp = _up4(Z)
+    ctas = c * _cdiv(L, kt) * _cdiv(B, bt) * V
+    wave = int(NUM_SMS * bps * CLUSTER_FILL[c])
+    rows = _cdiv(R, c)
+    share = _cdiv(bt * kt, c)
+    # two blocks on an SM share its FMA rate: they overlap only latency
+    block = bps * (rows * (_up4(kt) * L + _up4(bt) * _up4(kt)) * zp / 34.0
+                   + share * zp * zp / 25.0) + 12_000.0
+    return _cdiv(ctas, wave) * block
+
+
+def plan(phys_shape, b_rdim: int, dtype) -> Plan:
+    """The kernel's tiles at this shape; pure Python, the plan's only home
+    (cached: the wrapper asks for it on every call).
+
+    Three costs are traded:
+      * accumulator bytes, ``bt * kt * nz * elem`` a block, held to 136 KiB
+        (with the staging, the block must fit 227 KiB; at most ~113 KiB
+        lets two blocks share an SM);
+      * the lambda DFT, recomputed once per b-tile (``b_rDim / bt`` times);
+      * x, re-read from L2 once per k-tile (``nl / kt`` times).
+    So ``kt`` is 8 (all of nl when smaller), halved to 4 when the whole of
+    b_rDim would not fit the accumulator, and b is tiled only where it must
+    fit.  f64 halves what fits: where f32 keeps kt 8 it takes kt 4, or
+    splits b.  Then the cluster size ``c`` (r split) and any further b
+    split are chosen by ``_est_cycles``, which counts whole waves: a grid
+    just past a wave costs a second one.  A block of 512 threads (one an
+    SM) takes a large accumulator, one of 256 (two an SM) a small one.  The
+    r-chunk is the largest (one lambda tile a consumer thread at most) for
+    which two slots of an l-chunk of at least 12 azimuths fit.
+    """
+    return _plan(tuple(int(n) for n in phys_shape), int(b_rdim), dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(phys_shape, B, dtype) -> Plan:
+    V, R, L, Z = phys_shape
+    es = torch.empty((), dtype=dtype).element_size()
+    zp = _up4(Z)
+
+    def acc_bytes(bt, kt):
+        return _up4(bt) * _up4(kt) * zp * es
+
+    kt = min(8, L)
+    if kt > 4 and acc_bytes(B, kt) > ACC_MAX:
+        kt = 4
+    bt_max = B
+    while bt_max > 1 and acc_bytes(bt_max, kt) > ACC_MAX:
+        bt_max = _cdiv(B, _cdiv(B, bt_max) + 1)
+
+    def bps(bt):  # blocks an SM: two where the accumulator is small
+        return 2 if acc_bytes(bt, kt) <= SMALL_ACC else 1
+
+    def fits(bt, c):  # the epilogue's share of rows beside the accumulator
+        return _smem(Z, es, kt, bt, c, 1, 1, 1, 2) <= SMEM_MAX
+
+    options = [
+        (_est_cycles(R, L, Z, B, V, kt, bt, c, bps(bt)), c, -bt)
+        for c in range(1, MAX_CLUSTER + 1) if c == 1 or _cdiv(R, c) >= MIN_SLICE_ROWS
+        for bt in sorted({_cdiv(B, n) for n in range(1, _cdiv(B, 16) + 1)} | {bt_max})
+        if bt <= bt_max and fits(bt, c)
+    ]
+    if not options:  # only the narrowest b-tiles fit beside the epilogue
+        bt = next(b for b in range(bt_max, 0, -1) if fits(b, 1))
+        options = [(0.0, 1, -bt)]
+    _, c, bt = min(options)
+    bt = -bt
+    n_bt = _cdiv(B, bt)
+
+    rows = _cdiv(R, c)
+    per_r = lanes_a_row(kt, Z)
+
+    def chunks(threads, cap, lc_min):
+        """(rc, lc, st): the largest r-chunk, one lambda tile a consumer
+        thread at most, for which two slots (three where they cost nothing)
+        of an l-chunk of at least lc_min fit under cap; None if none does."""
+        for rc0 in range(min(MAX_RC, (threads - 32) // per_r, rows), 0, -1):
+            rc = _cdiv(rows, _cdiv(rows, rc0))  # balanced chunks
+            for lc in range(min(L, 64), lc_min - 1, -1):
+                if _smem(Z, es, kt, bt, c, rc, lc, 1, 2) <= cap:
+                    lc = _cdiv(L, _cdiv(L, lc))  # balanced chunks
+                    st = 3 if lc == L and _smem(Z, es, kt, bt, c, rc, lc, 1, 3) <= cap else 2
+                    return rc, lc, st
+        return None
+
+    threads, cap = (256, SMEM_TWO_A_SM) if bps(bt) == 2 else (512, SMEM_MAX)
+    found = chunks(threads, cap, min(L, 12))
+    if found is None:
+        threads, cap = 512, SMEM_MAX
+        found = chunks(threads, cap, min(L, 12)) or chunks(threads, cap, 1)
+    rc, lc, st = found
+    zc = Z  # else a multiple of 4
+    while zc > 4 and _smem(Z, es, kt, bt, c, rc, lc, zc, st) > cap:
+        zc = (zc - 1) // 4 * 4
+    smem = _smem(Z, es, kt, bt, c, rc, lc, zc, st)
+    return Plan(kt=kt, bt=bt, c=c, rc=rc, lc=lc, zc=zc, st=st, threads=threads,
+                smem=smem, grid=(c, _cdiv(L, kt) * n_bt, V))
 
 
 def rlz_analysis_plain(phys, l_analysis, ring_mask, analysis_r, analysis_z):
@@ -71,19 +268,6 @@ def _check(phys, ops) -> tuple[int, int, int, int, int]:
     return V, R, L, Z, B
 
 
-def plan(phys_shape, b_rdim: int, dtype) -> dict:
-    """The kernel's tiles at this shape (builds the library): KB azimuthal
-    wavenumbers and BB radial coefficients a block, RC radial rows and LC
-    azimuths a chunk, and the block's shared memory in bytes."""
-    from ._build import load
-
-    _, R, L, Z = phys_shape
-    out = (ctypes.c_int * 5)()
-    es = torch.empty((), dtype=dtype).element_size()
-    load().lib.scythe_rlz_analysis_plan(R, L, Z, b_rdim, es, out)
-    return dict(zip(("kb", "bb", "rc", "lc", "smem"), out))
-
-
 def _launch(phys, ops, shape):
     global launches
     from ._build import load
@@ -97,6 +281,7 @@ def _launch(phys, ops, shape):
     for t in (phys,) + tuple(ops):
         if not t.is_contiguous():
             raise ValueError("the rlz_analysis kernel needs contiguous tensors")
+    p = plan(phys.shape, B, phys.dtype)
     lib = load().lib
     fn = (
         lib.scythe_rlz_analysis_f32
@@ -108,11 +293,12 @@ def _launch(phys, ops, shape):
         stream = torch.cuda.current_stream(phys.device).cuda_stream
         err = fn(
             phys.data_ptr(), *(o.data_ptr() for o in ops), out.data_ptr(),
-            V, R, L, Z, B, stream,
+            V, R, L, Z, B, p.kt, p.bt, p.c, p.rc, p.lc, p.zc, p.st, p.threads,
+            p.smem, stream,
         )
     if err != 0:
-        msg = lib.scythe_cuda_error_string(err).decode()
-        raise RuntimeError(f"rlz_analysis kernel launch failed: {msg} ({err})")
+        msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
+        raise RuntimeError(f"rlz_analysis kernel launch failed: {msg} ({err}); {p}")
     launches += 1
     return out
 

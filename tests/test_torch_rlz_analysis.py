@@ -6,6 +6,8 @@ round-off, bound 1e-4 of max|ref|), and against the JAX plain-mode float64
 ``grid.analysis`` (1e-12 of max|ref|).  The CUDA kernel itself runs only on
 the card: chip_smoke.py holds it against this plain version there."""
 
+import itertools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -101,3 +103,132 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     _rejects("analysis_z", phys[..., :-1], ops)
     meta = torch.empty(phys.shape, dtype=phys.dtype, device="meta")
     _rejects("device|cpu", meta, tuple(o.to("meta") for o in ops))
+
+
+# ---- the kernel's plan (pure Python) and its decomposition, on the CPU
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+PLAN_NZ = (1, 13, 24, 48, 60, 128)
+PLAN_NL = (1, 4, 12, 64, 128, 1024, 2048)
+PLAN_VRB = ((3, 21, 10), (9, 144, 51), (9, 300, 103), (8, 192, 67), (1, 600, 203))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("nz", PLAN_NZ)
+def test_plan_fits_the_card_and_covers_the_output(dtype, nz):
+    es = torch.empty((), dtype=dtype).element_size()
+    for nl, (V, R, B) in itertools.product(PLAN_NL, PLAN_VRB):
+        p = ra.plan((V, R, nl, nz), B, dtype)
+        where = (dtype, V, R, nl, nz, B, p)
+        assert p.smem <= 232_448, where
+        acc, stage, epilogue = ra.smem_layout(nz, es, p.kt, p.bt, p.c, p.rc, p.lc, p.zc, p.st)
+        assert p.smem == ra.BARRIER_BYTES + acc + max(stage, epilogue), where
+        assert 2 <= p.st <= ra.MAX_ST, where
+        assert 1 <= p.c <= 8 and p.c <= R and p.grid[0] % p.c == 0, where
+        assert 1 <= p.kt <= min(nl, ra.MAX_KT) and 1 <= p.bt <= B, where
+        assert 1 <= p.rc <= ra.MAX_RC and 1 <= p.lc <= nl and 1 <= p.zc <= nz, where
+        # one lambda tile (4 k x 4 z) a consumer thread at most
+        assert p.rc * ra.lanes_a_row(p.kt, nz) <= p.threads - 32, where
+        assert p.threads in ra.THREADS
+        # the grid's tiles cover every (b, k) once; the cluster's shares
+        # cover every row of a tile
+        assert p.grid == (p.c, _ceil(nl, p.kt) * _ceil(B, p.bt), V), where
+        assert (_ceil(nl, p.kt) - 1) * p.kt < nl and (_ceil(B, p.bt) - 1) * p.bt < B
+        assert p.c * _ceil(p.bt * p.kt, p.c) >= p.bt * p.kt
+        assert (p.c - 1) * _ceil(R, p.c) < R or p.c == 1, where
+
+
+def test_plan_meets_its_goals_at_the_main_path_shapes():
+    f32 = torch.float32
+    moist3d = ra.plan((9, 144, 64, 48), 51, f32)
+    tc = ra.plan((9, 300, 4, 24), 103, f32)
+    transform = ra.plan((8, 192, 128, 60), 67, f32)
+    # r split over a cluster; x read 8x from L2 at moist3d, 16x at the
+    # transform shape, with the whole of b_rDim in one tile
+    assert (moist3d.kt, moist3d.bt) == (8, 51) and moist3d.c > 1
+    assert transform.kt >= 8 and transform.bt == 67 and transform.c > 1
+    # one block an SM where the accumulator is large, and the grid in whole
+    # waves (117 blocks a wave in clusters of 3, 132 in clusters of 2)
+    assert moist3d.threads == transform.threads == 512
+    assert moist3d.ctas <= 2 * 117 and transform.ctas <= 2 * 132
+    # the TC grid: a small accumulator, two blocks an SM, one wave of
+    # clusters of 8 (240 blocks)
+    assert tc.kt == 4 and tc.c == 8 and tc.threads == 256
+    assert tc.smem <= ra.SMEM_TWO_A_SM and 132 < tc.ctas <= 240
+    # f64 halves what fits: moist3d's wavenumber tile halves
+    assert ra.plan((9, 144, 64, 48), 51, torch.float64).kt == 4
+
+
+def _emulate(phys, la, mask, an, az, p):
+    """The plan's decomposition executed block by block, in the kernel's
+    order: per-r-slice partials over r-chunks and l-chunks, a rank-order
+    reduction of each block's share of the (b, k) rows, and the vertical
+    stage in chunks of analysis_z rows.  Returns the output and how often each (b, k) row
+    was written."""
+    V, R, L, Z = phys.shape
+    B = an.shape[1]
+    out = torch.full((V, B, L, Z), float("nan"), dtype=phys.dtype)
+    hits = torch.zeros((B, L), dtype=torch.int64)
+    rs, share = _ceil(R, p.c), _ceil(p.bt * p.kt, p.c)
+    for k0, b0 in itertools.product(range(0, L, p.kt), range(0, B, p.bt)):
+        nk, nb = min(p.kt, L - k0), min(p.bt, B - b0)
+        partials = []
+        for j in range(p.c):  # the cluster's blocks
+            acc = torch.zeros((V, nb, nk, Z), dtype=phys.dtype)
+            r_lo = min(R, j * rs)
+            r_hi = min(R, r_lo + rs)
+            for r0 in range(r_lo, r_hi, p.rc):
+                r1 = min(r0 + p.rc, r_hi)
+                a = torch.zeros((V, r1 - r0, nk, Z), dtype=phys.dtype)
+                for l0 in range(0, L, p.lc):
+                    l1 = min(l0 + p.lc, L)
+                    a = a + torch.einsum("kl,vrlz->vrkz", la[k0:k0 + nk, l0:l1],
+                                         phys[:, r0:r1, l0:l1])
+                a = a * mask[r0:r1, k0:k0 + nk, None]
+                acc = acc + torch.einsum("vbr,vrkz->vbkz", an[:, b0:b0 + nb, r0:r1], a)
+            partials.append(acc.reshape(V, nb * nk, Z))
+        for j in range(p.c):
+            q0 = min(nb * nk, j * share)
+            q1 = min(nb * nk, q0 + share)
+            red = partials[0][:, q0:q1]
+            for part in partials[1:]:  # rank order
+                red = red + part[:, q0:q1]
+            res = torch.empty_like(red)
+            for K0 in range(0, Z, p.zc):  # analysis_z in chunks of rows
+                res[..., K0:K0 + p.zc] = torch.einsum("vKz,vqz->vqK",
+                                                      az[:, K0:K0 + p.zc], red)
+            q = torch.arange(q0, q1)
+            b, k = b0 + q // nk, k0 + q % nk
+            out[:, b, k] = res
+            hits.index_put_((b, k), torch.ones_like(q), accumulate=True)
+    return out, hits
+
+
+# chip_smoke.py's analysis shapes (nvars, cells, nl, nz) and a ragged one
+EMULATED = {
+    "moist3d": (9, 48, 64, 48),
+    "tc": (9, 100, 4, 24),
+    "transform": (8, 64, 128, 60),
+    "pallas_test_a": (4, 16, 64, 20),
+    "pallas_test_b": (2, 12, 32, 16),
+    "large_nl": (2, 8, 1024, 16),
+    "ragged": (3, 7, 12, 13),
+}
+
+
+@pytest.mark.parametrize("plan_dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("name", EMULATED)
+def test_plan_decomposition_matches_plain_f64(name, plan_dtype):
+    nvars, cells, nl, nz = EMULATED[name]
+    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float64)
+    phys = torch.from_numpy(
+        np.random.default_rng(cells).normal(size=(nvars,) + gt.spatial_shape))
+    p = ra.plan(phys.shape, gt.params.b_rDim, plan_dtype)
+    got, hits = _emulate(phys, *_ops(gt), p)
+    ref = ra.rlz_analysis_plain(phys, *_ops(gt))
+    assert torch.equal(hits, torch.ones_like(hits)), p  # every output once
+    assert _rel(got, ref) <= 1e-13, p
