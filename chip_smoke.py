@@ -13,10 +13,14 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    nvcc a source, all started together), with ptxas' registers, shared
    memory and spills for each kernel;
 3. column solve against its plain PyTorch version on the card: nz in
-   {24, 40, 48, 100}, ncols in {37, 9216}, both stages, f64 kernel vs f64
-   plain (1e-12 of max|ref|) and f32 kernel vs f64 plain (1e-5), then both
-   timed at 9216 x 48 f32 with CUDA events in turns (plain, kernel, kernel,
-   plain);
+   {13, 24, 40, 48, 100, 128} x ncols in {37, 1200, 9216} x both stages,
+   f64 kernel vs f64 plain chain (1e-12 of max|ref|), f32 kernel vs f64
+   plain (1e-5, and at most 4x the f32 plain chain's own error), two calls
+   bitwise equal in each dtype, the plan printed per shape; then timed at
+   9216 x 48 and 1200 x 24 f32 and 9216 x 48 f64 in turns (plain, kernel,
+   kernel, plain, library), each as device time and back to back, beside
+   its bound; the library call is one torch.matmul of [x* | w*] by M^T,
+   which the port never calls;
 4. RLZ analysis against its plain version on the card: moist3d
    [9, 144, 64, 48], the TC grid [9, 300, 4, 24], the RLZ transform bench
    [8, 192, 128, 60], the two shapes of tests/test_pallas_transforms.py, one
@@ -57,7 +61,9 @@ Phases, each printing PASS, its wall time and its numbers on a line:
 No phase catches its own failure: any failed check raises and the script
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
 The last lines of standard output are the card's name and power limit, a
-JSON object describing the kernels, then {"ok": true, "device": {...}}.  It
+JSON object describing the kernels (each with its bound: the larger of its
+bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's f32
+rate and its f64 tensor-core rate), then {"ok": true, "device": {...}}.  It
 imports nothing of jax.
 """
 
@@ -81,6 +87,12 @@ MOIST3D_VARS = ("s", "xi", "mu", "u", "v", "w", "mu_c", "mu_r", "qss")
 # CPU measured 1.03e-4 (PERF.md), so its bound is 3e-4
 TC_F32_BOUND = {"u": 3e-4}
 TC_QC_MIN = 1e-6  # q_c max after 30 min: 6.09e-6 in the CPU f64 run (PERF.md)
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM, f32 outside the
+# tensor cores, f64 on them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"float32": 67e12, "float64": 67e12}
+CS_NZ = (13, 24, 40, 48, 100, 128)
+CS_NCOLS = (37, 1200, 9216)
 
 
 def say(phase, t0, msg):
@@ -123,7 +135,7 @@ def moist_model(tx, tmp, name, *, cells, ldim, xmax, zdim, ts, n_steps, out_ever
     snd = os.path.join(tmp, f"{name}_sounding.txt")
     ics = os.path.join(tmp, f"{name}_ics.csv")
     write_sounding(snd)
-    pts = tx.create_grid(gp, torch.float64).gridpoints()
+    pts = tx.create_grid(gp, torch.float64, device="cpu").gridpoints()
     r, lam, z = pts[:, 0], pts[:, 1], pts[:, 2]
     x0, z0, rad0, amp = bubble
     rad = np.sqrt(((r * np.cos(lam) - x0) / rad0) ** 2
@@ -189,15 +201,30 @@ def queued_time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def in_turns(plain, kernel, n, timer=cuda_time_ms):
+def in_turns(plain, kernel, n, timer=cuda_time_ms, library=None):
     """(kernel ms list, plain ms list) timed plain, kernel, kernel, plain
-    after a warm-up of each."""
-    for fn in (plain, kernel):
+    after a warm-up of each; with ``library``, a third list, timed last."""
+    fns = (plain, kernel) + ((library,) if library else ())
+    for fn in fns:
         cuda_time_ms(fn, max(2, n // 10))
-    times = {plain: [], kernel: []}
-    for fn in (plain, kernel, kernel, plain):
+    times = {fn: [] for fn in fns}
+    for fn in (plain, kernel, kernel, plain) + fns[2:]:
         times[fn].append(timer(fn, n))
-    return times[kernel], times[plain]
+    return (times[kernel], times[plain]) + ((times[library],) if library else ())
+
+
+def bound_ms(nbytes, flops, dtype_name):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def column_solve_bound(ncols, nz, dtype_name):
+    """x*, w* and M read once, w and xi written once; 2 ncols (2nz)^2 FLOP."""
+    es = 4 if dtype_name == "float32" else 8
+    return bound_ms((4 * ncols * nz + 4 * nz * nz) * es, 2 * ncols * (2 * nz) ** 2,
+                    dtype_name)
 
 
 def per_field_rel(got, ref):
@@ -216,53 +243,87 @@ def fmt_rel(rel):
 
 
 def phase_column_solve(torch, tti, cs, pxi):
-    """Phase 3; returns (max_abs_err, ms, plain_ms) at 9216 x 48 f32."""
+    """Phase 3; returns (max_abs_err at 9216 x 48 f32, {label: (ms,
+    plain_ms, library_ms)}) with device times."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     ts = 0.15
-    worst = {"f64": 0.0, "f32": 0.0}
-    main_err = None
-    for nz in (24, 40, 48, 100):
+    worst = {"f64": 0.0, "f32": 0.0, "f32 / plain f32": 0.0}
+    main_err, plans = None, []
+    for nz in CS_NZ:
         o64 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float64, "cuda")
         o32 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float32, "cuda")
-        for ncols in (37, 9216):
+        for ncols in CS_NCOLS:
             x = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
             w = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
-            for stage, ts_term in (("t1", 0.5 * ts), ("ab", 1.25 * ts)):
-                h64, h32 = (o64.hinv_t1, o32.hinv_t1) if stage == "t1" else (o64.hinv, o32.hinv)
-                ops64 = (o64.col_filter, o64.col_deriv, h64, o64.synth, o64.dsynth)
-                ops32 = (o32.col_filter, o32.col_deriv, h32, o32.synth, o32.dsynth)
+            for stage in ("t1", "ab"):
+                ts_term = 0.5 * ts if stage == "t1" else 1.25 * ts
+                ops64 = (o64.col_filter, o64.col_deriv,
+                         o64.hinv_t1 if stage == "t1" else o64.hinv, o64.synth, o64.dsynth)
+                ops32 = (o32.col_filter, o32.col_deriv,
+                         o32.hinv_t1 if stage == "t1" else o32.hinv, o32.synth, o32.dsynth)
+                p64 = o64.packed_t1 if stage == "t1" else o64.packed
+                p32 = o32.packed_t1 if stage == "t1" else o32.packed
                 ref = cs.fused_column_solve_plain(x, w, *ops64, ts_term, pxi)
-                k64 = cs.fused_column_solve(x, w, *ops64, ts_term, pxi)
-                k32 = cs.fused_column_solve(x.float(), w.float(), *ops32, ts_term, pxi)
+                plain32 = cs.fused_column_solve_plain(x.float(), w.float(), *ops32, ts_term, pxi)
+                k64, k64b = (cs.fused_column_solve(x, w, *ops64, ts_term, pxi, packed=p64)
+                             for _ in range(2))
+                k32, k32b = (cs.fused_column_solve(x.float(), w.float(), *ops32, ts_term, pxi,
+                                                   packed=p32) for _ in range(2))
                 torch.cuda.synchronize()
-                for got64, got32, r in zip(k64, k32, ref):
-                    scale = float(r.abs().max())
-                    e64 = float((got64 - r).abs().max())
-                    e32 = float((got32.double() - r).abs().max())
-                    assert torch.isfinite(got32).all() and torch.isfinite(got64).all()
-                    assert e64 <= 1e-12 * scale, (nz, ncols, stage, "f64", e64, scale)
-                    assert e32 <= 1e-5 * scale, (nz, ncols, stage, "f32", e32, scale)
-                    worst["f64"] = max(worst["f64"], e64 / scale)
-                    worst["f32"] = max(worst["f32"], e32 / scale)
-                    if nz == 48 and ncols == 9216 and stage == "ab":
-                        main_err = max(main_err or 0.0, e32)
+                where = (nz, ncols, stage)
+                for a, b in zip(k64 + k32, k64b + k32b):
+                    assert torch.isfinite(a).all() and torch.equal(a, b), (where, "not repeatable")
+                r64 = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(k64, ref))
+                e32 = [float((g.double() - r).abs().max()) for g, r in zip(k32, ref)]
+                r32 = max(e / float(r.abs().max()) for e, r in zip(e32, ref))
+                rp = max(float((g.double() - r).abs().max() / r.abs().max())
+                         for g, r in zip(plain32, ref))
+                assert r64 <= 1e-12, (where, "f64", r64)
+                assert r32 <= 1e-5 and r32 <= 4.0 * rp, (where, "f32", r32, "plain f32", rp)
+                worst["f64"] = max(worst["f64"], r64)
+                worst["f32"] = max(worst["f32"], r32)
+                worst["f32 / plain f32"] = max(worst["f32 / plain f32"], r32 / rp)
+                if (ncols, nz, stage) == (9216, 48, "ab"):
+                    main_err = max(e32)
+            q32, q64 = cs.plan(ncols, nz, torch.float32), cs.plan(ncols, nz, torch.float64)
+            plans.append(f"{ncols}x{nz}: f32 {q32} resident {q32.resident(nz)}; "
+                         f"f64 {q64} resident {q64.resident(nz)}")
+    print("  column-solve plans: " + " | ".join(plans), flush=True)
     say("column-solve-vs-plain", t0,
-        f"nz {{24,40,48,100}} x ncols {{37,9216}} x 2 stages; max rel err "
-        f"f64 {worst['f64']:.3e} (tol 1e-12), f32 vs f64 {worst['f32']:.3e} (tol 1e-5)")
+        f"nz {list(CS_NZ)} x ncols {list(CS_NCOLS)} x 2 stages; max rel err f64 "
+        f"{worst['f64']:.3e} (tol 1e-12), f32 vs f64 {worst['f32']:.3e} (tol 1e-5), "
+        f"largest ratio to the plain f32 chain's error {worst['f32 / plain f32']:.3f} "
+        f"(tol 4); two calls bitwise equal in each dtype")
 
     t0 = time.perf_counter()
-    nz, ncols = 48, 9216
-    o32 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float32, "cuda")
-    ops = (o32.col_filter, o32.col_deriv, o32.hinv, o32.synth, o32.dsynth)
-    x = torch.from_numpy(rng.normal(size=(ncols, nz))).float().cuda()
-    w = torch.from_numpy(rng.normal(size=(ncols, nz))).float().cuda()
-    kt, pt = in_turns(lambda: cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts, pxi),
-                      lambda: cs.fused_column_solve(x, w, *ops, 1.25 * ts, pxi), 200)
+    times = {}
+    for label, ncols, nz, dtype in (("9216x48 f32", 9216, 48, torch.float32),
+                                    ("1200x24 f32", 1200, 24, torch.float32),
+                                    ("9216x48 f64", 9216, 48, torch.float64)):
+        o = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, dtype, "cuda")
+        ops = (o.col_filter, o.col_deriv, o.hinv, o.synth, o.dsynth)
+        x = torch.from_numpy(rng.normal(size=(ncols, nz))).to("cuda", dtype)
+        w = torch.from_numpy(rng.normal(size=(ncols, nz))).to("cuda", dtype)
+        xw = torch.cat([x, w], dim=1).contiguous()
+        m_t = o.col_op.T
+        plain = lambda: cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts, pxi)  # noqa: E731
+        kernel = lambda: cs.fused_column_solve(x, w, *ops, 1.25 * ts, pxi,  # noqa: E731
+                                               packed=o.packed)
+        library = lambda: torch.matmul(xw, m_t)  # noqa: E731
+        kt, pt, lt = in_turns(plain, kernel, 200, timer=queued_time_ms, library=library)
+        kb, pb, lb = in_turns(plain, kernel, 200, library=library)
+        bound, by = column_solve_bound(ncols, nz, str(dtype).removeprefix("torch."))
+        times[label] = (min(kt), min(pt), min(lt), bound, by)
+        print(f"  column solve {label}: device time kernel {kt} ms, plain {pt} ms, library "
+              f"{lt} ms; back to back kernel {kb} ms, plain {pb} ms, library {lb} ms; bound "
+              f"{bound:.5f} ms ({by}), kernel at {100.0 * bound / min(kt):.1f}% of it",
+              flush=True)
     say("column-solve-timing", t0,
-        f"9216 x 48 f32, 200 calls a run: kernel {kt} ms, plain {pt} ms a call "
-        f"(min {min(kt):.5f} vs {min(pt):.5f})")
-    return main_err, min(kt), min(pt)
+        "200 calls a run, min device ms kernel vs plain vs library (bound, share): "
+        + ", ".join(f"{k} {a:.5f} vs {b:.5f} vs {c:.5f} ({d:.5f} {e}, "
+                    f"{100.0 * d / a:.1f}%)" for k, (a, b, c, d, e) in times.items()))
+    return main_err, times
 
 
 def analysis_grid(tx, torch, nv, cells, ldim, nz, dtype):
@@ -390,7 +451,8 @@ def time_steps(torch, tmodel, model, n):
 
 def profile_steps(torch, state, step, card, label, path, n=10):
     """torch.profiler over ``n`` steps; returns (busy us/step, wall us/step,
-    kernel launches/step) and writes the kernel table to ``path``."""
+    kernel launches/step, column-solve us/step) and writes the kernel table
+    to ``path``."""
     from torch.profiler import ProfilerActivity, profile as tprof
 
     torch.cuda.synchronize()
@@ -405,12 +467,15 @@ def profile_steps(torch, state, step, card, label, path, n=10):
     kernels = [e for e in avg
                if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    solve = [e for e in kernels if "column_solve_kernel" in e.key]
+    solve_us = sum(e.self_device_time_total for e in solve)
     table = avg.table(sort_by="self_device_time_total", row_limit=40)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"{card}\n{n} steps of {label} f32, host wall {wall_us:.1f} us "
-                f"(profiled), device busy {busy_us:.1f} us\n{table}\n")
-    return busy_us / n, wall_us / n, sum(e.count for e in kernels) / n
+                f"(profiled), device busy {busy_us:.1f} us, column solve {solve_us:.1f} us "
+                f"in {sum(e.count for e in solve)} launches\n{table}\n")
+    return busy_us / n, wall_us / n, sum(e.count for e in kernels) / n, solve_us / n
 
 
 def main():
@@ -464,9 +529,10 @@ def main():
     try:
         model = moist3d(tx, tmp, n_steps=120, out_every=60)
         ref = tmodel.build_context(
-            model, tx.create_grid(model.grid_params, torch.float64), torch.float64
+            model, tx.create_grid(model.grid_params, torch.float64, device="cpu"),
+            torch.float64,
         ).ref_state
-        cs_err, cs_ms, cs_plain_ms = phase_column_solve(torch, tti, cs, float(ref.Pxi_bar))
+        cs_err, cs_times = phase_column_solve(torch, tti, cs, float(ref.Pxi_bar))
         ra_err, ra_times = phase_analysis(tx, torch, ra)
         ep_err, ep_ms, ep_plain_ms, ep_launches = phase_probe(torch, ep)
 
@@ -491,12 +557,12 @@ def main():
             f"100 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
             f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
         t0 = time.perf_counter()
-        busy, wall, nk = profile_steps(torch, state, step, card, "moist3d",
-                                       os.path.join(out_dir, "moist3d_profile.txt"))
+        busy, wall, nk, solve = profile_steps(torch, state, step, card, "moist3d",
+                                              os.path.join(out_dir, "moist3d_profile.txt"))
         say("moist3d-profile", t0,
             f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
-            f"(profiled), {nk:.0f} kernel launches/step; table in "
-            f"chiprun_out/moist3d_profile.txt")
+            f"(profiled), {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step; "
+            f"table in chiprun_out/moist3d_profile.txt")
         del state, step, grid
 
         # ---- phase 7: the mature-TC path, the counts reset just before it
@@ -528,12 +594,12 @@ def main():
             f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
         tc_sps = 1000.0 / ms_step
         t0 = time.perf_counter()
-        busy, wall, nk = profile_steps(torch, state, step, card, "tc_mature",
-                                       os.path.join(out_dir, "tc_mature_profile.txt"))
+        busy, wall, nk, solve = profile_steps(torch, state, step, card, "tc_mature",
+                                              os.path.join(out_dir, "tc_mature_profile.txt"))
         say("tc-profile", t0,
             f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
-            f"(profiled), {nk:.0f} kernel launches/step; table in "
-            f"chiprun_out/tc_mature_profile.txt")
+            f"(profiled), {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step; "
+            f"table in chiprun_out/tc_mature_profile.txt")
         del state, step, grid
 
         # ---- phase 8: parity on the card
@@ -586,6 +652,15 @@ def main():
 
     print(f"  TC mature path: {tc_sps:.2f} steps/s; moist3d launches {m3d_launches}",
           flush=True)
+    cs_main = cs_times["9216x48 f32"]
+    V, R, L, Z = 9, 144, 64, 48  # the analysis at moist3d: b_rDim 51
+    B = 51
+    ra_bound = bound_ms(4 * (V * R * L * Z + L * L + R * L + V * B * R + V * Z * Z + V * B * L * Z),
+                        2 * V * R * L * L * Z + 2 * V * B * R * L * Z + 2 * V * B * L * Z * Z,
+                        "float32")
+    n_probe = int(np.prod(ep.SHAPE))
+    # seven slot tensors and rinv read, one output written; 21 FLOP an output
+    ep_bound = bound_ms(4 * (8 * n_probe + ep.SHAPE[1]), 21 * n_probe, "float32")
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {
@@ -594,9 +669,21 @@ def main():
             "source": "scythe_tpu_torch/ops/csrc/column_solve.cu",
             "replaces": "scythe_tpu/ops/pallas_semiimplicit.py:118",
             "launches": tc_launches[0],
+            "launches_per_step": tc_launches[0] / tc.num_ts,
             "max_abs_err": cs_err,
-            "ms": cs_ms,
-            "plain_ms": cs_plain_ms,
+            "ms": cs_main[0],
+            "plain_ms": cs_main[1],
+            "bound_ms": cs_main[3],
+            "bound_by": cs_main[4],
+            "library_ms": cs_main[2],
+            "tc_ms": cs_times["1200x24 f32"][0],
+            "tc_plain_ms": cs_times["1200x24 f32"][1],
+            "tc_library_ms": cs_times["1200x24 f32"][2],
+            "tc_bound_ms": cs_times["1200x24 f32"][3],
+            "f64_ms": cs_times["9216x48 f64"][0],
+            "f64_plain_ms": cs_times["9216x48 f64"][1],
+            "f64_library_ms": cs_times["9216x48 f64"][2],
+            "f64_bound_ms": cs_times["9216x48 f64"][3],
         },
         {
             "name": "rlz_analysis",
@@ -604,9 +691,13 @@ def main():
             "source": "scythe_tpu_torch/ops/csrc/rlz_analysis.cu",
             "replaces": "scythe_tpu/ops/pallas_transforms.py:105",
             "launches": tc_launches[1],
+            "launches_per_step": (tc_launches[1] - 1) / tc.num_ts,  # + the initial one
             "max_abs_err": ra_err,
             "ms": ra_times["moist3d"][0],
             "plain_ms": ra_times["moist3d"][1],
+            "bound_ms": ra_bound[0],
+            "bound_by": ra_bound[1],
+            "library_ms": None,
             "tc_ms": ra_times["tc"][0],
             "tc_plain_ms": ra_times["tc"][1],
             "transform_ms": ra_times["transform"][0],
@@ -620,9 +711,13 @@ def main():
             "source": "scythe_tpu_torch/ops/elementwise_probe.py",
             "replaces": "tools/probe_pallas_elementwise.py:48",
             "launches": ep_launches,
+            "launches_per_step": 0,
             "max_abs_err": ep_err,
             "ms": ep_ms,
             "plain_ms": ep_plain_ms,
+            "bound_ms": ep_bound[0],
+            "bound_by": ep_bound[1],
+            "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -6,6 +6,8 @@ state, the model state and the context extras its options read (the
 sponge's reference state).  These functions move the last three across as
 numpy arrays, so a run can start in one package from the other's state.
 Nothing here imports jax: a JAX array converts through ``np.asarray``.
+Every loader puts its tensors on the card unless the caller asks for the
+CPU (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .device import DEFAULT, resolve_device
 from .physics.reference_state import ReferenceState
 from .timeintegration import ModelState
 
@@ -29,11 +32,13 @@ def _fields(src, names) -> dict:
     return {k: getattr(src, k) for k in names}
 
 
-def state_from_numpy(d, device: Any = "cpu", dtype=None) -> ModelState:
+def state_from_numpy(d, device: Any = DEFAULT, dtype=None) -> ModelState:
     """A ``ModelState`` from the JAX package's fields (a mapping, an
     ``.npz`` file or a ``scythe_tpu.timeintegration.ModelState``): the five
-    arrays go to ``device`` (as ``dtype``, or their own dtype when None),
-    ``t`` becomes a Python int."""
+    arrays go to ``device`` (the card unless the caller asks for the CPU;
+    as ``dtype``, or their own dtype when None), ``t`` becomes a Python
+    int."""
+    device = resolve_device(device)
     f = _fields(d, _STATE_ARRAYS + ("t",))
 
     def dev(a):
@@ -53,7 +58,7 @@ def state_to_numpy(state: ModelState) -> dict[str, np.ndarray]:
     return out
 
 
-def load_jax_checkpoint(path: str, device: Any = "cpu", dtype=None):
+def load_jax_checkpoint(path: str, device: Any = DEFAULT, dtype=None):
     """Read the ``.npz`` written by ``scythe_tpu.io.save_checkpoint``;
     returns (ModelState, t_sim)."""
     from .io import load_checkpoint
@@ -61,12 +66,13 @@ def load_jax_checkpoint(path: str, device: Any = "cpu", dtype=None):
     return load_checkpoint(path, dtype, device)
 
 
-def context_extras_from_numpy(extras, device: Any = "cpu", dtype=None) -> dict:
+def context_extras_from_numpy(extras, device: Any = DEFAULT, dtype=None) -> dict:
     """The context extras a run carries besides its state, from the JAX
     package's ``ctx.extras`` (a mapping of arrays): ``sponge_ref``, the
     filtered initial state the radial sponge relaxes toward.  Merge the
     result into the port's ``ctx.extras`` to continue a run begun in the
     JAX package."""
+    device = resolve_device(device)
     out = {}
     for k in _CONTEXT_EXTRAS:
         if k in extras:
@@ -75,9 +81,10 @@ def context_extras_from_numpy(extras, device: Any = "cpu", dtype=None) -> dict:
     return out
 
 
-def reference_state_from_numpy(rs, device: Any = "cpu", dtype=torch.float64) -> ReferenceState:
+def reference_state_from_numpy(rs, device: Any = DEFAULT, dtype=torch.float64) -> ReferenceState:
     """A port ``ReferenceState`` from the JAX package's (any object or
     mapping with the six fields)."""
+    device = resolve_device(device)
     f = _fields(rs, ReferenceState._fields)
     return ReferenceState(
         **{

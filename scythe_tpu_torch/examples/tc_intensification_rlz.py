@@ -286,7 +286,7 @@ def tc_mature_model(out_dir, t_end=150 * 3600.0, output_interval=2.0 * 3600.0,
         stable=True, cap=2.0e-4, rh=0.9, qv0=20.0, smag=0.20, ivd=True,
         cond_tau=30.0,
     ).with_(output_interval=output_interval)
-    grid = create_grid(model.grid_params, torch.float64)
+    grid = create_grid(model.grid_params, torch.float64, device="cpu")  # the ICs
     ctx = build_context(model, grid, torch.float64)
     write_ics(model, grid, ctx.ref_state, vmax=15.0, moist_core=0.85,
               moist_core_depth=10000.0)

@@ -33,6 +33,7 @@ import torch
 
 from ..basis import bspline, chebyshev, fourier
 from ..config import GridParameters
+from ..device import DEFAULT, resolve_device
 from ..ops import rlz_analysis
 
 GEOMETRIES = ("R", "RL", "RZ", "RLZ")
@@ -262,9 +263,10 @@ def create_grid(
     params: GridParameters,
     dtype: torch.dtype = torch.float32,
     matmul: str = "auto",
-    device: Any = "cpu",
+    device: Any = DEFAULT,
 ) -> Grid:
-    """Build a grid and all of its transform operators on ``device``.
+    """Build a grid and all of its transform operators on ``device`` (the
+    card unless the caller asks for the CPU; raises without a card).
 
     ``matmul``: "plain" or "auto" run every operator in ``dtype``;
     "compensated" (the JAX package's bf16x3 TPU mode) is not ported."""
@@ -294,6 +296,7 @@ def create_grid(
             "or set_float32_matmul_precision below 'highest'); the spectral "
             "transforms need full float32"
         )
+    device = resolve_device(device)
 
     def prep(op):
         # contiguous: the RLZ analysis kernel reads the operators row-major

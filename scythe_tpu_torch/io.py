@@ -15,6 +15,8 @@ from typing import Any
 
 import numpy as np
 
+from .device import DEFAULT
+
 try:  # optional native accelerator (native/scythe_io.cpp)
     import scythe_native_io as _nio  # type: ignore
 except Exception:  # pragma: no cover - fallback path
@@ -97,8 +99,9 @@ def save_checkpoint(path: str, state, t_sim: float) -> None:
     np.savez_compressed(path, **state_to_numpy(state), t_sim=np.asarray(t_sim))
 
 
-def load_checkpoint(path: str, dtype=None, device: Any = "cpu"):
-    """Read a checkpoint written by either package; returns (state, t_sim)."""
+def load_checkpoint(path: str, dtype=None, device: Any = DEFAULT):
+    """Read a checkpoint written by either package onto ``device`` (the
+    card unless the caller asks for the CPU); returns (state, t_sim)."""
     from .convert import state_from_numpy
 
     with np.load(path) as d:

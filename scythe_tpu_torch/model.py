@@ -30,6 +30,7 @@ from . import io as sio
 from . import timeintegration as ti
 from .basis import chebyshev
 from .config import ModelParameters
+from .device import DEFAULT
 from .equations.common import EqContext, get_equation_set
 from .grids.base import Grid, create_grid
 from .physics import microphysics as mp
@@ -353,9 +354,10 @@ def imp_history_rows(model: ModelParameters) -> int | None:
     return 2 if model.opts().get("semiimplicit") else None
 
 
-def initialize(model: ModelParameters, dtype=None, device: Any = "cpu"):
+def initialize(model: ModelParameters, dtype=None, device: Any = DEFAULT):
     """Build grid, context and initial state from the IC file on ``device``
-    (ref initialize_model, semiimplicit.jl:126-193)."""
+    (the card unless the caller asks for the CPU; ref initialize_model,
+    semiimplicit.jl:126-193)."""
     dtype = dtype or torch.get_default_dtype()
     grid = create_grid(model.grid_params, dtype, device=device)
     ctx = build_context(model, grid, dtype)
@@ -385,11 +387,12 @@ def integrate_model(
     dtype=None,
     write_outputs=True,
     resume_from: str | None = None,
-    device: Any = "cpu",
+    device: Any = DEFAULT,
 ):
     """Public driver (ref integrate_model, src/Scythe.jl:37-62).
 
-    Runs ``integration_time / ts`` steps on ``device``, writing CSV output
+    Runs ``integration_time / ts`` steps on ``device`` (the card unless the
+    caller asks for the CPU; raises without a card), writing CSV output
     and running the NaN watchdog every ``output_interval`` (plus t=0 and the
     final time).  ``resume_from`` restarts from a checkpoint in the JAX
     package's ``.npz`` layout.  Returns (grid, final physical values

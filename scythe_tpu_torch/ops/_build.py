@@ -59,10 +59,12 @@ def _nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("scythe_column_solve_f32", "scythe_column_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 9 + [i32, i32, f64, f64, ptr]
+        # x, w, packed M, w_out, xi_out; ncols nz; the plan
+        # (ops/column_solve.py): RG KSLAB ST, threads, smem, blocks
+        fn.argtypes = [ptr] * 5 + [i32] * 2 + [i32] * 6 + [ptr]
         fn.restype = i32
     for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64"):
         fn = getattr(lib, name)

@@ -1,5 +1,5 @@
-"""Fused AI2* vertical column solve: a hand-written CUDA kernel for Hopper
-and its plain PyTorch version.
+"""AI2* vertical column solve: a hand-written CUDA kernel for Hopper and its
+plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``scythe_tpu/ops/pallas_semiimplicit.py``
 (``fused_column_solve``).  For a batch of vertical columns ``[ncols, nz]``:
@@ -13,23 +13,223 @@ Replaces the Pallas TPU kernel ``scythe_tpu/ops/pallas_semiimplicit.py``
 ``scythe_tpu.timeintegration`` applies it to the refit x*, which composes to
 the same operator up to rounding.
 
-The kernel (``csrc/column_solve.cu``) keeps each tile of columns and every
-intermediate in shared memory; its header says what bounds it.  The
-wrapper ``fused_column_solve`` checks its inputs, then takes the plain
-version for tensors on the CPU and launches the kernel for tensors on a CUDA
+Every stage is linear in (x*, w*), so the chain is one matrix:
+``[w | xi] = [x* | w*] M^T`` with ``M = compose_column_operator(...)``
+([2nz, 2nz], one for each (ts', Hinv) pair, composed once in float64).  The
+kernel (``csrc/column_solve.cu``) applies M on the tensor cores: 3xTF32 at
+f32 (a hi/lo split of both operands, so f32 accuracy, not TF32's), DMMA at
+f64.  It reads M in the fragment order of ``pack_operator``, which
+``timeintegration.build_semiimplicit_ops`` runs once per stage.  Its tiles
+come from ``plan``: persistent blocks, one copy of M each, row groups of
+warps taking 16-column tiles.
+
+What bounds it on an H100: at the moist3d shape (9216 x 48, f32) the call
+moves 7.08 MB (2.11 us at 3.35 TB/s) and the composed product is 170 MFLOP
+(2.54 us at 67 TFLOP/s f32), so the bound is 2.54 us; at the TC shape
+(1200 x 24) it is 0.14 us, set by HBM, and launch latency rules.  The kernel
+source says what the design does about each fault of the first one, and
+``column_solve_ablation.py`` times the kernel with parts of its work left
+out.
+
+The wrapper ``fused_column_solve`` checks its inputs, then takes the plain
+chain for tensors on the CPU and launches the kernel for tensors on a CUDA
 device; there is no fallback between the two.  ``launches`` counts kernel
 launches only.  The bf16x3 ("comp") mode of the TPU kernel is not ported.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
-# largest nz the kernel takes: its shared memory at kMaxNz in float64 is
-# 192 KB of the 227 KB a Hopper block may use (column_solve.cu)
+# largest nz the kernel takes (column_solve.cu kMaxNz): beyond what fits
+# beside the ring, M streams through shared memory in K slabs
 MAX_NZ = 128
 
+NUM_SMS = 132  # H100 SXM
+SMEM_MAX = 232_448  # dynamic shared memory a block may use on Hopper
+BARRIER_BYTES = 256  # the kernel's mbarriers, ahead of M's slab
+SMEM_SM = 233_472  # an SM's 228 KiB, of which 1 KiB is reserved a block
+REGS_SM = 65_536  # 32-bit registers an SM
+MAX_THREADS = 576  # a block (the kernel's launch bounds)
+MAX_REGS = 112  # registers a thread may take under them (65536 / 576, in 8s)
+MAX_RG = 4  # row groups a block
+MAX_ST = 4  # slots in the ring of column tiles
+TILE = 16  # columns a tile: one m16 row of tensor-core tiles (the kernel's kTile)
+
+# what the kernel returns when it refuses a plan (column_solve.cu)
+PLAN_ERRORS = {
+    -1: "shape out of range",
+    -2: "tile out of range",
+    -3: "shared memory differs from the layout or exceeds 232448 bytes",
+}
+
 launches = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up8(n: int) -> int:
+    return _cdiv(n, 8) * 8
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch's tiles.  The output [ncols, 2 nz] (w | xi, each half
+    padded to a multiple of 8) is cut into column tiles of TILE rows.  A
+    row group of N / 16 warps (two 8-wide output tiles a warp) multiplies
+    one tile at a time; a block holds ``rg`` row groups and one copy of M.
+    Row group r of block b takes tiles b + blocks r, then every (blocks
+    rg)-th, through a ring of ``st`` slots of its own.  M is staged
+    ``kslab`` deep in K: all of K (resident, once a block) or, with one row
+    group, in slabs restaged for every tile.  ``smem``: bytes of dynamic
+    shared memory a block, as the kernel lays them out."""
+
+    rg: int
+    kslab: int
+    st: int
+    threads: int
+    smem: int
+    blocks: int
+
+    def resident(self, nz: int) -> bool:
+        return self.kslab == 2 * _up8(nz)
+
+
+def smem_layout(nz: int, es: int, rg: int, kslab: int, st: int) -> tuple[int, int]:
+    """Bytes of (M's slab, the rings) as the kernel lays them out after its
+    BARRIER_BYTES: 16-byte fragment slots [kslab/8][N/8][32], then each row
+    group's tiles [st][TILE][K + 4] elements, a row [x* | w*]; K = N =
+    2 up8(nz)."""
+    K = 2 * _up8(nz)
+    return (kslab // 8) * (K // 8) * 32 * 16, rg * st * TILE * (K + 4) * es
+
+
+def plan(ncols: int, nz: int, dtype) -> Plan:
+    """The kernel's tiles at this shape; pure Python, the plan's only home
+    (cached: the wrapper asks for it on every call).
+
+    * A tile is 16 rows, one row group of N / 16 warps.  On the card, two
+      m-tiles a warp and four output tiles a warp measured slower at the
+      moist3d shape, and blocks of one N half each at the TC shape.
+    * Row groups a block: about the tiles an SM gets (at most 4, and 576
+      threads), so an SM holds one copy of M for all of its warps.  M must
+      be resident for more than one; else it streams in balanced slabs of an
+      even number of K steps.
+    * Blocks: as many as are resident on the card at once (shared memory
+      and registers), up to one a row group's tile.  The ring holds all of
+      a row group's tiles (2 to 4 slots).
+    """
+    return _plan(int(ncols), int(nz), dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(ncols: int, nz: int, dtype) -> Plan:
+    es = torch.empty((), dtype=dtype).element_size()
+    K = 2 * _up8(nz)
+    tg = 32 * (K // 16)  # threads a row group
+    ntiles = _cdiv(ncols, TILE)
+
+    def layout(rg, st):
+        """(kslab, smem): M resident if it fits beside the rings, else (one
+        row group) in balanced slabs of an even number of K steps."""
+        m_full, rings = smem_layout(nz, es, rg, K, st)
+        if BARRIER_BYTES + m_full + rings <= SMEM_MAX:
+            return K, BARRIER_BYTES + m_full + rings
+        if rg > 1:
+            return None
+        room = SMEM_MAX - BARRIER_BYTES - rings
+        depth = 16 * (room // smem_layout(nz, es, rg, 16, st)[0])
+        kslab = 16 * _cdiv(K, 16 * _cdiv(K, depth))
+        m, rings = smem_layout(nz, es, rg, kslab, st)
+        return kslab, BARRIER_BYTES + m + rings
+
+    rg = max(1, min(MAX_RG, MAX_THREADS // tg, _cdiv(ntiles, NUM_SMS)))
+    while layout(rg, 2) is None:
+        rg -= 1
+    threads = rg * tg
+
+    def spread(smem):
+        """(blocks, tiles a row group): all blocks resident at once."""
+        per_sm = min(SMEM_SM // (smem + 1024), REGS_SM // (MAX_REGS * threads), 32)
+        blocks = max(1, min(_cdiv(ntiles, rg), NUM_SMS * per_sm))
+        return blocks, _cdiv(ntiles, blocks * rg)
+
+    st = 2
+    kslab, smem = layout(rg, st)
+    blocks, tiles = spread(smem)
+    # a resident row group keeps all of its tiles in flight, 2 to 4 slots
+    deeper = min(MAX_ST, tiles)
+    if kslab == K and deeper > st and (layout(rg, deeper) or (0,))[0] == K:
+        st = deeper
+        kslab, smem = layout(rg, st)
+        blocks, tiles = spread(smem)
+    return Plan(rg=rg, kslab=kslab, st=st, threads=threads, smem=smem, blocks=blocks)
+
+
+def compose_column_operator(F, Dz, Hinv, S, Ds, ts_term, pxi_bar) -> torch.Tensor:
+    """The chain as one [2nz, 2nz] matrix M, ``[w | xi] = [x* | w*] M^T``.
+
+    With tp = ts' Pxi and P the BC shift (P[j, j-1] = 1 for j >= 2, zero
+    elsewhere), HP = Hinv P:
+
+        rows of w:  [ S HP tp Dz,          -S HP      ]
+        rows of xi: [ F - ts' Ds HP tp Dz,  ts' Ds HP ]
+
+    Computed in the operators' dtype (build_semiimplicit_ops passes
+    float64) on their device."""
+    F, Dz, Hinv, S, Ds = (torch.as_tensor(o) for o in (F, Dz, Hinv, S, Ds))
+    nz = F.shape[0]
+    j = torch.arange(2, nz, device=F.device)
+    P = torch.zeros_like(F)
+    P[j, j - 1] = 1.0
+    hp = Hinv @ P
+    hd = (ts_term * pxi_bar) * (hp @ Dz)
+    w_rows = torch.cat([S @ hd, -(S @ hp)], dim=1)
+    xi_rows = torch.cat([F - ts_term * (Ds @ hd), ts_term * (Ds @ hp)], dim=1)
+    return torch.cat([w_rows, xi_rows], dim=0)
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as the kernel's tf32_bits: to nearest, ties
+    away from zero, the low 13 mantissa bits cleared (cvt.rna.tf32.f32)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_operator(M: torch.Tensor, dtype) -> torch.Tensor:
+    """M [2nz, 2nz] in the order the kernel's tensor-core fragments read it,
+    one 16-byte slot a lane: [K/8, K/8, 32, 2] float64 or [K/8, K/8, 32, 4]
+    float32 (K = 2 up8(nz), each half of M zero-padded to up8(nz)), indexed
+    [k-step kb, output tile nt, lane g*4 + t] -> M[8 nt + g][8 kb + t] and
+    M[8 nt + g][8 kb + 4 + t]; at float32 those two as hi = tf32_round(v)
+    and then lo = tf32_round(v - hi), v = float32(M), split once here."""
+    nz = M.shape[0] // 2
+    kh = _up8(nz)
+    nt = 2 * kh // 8
+    idx = torch.cat([torch.arange(nz), kh + torch.arange(nz)]).to(M.device)
+    mp = torch.zeros((2 * kh, 2 * kh), dtype=torch.float64, device=M.device)
+    mp[idx[:, None], idx[None, :]] = M.to(torch.float64)
+    # n = 8 nt + g, k = 8 kb + 4 h + t  ->  [kb, nt, g, t, h]
+    frag = mp.view(nt, 8, nt, 2, 4).permute(2, 0, 1, 4, 3).reshape(nt, nt, 32, 2)
+    if dtype == torch.float64:
+        return frag.contiguous()
+    v = frag.to(torch.float32)
+    hi = tf32_round(v)
+    return torch.cat([hi, tf32_round(v - hi)], dim=-1).contiguous()
+
+
+def fused_column_solve_plain(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
+    """The chain in plain PyTorch ([ncols, nz] @ operator^T per stage)."""
+    xf = xstar @ F.T
+    g = (ts_term * pxi_bar) * (xstar @ Dz.T) - wstar
+    g = torch.cat([g.new_zeros(g.shape[0], 2), g[:, 1:-1]], dim=1)
+    a = g @ Hinv.T
+    return a @ S.T, xf - ts_term * (a @ Ds.T)
 
 
 def _check(xstar, wstar, ops) -> tuple[int, int]:
@@ -62,19 +262,19 @@ def _check(xstar, wstar, ops) -> tuple[int, int]:
     return ncols, nz
 
 
-def fused_column_solve_plain(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
-    """The chain in plain PyTorch ([ncols, nz] @ operator^T per stage)."""
-    xf = xstar @ F.T
-    g = (ts_term * pxi_bar) * (xstar @ Dz.T) - wstar
-    g = torch.cat([g.new_zeros(g.shape[0], 2), g[:, 1:-1]], dim=1)
-    a = g @ Hinv.T
-    return a @ S.T, xf - ts_term * (a @ Ds.T)
-
-
-def _launch(xstar, wstar, ops, ncols, nz, ts_term, pxi_bar):
+def _launch(xstar, wstar, packed, ncols, nz):
     global launches
     from ._build import load
 
+    nt = 2 * _up8(nz) // 8
+    want = (nt, nt, 32, 4 if xstar.dtype == torch.float32 else 2)
+    if (tuple(packed.shape) != want or packed.dtype != xstar.dtype
+            or packed.device != xstar.device or not packed.is_contiguous()):
+        raise ValueError(
+            f"packed must be pack_operator(M, {xstar.dtype}) on {xstar.device}, "
+            f"{list(want)}; got {packed.dtype} {list(packed.shape)} on {packed.device}"
+        )
+    p = plan(ncols, nz, xstar.dtype)
     lib = load().lib
     fn = (
         lib.scythe_column_solve_f32
@@ -86,23 +286,25 @@ def _launch(xstar, wstar, ops, ncols, nz, ts_term, pxi_bar):
     with torch.cuda.device(xstar.device):
         stream = torch.cuda.current_stream(xstar.device).cuda_stream
         err = fn(
-            xstar.data_ptr(), wstar.data_ptr(), *(o.data_ptr() for o in ops),
+            xstar.data_ptr(), wstar.data_ptr(), packed.data_ptr(),
             w_out.data_ptr(), xi_out.data_ptr(), ncols, nz,
-            float(ts_term), float(pxi_bar), stream,
+            p.rg, p.kslab, p.st, p.threads, p.smem, p.blocks, stream,
         )
     if err != 0:
-        msg = lib.scythe_cuda_error_string(err).decode()
-        raise RuntimeError(f"column_solve kernel launch failed: {msg} ({err})")
+        msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
+        raise RuntimeError(f"column_solve kernel launch failed: {msg} ({err}); {p}")
     launches += 1
     return w_out, xi_out
 
 
-def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
-    """Apply the fused chain to [ncols, nz] column batches; returns
-    (w_new, xi_new).  Argument order as the TPU kernel's: x* (xi*) first.
-    ``Hinv`` is the inverse of the BC-row-shuffled Helmholtz matrix
+def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar, packed=None):
+    """Apply the chain to [ncols, nz] column batches; returns (w_new,
+    xi_new).  Argument order as the TPU kernel's: x* (xi*) first.  ``Hinv``
+    is the inverse of the BC-row-shuffled Helmholtz matrix
     (timeintegration.helmholtz_matrix); ``ts_term`` and ``pxi_bar`` are
-    scalars."""
+    scalars.  ``packed``: ``pack_operator(compose_column_operator(...))`` of
+    these operators in x*'s dtype and device, as SemiImplicitOps holds it;
+    without it a CUDA call composes and packs first (a few small launches)."""
     ops = (F, Dz, Hinv, S, Ds)
     ncols, nz = _check(xstar, wstar, ops)
     if xstar.device.type == "cpu":
@@ -111,4 +313,7 @@ def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
         raise ValueError(
             f"fused_column_solve runs on cpu or cuda tensors, got {xstar.device}"
         )
-    return _launch(xstar, wstar, ops, ncols, nz, ts_term, pxi_bar)
+    if packed is None:
+        M = compose_column_operator(*(o.double() for o in ops), ts_term, pxi_bar)
+        packed = pack_operator(M, xstar.dtype)
+    return _launch(xstar, wstar, packed, ncols, nz)

@@ -83,7 +83,7 @@ def _finish(sbar, xibar, mubar, mu_lbar, dtype, device) -> ReferenceState:
 
 def interpolate_reference_file(
     path: str, zmin: float, zmax: float, nz: int, bdim: int,
-    dtype=torch.float64, device: Any = "cpu",
+    dtype=torch.float64, *, device: Any,
 ) -> ReferenceState:
     """(ref interpolate_reference_file, reference_state.jl:17-136)."""
     sfc_pressure, alt, theta_in, qv_in = _parse_sounding(path)
@@ -130,7 +130,7 @@ def interpolate_reference_file(
 
 def exact_reference_state(
     path: str, zmin: float, zmax: float, nz: int, bdim: int,
-    dtype=torch.float64, device: Any = "cpu",
+    dtype=torch.float64, *, device: Any,
 ) -> ReferenceState:
     """Pre-balanced state file: lines 'z sbar xibar mubar mu_lbar' matching
     the model levels (ref exact_reference_state, reference_state.jl:159-199)."""
@@ -156,5 +156,6 @@ def build_reference_state(model, grid, dtype) -> ReferenceState | None:
         else interpolate_reference_file
     )
     return build(
-        model.ref_state_file, p.zmin, p.zmax, p.zDim, p.b_zDim, dtype, grid.device
+        model.ref_state_file, p.zmin, p.zmax, p.zDim, p.b_zDim, dtype,
+        device=grid.device,
     )

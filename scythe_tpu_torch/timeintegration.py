@@ -6,8 +6,9 @@ AI2*-AB3; ref src/semiimplicit.jl:521-597 and :672-726).  The step index
 ``t`` stays a Python int on the host, so the startup ramp (forward Euler at
 t = 1, AB2 at t = 2, AB3 after) is a Python branch, where the JAX package
 switches on a traced index.  The AI2* corrector runs through
-``ops.column_solve.fused_column_solve``: the CUDA kernel for tensors on the
-card, its plain PyTorch version on the CPU.
+``ops.column_solve.fused_column_solve``: on the card the CUDA kernel, which
+applies the chain composed into one operator per stage (built once, with
+the operators); on the CPU the plain chain.
 """
 
 from __future__ import annotations
@@ -106,14 +107,21 @@ class SemiImplicitOps(NamedTuple):
     col_deriv: torch.Tensor  # [nz, nz] d/dz of the truncated refit
     synth: torch.Tensor  # [nz, nz] coeff -> value
     dsynth: torch.Tensor  # [nz, nz] coeff -> d/dz
-    pxi_bar: float  # scalar Pxi (a host float: the kernel takes it by value)
+    pxi_bar: float  # scalar Pxi (a host float)
     ts: float
+    # the chain composed (column_solve.compose_column_operator, [2nz, 2nz])
+    # and packed for the kernel (column_solve.pack_operator), step 1 and AB3
+    col_op_t1: torch.Tensor
+    col_op: torch.Tensor
+    packed_t1: torch.Tensor
+    packed: torch.Tensor
 
 
 def build_semiimplicit_ops(
-    nz, zmin, zmax, bdim, pxi_bar, ts, dtype, device: Any = "cpu"
+    nz, zmin, zmax, bdim, pxi_bar, ts, dtype, device: Any
 ) -> SemiImplicitOps:
-    """Operators built in float64 numpy, then moved to ``device``.  Only the
+    """Operators built in float64, composed per stage in float64, then cast
+    to ``dtype`` on ``device`` (the grid's: no default).  Only the
     constant-coefficient mode (scalar Pxi) exists: the kernel, like the TPU
     kernel, takes one Pxi, so a per-level profile (si_mode='variable')
     raises NotImplementedError."""
@@ -128,19 +136,36 @@ def build_semiimplicit_ops(
     h = helmholtz_matrix(nz, length, pxi_bar, 1.25 * ts)
     zops = chebyshev.build_ops(nz, zmin, zmax, bdim)
     r0a = zops.constrain @ zops.analysis
+    f64 = {
+        "hinv_t1": np.linalg.inv(h1),
+        "hinv": np.linalg.inv(h),
+        "col_filter": zops.synth @ r0a,
+        "col_deriv": zops.dsynth @ r0a,
+        "synth": zops.synth,
+        "dsynth": zops.dsynth,
+    }
+    f64 = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in f64.items()}
+
+    def composed(ts_term, hinv):
+        return column_solve.compose_column_operator(
+            f64["col_filter"], f64["col_deriv"], hinv, f64["synth"], f64["dsynth"],
+            ts_term, float(pxi_bar),
+        )
+
+    m_t1 = composed(0.5 * ts, f64["hinv_t1"])
+    m = composed(1.25 * ts, f64["hinv"])
 
     def dev(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return a.to(dtype=dtype, device=device)
 
     return SemiImplicitOps(
-        hinv_t1=dev(np.linalg.inv(h1)),
-        hinv=dev(np.linalg.inv(h)),
-        col_filter=dev(zops.synth @ r0a),
-        col_deriv=dev(zops.dsynth @ r0a),
-        synth=dev(zops.synth),
-        dsynth=dev(zops.dsynth),
+        **{k: dev(v) for k, v in f64.items()},
         pxi_bar=float(pxi_bar),
         ts=ts,
+        col_op_t1=dev(m_t1),
+        col_op=dev(m),
+        packed_t1=column_solve.pack_operator(m_t1, dtype).to(device),
+        packed=column_solve.pack_operator(m, dtype).to(device),
     )
 
 
@@ -161,13 +186,14 @@ def semiimplicit_adjustment(
     ``xidot_*`` is the implicit tendency of w (= -Pxi xi_z) and ``wdot_*``
     that of xi (= -w_z), matching the reference's view naming.  The column
     chain runs through ``column_solve.fused_column_solve`` on the
-    [-1, nz] view of the stage's (xi*, w*).  Returns (w_new, xi_new)."""
+    [-1, nz] view of the stage's (xi*, w*), with the stage's packed
+    operator.  Returns (w_new, xi_new)."""
     ts = ops.ts
     if t == 1:
         # trapezoidal (AM2): subtract Euler-explicit, add ts/2-implicit
         w_star = w_np1 - ts * xidot_n + 0.5 * ts * xidot_n
         xi_star = xi_np1 - ts * wdot_n + 0.5 * ts * wdot_n
-        ts_term, hinv = 0.5 * ts, ops.hinv_t1
+        ts_term, hinv, packed = 0.5 * ts, ops.hinv_t1, ops.packed_t1
     elif t == 2:
         w_star = (
             w_np1
@@ -181,7 +207,7 @@ def semiimplicit_adjustment(
             - ts * wdot_n
             + 0.75 * ts * wdot_nm1
         )
-        ts_term, hinv = 1.25 * ts, ops.hinv
+        ts_term, hinv, packed = 1.25 * ts, ops.hinv, ops.packed
     else:
         w_star = (
             w_np1
@@ -195,7 +221,7 @@ def semiimplicit_adjustment(
             - ts * wdot_n
             + 0.75 * ts * wdot_nm1
         )
-        ts_term, hinv = 1.25 * ts, ops.hinv
+        ts_term, hinv, packed = 1.25 * ts, ops.hinv, ops.packed
 
     shape = xi_star.shape
     nz = shape[-1]
@@ -209,5 +235,6 @@ def semiimplicit_adjustment(
         ops.dsynth,
         ts_term,
         ops.pxi_bar,
+        packed=packed,
     )
     return w_new.reshape(shape), xi_new.reshape(shape)

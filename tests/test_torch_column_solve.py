@@ -4,7 +4,16 @@ scythe_tpu.timeintegration.semiimplicit_adjustment (1e-10 of max|ref|, f64),
 and against the Pallas kernel in interpret mode (mode="plain", f32, atol
 2e-4 of max|ref| as in tests/test_pallas_semiimplicit.py).  The CUDA kernel
 itself runs only on the card: chip_smoke.py holds it against this plain
-version there."""
+version there.
+
+On the CPU the kernel's arithmetic is rehearsed instead: the composed
+operator (compose_column_operator) against the chain, the plan's tiles, and
+a block-by-block emulation of the kernel's decomposition (column tiles, N
+parts, K slabs, the packed fragment order and the 3xTF32 split) against the
+chain: f64 within 1e-13 of max|ref|, f32 at most 4x the f32 chain's own
+error against the f64 chain (the rule chip_smoke.py applies on the card)."""
+
+import itertools
 
 import numpy as np
 import jax.numpy as jnp
@@ -21,7 +30,7 @@ torch.set_num_threads(2)
 
 def _ops(nz, ts, pxi, zmax=10000.0):
     j = jti.build_semiimplicit_ops(nz, 0.0, zmax, None, pxi, ts, jnp.float64)
-    t = tti.build_semiimplicit_ops(nz, 0.0, zmax, None, pxi, ts, torch.float64)
+    t = tti.build_semiimplicit_ops(nz, 0.0, zmax, None, pxi, ts, torch.float64, "cpu")
     return j, t
 
 
@@ -145,4 +154,280 @@ def test_wrapper_rejects_mixed_dtypes_and_strided_input():
 def test_variable_si_mode_is_not_ported():
     with pytest.raises(NotImplementedError, match="si_mode"):
         tti.build_semiimplicit_ops(16, 0.0, 1.0e4, None, np.full(16, 9.0e4), 0.2,
-                                   torch.float64)
+                                   torch.float64, "cpu")
+
+
+# ---- the composed operator, the kernel's plan and its decomposition
+
+
+def _stage_ops(ot, stage):
+    """(F, Dz, Hinv, S, Ds, ts_term) of a stage of ``ot`` (ts = ot.ts)."""
+    ts_term, hinv = (0.5 * ot.ts, ot.hinv_t1) if stage == "t1" else (1.25 * ot.ts, ot.hinv)
+    return (ot.col_filter, ot.col_deriv, hinv, ot.synth, ot.dsynth), ts_term
+
+
+def _columns(ncols, nz, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=(ncols, nz))),
+            torch.from_numpy(rng.normal(size=(ncols, nz))))
+
+
+def _max_rel(got, ref):
+    return max(float((g.double() - r).abs().max() / r.abs().max())
+               for g, r in zip(got, ref))
+
+
+COMPOSE_NZ = (3, 13, 24, 48, 100, 128)
+
+
+@pytest.mark.parametrize("stage", ["t1", "ab"])
+@pytest.mark.parametrize("nz", COMPOSE_NZ)
+def test_composed_operator_matches_chain_f64(nz, stage):
+    ot = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, 9.0e4, 0.15,
+                                    torch.float64, "cpu")
+    ops, ts_term = _stage_ops(ot, stage)
+    x, w = _columns(64, nz, nz)
+    ref = column_solve.fused_column_solve_plain(x, w, *ops, ts_term, ot.pxi_bar)
+    m = column_solve.compose_column_operator(*ops, ts_term, ot.pxi_bar)
+    assert torch.equal(m, ot.col_op_t1 if stage == "t1" else ot.col_op)
+    out = torch.cat([x, w], dim=1) @ m.T
+    assert _max_rel((out[:, :nz], out[:, nz:]), ref) <= 1e-13
+
+
+@pytest.mark.parametrize("stage", ["t1", "ab"])
+@pytest.mark.parametrize("nz", COMPOSE_NZ)
+def test_composed_operator_f32_error_within_4x_the_chain(nz, stage):
+    o64 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, 9.0e4, 0.15,
+                                     torch.float64, "cpu")
+    o32 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, 9.0e4, 0.15,
+                                     torch.float32, "cpu")
+    ops64, ts_term = _stage_ops(o64, stage)
+    ops32, _ = _stage_ops(o32, stage)
+    x, w = _columns(512, nz, 100 + nz)
+    ref = column_solve.fused_column_solve_plain(x, w, *ops64, ts_term, o64.pxi_bar)
+    chain32 = column_solve.fused_column_solve_plain(
+        x.float(), w.float(), *ops32, ts_term, o32.pxi_bar)
+    m32 = o32.col_op_t1 if stage == "t1" else o32.col_op
+    out = torch.cat([x, w], dim=1).float() @ m32.T
+    composed = _max_rel((out[:, :nz], out[:, nz:]), ref)
+    assert composed <= 4.0 * _max_rel(chain32, ref) and composed <= 1e-5
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+PLAN_NCOLS = (1, 16, 37, 100, 1200, 2111, 9216, 40000)
+PLAN_NZ = (3, 8, 13, 24, 40, 48, 64, 72, 100, 110, 128, 81)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("nz", PLAN_NZ)
+def test_plan_fits_the_card_and_covers_every_column(nz, dtype):
+    es = torch.empty((), dtype=dtype).element_size()
+    K = 2 * _ceil(nz, 8) * 8
+    bar = column_solve.BARRIER_BYTES
+    for ncols in PLAN_NCOLS:
+        p = column_solve.plan(ncols, nz, dtype)
+        where = (ncols, nz, dtype, p)
+        m_bytes, rings = column_solve.smem_layout(nz, es, p.rg, p.kslab, p.st)
+        assert p.smem == bar + m_bytes + rings <= column_solve.SMEM_MAX, where
+        full, _ = column_solve.smem_layout(nz, es, p.rg, K, p.st)
+        # M resident exactly where it fits beside the rings; streamed only
+        # with one row group, in slabs of an even number of K steps
+        assert p.resident(nz) == (bar + full + rings <= column_solve.SMEM_MAX), where
+        assert p.resident(nz) or p.rg == 1, where
+        assert p.kslab % 16 == 0 and 16 <= p.kslab <= K, where
+        assert 1 <= p.rg <= 4 and 2 <= p.st <= column_solve.MAX_ST, where
+        # row groups of N / 16 warps, at most 576 threads
+        assert p.threads == p.rg * 32 * (K // 16) <= 576, where
+        # all blocks resident at once (shared memory, 112 registers a thread)
+        per_sm = _ceil(p.blocks, column_solve.NUM_SMS)
+        assert per_sm * (p.smem + 1024) <= column_solve.SMEM_SM, where
+        assert per_sm * p.threads * 112 <= 65536, where
+        # row group r of block b takes tiles b + blocks r, then every
+        # (blocks rg)-th: every column tile once
+        ntiles = _ceil(ncols, 16)
+        assert 1 <= p.blocks <= _ceil(ntiles, p.rg), where
+        taken = sorted(t for b in range(p.blocks) for r in range(p.rg)
+                       for t in range(b + p.blocks * r, ntiles, p.blocks * p.rg))
+        assert taken == list(range(ntiles)), where
+
+
+def test_plan_meets_its_goals_at_the_main_path_shapes():
+    f32 = torch.float32
+    moist3d = column_solve.plan(9216, 48, f32)
+    tc = column_solve.plan(1200, 24, f32)
+    # moist3d: one block an SM, M resident once in it for three row groups
+    # of warps, each keeping all of its tiles in flight
+    assert moist3d.resident(48) and moist3d.rg == 3
+    assert moist3d.blocks == column_solve.NUM_SMS
+    assert moist3d.st == min(4, _ceil(576, 3 * moist3d.blocks))
+    # the TC shape: one tile a block
+    assert tc.rg == 1 and tc.blocks == _ceil(1200, 16)
+    # large nz streams M in K slabs at f64
+    assert not column_solve.plan(9216, 128, torch.float64).resident(128)
+
+
+_tf32 = column_solve.tf32_round
+
+
+def _emulate(x, w, packed, p):
+    """The kernel's decomposition, block by block in its order: for each
+    persistent block and row group, its column tiles; for each tile the K
+    slabs
+    and 8-deep K steps, with B read from the packed fragment slots and, at
+    f32, the 3xTF32 split (B's from the packed slots; lo(a) hi(b) and
+    hi(a) lo(b) each into its own accumulator, one for even and one for odd
+    K steps of a slab; hi(a) hi(b) summed over the two K steps of a trip
+    and added to a third; each product summed in f64 and rounded to f32).
+    Returns (w, xi) and how often each padded output was written."""
+    ncols, nz = x.shape
+    kh = _ceil(nz, 8) * 8
+    K = 2 * kh
+    f32 = x.dtype == torch.float32
+    a_all = torch.zeros((ncols, K), dtype=x.dtype)
+    a_all[:, :nz], a_all[:, kh:kh + nz] = x, w
+    out = torch.full((ncols, K), float("nan"), dtype=x.dtype)
+    hits = torch.zeros((ncols, K), dtype=torch.int64)
+    ntiles = _ceil(ncols, 16)
+    for b, r in itertools.product(range(p.blocks), range(p.rg)):
+        for tile in range(b + p.blocks * r, ntiles, p.blocks * p.rg):
+            rows = slice(tile * 16, min(ncols, (tile + 1) * 16))
+            a = a_all[rows]
+            hh = torch.zeros((a.shape[0], K), dtype=x.dtype)
+            lh = [torch.zeros_like(hh), torch.zeros_like(hh)]  # even, odd K steps
+            hl = [torch.zeros_like(hh), torch.zeros_like(hh)]
+            for kb0 in range(0, K // 8, p.kslab // 8):
+                for kb in range(kb0, min(K // 8, kb0 + p.kslab // 8)):
+                    slots = packed[kb]  # [K/8, 32, 2|4]
+                    # slot [nt, g*4 + t, h] -> B[k = 4h + t][n = 8 nt + g]; at
+                    # f32 h = 0, 1 hold hi, h = 2, 3 lo
+                    bk = slots.reshape(K // 8, 8, 4, -1).permute(3, 2, 0, 1)
+                    ak = a[:, kb * 8:(kb + 1) * 8]
+                    if not f32:
+                        hh += ak @ bk.reshape(8, K)
+                        continue
+                    b_hi = bk[:2].reshape(8, K).double()
+                    b_lo = bk[2:].reshape(8, K).double()
+                    a_hi = _tf32(ak)
+                    a_lo = _tf32(ak - a_hi).double()
+                    a_hi = a_hi.double()
+                    q = (kb - kb0) % 2
+                    lh[q] = (lh[q].double() + a_lo @ b_hi).float()
+                    hl[q] = (hl[q].double() + a_hi @ b_lo).float()
+                    if q == 0:
+                        part = (a_hi @ b_hi).float()
+                    else:
+                        part = (part.double() + a_hi @ b_hi).float()
+                        hh = hh + part
+            out[rows] = hh + ((lh[0] + lh[1]) + (hl[0] + hl[1])) if f32 else hh
+            hits[rows] += 1
+    return (out[:, :nz], out[:, kh:kh + nz]), hits
+
+
+# (ncols, nz): chip_smoke.py's shapes where the emulation stays quick, the
+# moist3d and TC shapes, and large nz (M streamed in slabs)
+EMULATED = [(37, 13), (1200, 24), (37, 40), (9216, 48), (300, 100), (37, 128),
+            (300, 128)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+@pytest.mark.parametrize("ncols,nz", EMULATED)
+def test_plan_decomposition_matches_the_chain(ncols, nz, dtype):
+    o64 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, 9.0e4, 0.15,
+                                     torch.float64, "cpu")
+    ot = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, 9.0e4, 0.15, dtype, "cpu")
+    x, w = _columns(ncols, nz, ncols + nz)
+    ops64, ts_term = _stage_ops(o64, "ab")
+    ref = column_solve.fused_column_solve_plain(x, w, *ops64, ts_term, o64.pxi_bar)
+    p = column_solve.plan(ncols, nz, dtype)
+    got, hits = _emulate(x.to(dtype), w.to(dtype), ot.packed, p)
+    assert torch.equal(hits, torch.ones_like(hits)), p  # every output once
+    err = _max_rel(got, ref)
+    if dtype == torch.float64:
+        assert err <= 1e-13, (p, err)
+    else:
+        ops32, _ = _stage_ops(ot, "ab")
+        chain32 = column_solve.fused_column_solve_plain(
+            x.float(), w.float(), *ops32, ts_term, ot.pxi_bar)
+        assert err <= 4.0 * _max_rel(chain32, ref) and err <= 1e-5, (p, err)
+
+
+def test_pack_operator_slots_are_the_fragments():
+    """slot [kb, nt, g*4 + t] holds M[8 nt + g][8 kb + t] and
+    M[8 nt + g][8 kb + 4 + t], the halves of M padded to up8(nz)."""
+    nz = 13
+    m = torch.arange(4 * nz * nz, dtype=torch.float64).reshape(2 * nz, 2 * nz) + 1.0
+    packed = column_solve.pack_operator(m, torch.float64)
+    assert packed.shape == (4, 4, 32, 2)
+
+    def real(i):  # padded index -> index into M, None in the padding
+        half, j = divmod(i, 16)
+        return half * nz + j if j < nz else None
+
+    for kb, nt, lane, h in itertools.product(range(4), range(4), range(32), range(2)):
+        n, k = real(8 * nt + lane // 4), real(8 * kb + 4 * h + lane % 4)
+        want = 0.0 if n is None or k is None else float(m[n, k])
+        assert float(packed[kb, nt, lane, h]) == want
+    # f32: hi + lo reproduces float32(M) to the split's 2^-22, and hi is TF32
+    p32 = column_solve.pack_operator(m, torch.float32)
+    hi, lo = p32[..., :2], p32[..., 2:]
+    assert torch.equal(hi, _tf32(hi))
+    assert ((hi.double() + lo.double()) - packed.float().double()).abs().max() <= (
+        2.0 ** -22 * m.abs().max())
+
+
+def test_tf32_split_is_nearest_ties_away_and_exact_to_2_22():
+    one = 1.0 + 2.0 ** -10  # a TF32 value: 10 mantissa bits
+    v = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 2.0 ** -11), one],
+                     dtype=torch.float32)
+    assert _tf32(v).tolist() == [one, 1.0, -one, one]
+    r = torch.from_numpy(np.random.default_rng(5).normal(size=4096)).float()
+    hi = _tf32(r)
+    lo = _tf32(r - hi)
+    err = (hi.double() + lo.double() - r.double()).abs()
+    assert (err <= 2.0 ** -22 * r.double().abs()).all()
+
+
+@pytest.mark.parametrize("t", [1, 2, 5])
+def test_adjustment_on_the_composed_path(monkeypatch, t):
+    """semiimplicit_adjustment hands each stage's packed operator to the
+    column solve: applied as the kernel applies it (the emulation), it
+    matches the JAX package's einsum path at f64."""
+    nz, ncols, ts, pxi = 24, 37, 0.2, 9.0e4
+    oj, ot = _ops(nz, ts, pxi)
+    seen = []
+
+    def composed(x, w, *args, packed=None):
+        seen.append(packed)
+        got, _ = _emulate(x, w, packed, column_solve.plan(x.shape[0], nz, x.dtype))
+        return got
+
+    monkeypatch.setattr(column_solve, "fused_column_solve", composed)
+    rng = np.random.default_rng(t)
+    args = [rng.normal(size=(ncols, nz)) for _ in range(8)]
+    wj, xj = jti.semiimplicit_adjustment(oj, *map(jnp.asarray, args), jnp.asarray(t))
+    wt, xt = tti.semiimplicit_adjustment(ot, *map(torch.from_numpy, args), t)
+    assert seen[0] is (ot.packed_t1 if t == 1 else ot.packed)
+    assert _rel_err(wt, wj) <= 1e-10 and _rel_err(xt, xj) <= 1e-10
+
+
+@pytest.mark.parametrize("nz,ncols,tile", [(24, 37, 16), (40, 96, 32)])
+@pytest.mark.parametrize("stage", ["t1", "ab"])
+def test_composed_path_matches_pallas_interpret(nz, ncols, tile, stage):
+    ts, pxi = 0.2, 9.0e4
+    oj, ot = _ops(nz, ts, pxi)
+    ts_term, hj, packed = (
+        (0.5 * ts, oj.hinv_t1, ot.packed_t1) if stage == "t1"
+        else (1.25 * ts, oj.hinv, ot.packed)
+    )
+    x, w = _columns(ncols, nz, ncols)
+    wk, xk = pallas_solve(
+        jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), oj.col_filter, oj.col_deriv,
+        hj, oj.synth, oj.dsynth, ts_term, pxi, interpret=True, tile=tile, mode="plain",
+    )
+    got, _ = _emulate(x, w, packed, column_solve.plan(ncols, nz, torch.float64))
+    for g, ref in zip(got, (wk, xk)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(g.numpy(), ref, atol=2e-4 * np.abs(ref).max(), rtol=1e-7)

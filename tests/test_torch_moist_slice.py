@@ -72,7 +72,7 @@ def case(tmp_path_factory):
         f.write(f"1015.0 {theta[0]} {qv[0]}\n")
         for z, th, q in zip(zs[1:], theta[1:], qv[1:]):
             f.write(f"{z} {th} {q}\n")
-    grid = tx.create_grid(_grid_params(tx), torch.float64)
+    grid = tx.create_grid(_grid_params(tx), torch.float64, device="cpu")
     pts = grid.gridpoints()
     r, lam, z = pts[:, 0], pts[:, 1], pts[:, 2]
     x, y = r * np.cos(lam), r * np.sin(lam)
@@ -101,7 +101,7 @@ def test_one_step_tendencies_match(case):
     sj1 = jmodel.build_step(mj, gj, cj, jnp.float64)(sj)
 
     mt = _model(tx, case, 1)
-    gt, ct, st = tmodel.initialize(mt, torch.float64)
+    gt, ct, st = tmodel.initialize(mt, torch.float64, device="cpu")
     st1 = tmodel.build_step(mt, gt, ct, torch.float64)(st)
 
     _assert_per_var(st.spec, sj.spec, 1e-12)
@@ -116,7 +116,7 @@ def test_twenty_steps_match(case):
                                    dtype=jnp.float64)
     before = column_solve.launches
     _, phys_t = tx.integrate_model(_model(tx, case, 20, out="out_torch"),
-                                   dtype=torch.float64)
+                                   dtype=torch.float64, device="cpu")
     assert column_solve.launches == before  # CPU tensors take the plain path
     assert np.isfinite(phys_t).all()
     assert phys_t[5].max() > 0.0  # the bubble starts to rise
@@ -142,7 +142,7 @@ def test_resume_from_jax_checkpoint(case):
     st, t_sim = convert.load_jax_checkpoint(path, "cpu", torch.float64)
     assert t_sim == 0.75 and st.t == 4
     mt = _model(tx, case, 8)
-    gt, ct, _ = tmodel.initialize(mt, torch.float64)
+    gt, ct, _ = tmodel.initialize(mt, torch.float64, device="cpu")
     step_t = tmodel.build_step(mt, gt, ct, torch.float64)
     for _ in range(5):
         sj = step_j(sj)
@@ -155,7 +155,7 @@ def test_resume_from_jax_checkpoint(case):
 
     # the same 5 steps through the driver, resumed from the JAX checkpoint
     _, phys_t = tx.integrate_model(_model(tx, case, 5, out="out_resume"),
-                                   dtype=torch.float64, resume_from=path)
+                                   dtype=torch.float64, resume_from=path, device="cpu")
     _assert_per_var(phys_t, gj.synthesis(sj.spec)["val"], 1e-10)
     assert sorted(p.name for p in (case / "out_resume").glob("*.csv")) == [
         "physical_out_2.0.csv"  # t_sim 0.75 + 5 x 0.25; no t=0 output on resume
@@ -171,7 +171,7 @@ def test_state_round_trip(case):
     for k in ("spec", "expdot_nm1", "impdot_nm2"):
         assert np.array_equal(back[k], np.asarray(getattr(sj, k)))
     rs = convert.reference_state_from_numpy(jmodel.build_context(
-        mj, jx.create_grid(mj.grid_params, jnp.float64), jnp.float64).ref_state)
+        mj, jx.create_grid(mj.grid_params, jnp.float64), jnp.float64).ref_state, "cpu")
     assert rs.sbar.shape == (16, 3)
 
 
@@ -194,7 +194,7 @@ def test_state_round_trip(case):
 )
 def test_unported_options_raise(case, options, named):
     m = _model(tx, case, 1, options)
-    grid = tx.create_grid(m.grid_params, torch.float64)
+    grid = tx.create_grid(m.grid_params, torch.float64, device="cpu")
     ctx = tmodel.build_context(m, grid, torch.float64)
     with pytest.raises(NotImplementedError, match=named):
         tmodel.build_step(m, grid, ctx, torch.float64)
@@ -211,7 +211,7 @@ def test_options_ported_with_the_tc_slice_run(case, options):
     configuration too (tests/test_torch_tc_slice.py holds them against the
     JAX package)."""
     m = _model(tx, case, 1, options)
-    grid, ctx, state = tmodel.initialize(m, torch.float64)
+    grid, ctx, state = tmodel.initialize(m, torch.float64, device="cpu")
     out = tmodel.build_step(m, grid, ctx, torch.float64)(state)
     assert torch.isfinite(out.spec).all()
 
@@ -227,9 +227,9 @@ def test_unported_grid_switches_raise(kw):
 def test_unported_geometry_and_matmul_raise():
     with pytest.raises(NotImplementedError, match="XYZ"):
         tx.create_grid(tx.GridParameters(geometry="XYZ", num_cells=4, lDim=8,
-                                         ymax=1.0, zDim=8))
+                                         ymax=1.0, zDim=8), device="cpu")
     with pytest.raises(NotImplementedError, match="compensated"):
-        tx.create_grid(_grid_params(tx), matmul="compensated")
+        tx.create_grid(_grid_params(tx), matmul="compensated", device="cpu")
     with pytest.raises(KeyError, match="MoistEulerRLZ"):
         from scythe_tpu_torch.equations.common import get_equation_set
 

@@ -39,7 +39,7 @@ SCRIPT = textwrap.dedent(
         f.write("1015.0 300.0 14.0\\n")
         for z in np.linspace(300.0, 12000.0, 20):
             f.write(f"{z} {300.0 + 0.004 * z} {14.0 * np.exp(-z / 2500.0)}\\n")
-    pts = tx.create_grid(gp, torch.float64).gridpoints()
+    pts = tx.create_grid(gp, torch.float64, device="cpu").gridpoints()
     cols = np.zeros((len(pts), 12))
     cols[:, :3] = pts
     cols[:, 3] = 2.0 * np.exp(-((pts[:, 0] - 3000.0) ** 2 + (pts[:, 2] - 2000.0) ** 2) / 1e6)

@@ -158,13 +158,13 @@ def _close_ref_states(got, ref):
 def test_interpolate_reference_file_matches(sounding, nz):
     args = (sounding, 0.0, 10000.0, nz, (2 * nz - 1) // 3 + 1)
     ref = jrs.interpolate_reference_file(*args, jnp.float64)
-    got = trs.interpolate_reference_file(*args, torch.float64)
+    got = trs.interpolate_reference_file(*args, torch.float64, device="cpu")
     _close_ref_states(got, ref)
 
 
 def test_exact_reference_state_matches(sounding, tmp_path):
     nz = 16
-    base = trs.interpolate_reference_file(sounding, 0.0, 1.0e4, nz, 11)
+    base = trs.interpolate_reference_file(sounding, 0.0, 1.0e4, nz, 11, device="cpu")
     from scythe_tpu_torch.basis import chebyshev
 
     z = chebyshev.gauss_points(nz, 0.0, 1.0e4)
@@ -173,7 +173,7 @@ def test_exact_reference_state_matches(sounding, tmp_path):
     path = tmp_path / "exact.txt"
     np.savetxt(path, np.stack(cols, axis=1), fmt="%.17g")
     args = (str(path), 0.0, 1.0e4, nz, 11)
-    _close_ref_states(trs.exact_reference_state(*args, torch.float64),
+    _close_ref_states(trs.exact_reference_state(*args, torch.float64, device="cpu"),
                       jrs.exact_reference_state(*args, jnp.float64))
 
 
@@ -196,7 +196,7 @@ def test_condensation_adjustment_matches(sounding, options):
     cj, ct = _contexts(
         options,
         jrs.interpolate_reference_file(*args, jnp.float64),
-        trs.interpolate_reference_file(*args, torch.float64),
+        trs.interpolate_reference_file(*args, torch.float64, device="cpu"),
     )
     rng = np.random.default_rng(5)
     var = np.zeros((9, 6, 4, nz))

@@ -44,7 +44,7 @@ def _rel(got, ref):
 def test_plain_matches_pallas_interpret(nvars, cells, nl, nz):
     gj = jx.create_grid(_params(jx, nvars, cells, nl, nz), jnp.float32,
                         matmul="compensated")
-    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float64)
+    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float64, device="cpu")
     rng = np.random.default_rng(0)
     phys = rng.normal(size=(nvars,) + gt.spatial_shape).astype(np.float32)
     want = np.asarray(pt.build_rlz_analysis(gj, interpret=True)(jnp.asarray(phys)))
@@ -56,7 +56,7 @@ def test_plain_matches_pallas_interpret(nvars, cells, nl, nz):
 @pytest.mark.parametrize("nvars,cells,nl,nz", SHAPES + [(9, 8, 16, 16)])
 def test_plain_matches_jax_plain_analysis_f64(nvars, cells, nl, nz):
     gj = jx.create_grid(_params(jx, nvars, cells, nl, nz), jnp.float64, matmul="plain")
-    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float64)
+    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float64, device="cpu")
     phys = np.random.default_rng(nvars).normal(size=(nvars,) + gt.spatial_shape)
     want = np.asarray(gj.analysis(jnp.asarray(phys)))
     got = ra.rlz_analysis_plain(torch.from_numpy(phys), *_ops(gt))
@@ -64,7 +64,7 @@ def test_plain_matches_jax_plain_analysis_f64(nvars, cells, nl, nz):
 
 
 def test_grid_analysis_takes_the_wrapper_plain_path_on_cpu():
-    gt = tx.create_grid(_params(tx, 3, 8, 16, 12), torch.float64)
+    gt = tx.create_grid(_params(tx, 3, 8, 16, 12), torch.float64, device="cpu")
     phys = torch.from_numpy(np.random.default_rng(5).normal(size=(3,) + gt.spatial_shape))
     before = ra.launches
     got = gt.analysis(phys)
@@ -79,7 +79,7 @@ def test_grid_analysis_takes_the_wrapper_plain_path_on_cpu():
 def test_other_geometries_keep_the_einsum_path():
     gp = tx.GridParameters(geometry="RZ", xmin=0.0, xmax=1.0e4, num_cells=6,
                            zmin=0.0, zmax=1.0e4, zDim=10, vars={"a": 1})
-    g = tx.create_grid(gp, torch.float64)
+    g = tx.create_grid(gp, torch.float64, device="cpu")
     phys = torch.ones((1,) + g.spatial_shape, dtype=torch.float64)
     before = ra.launches
     assert g.analysis(phys).shape == g.spectral_shape
@@ -92,7 +92,7 @@ def _rejects(match, phys, ops):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    gt = tx.create_grid(_params(tx, 2, 8, 16, 12), torch.float64)
+    gt = tx.create_grid(_params(tx, 2, 8, 16, 12), torch.float64, device="cpu")
     ops = _ops(gt)
     phys = torch.zeros((2,) + gt.spatial_shape, dtype=torch.float64)
     _rejects("rDim, nl, nz", phys[0], ops)
@@ -224,7 +224,7 @@ EMULATED = {
 @pytest.mark.parametrize("name", EMULATED)
 def test_plan_decomposition_matches_plain_f64(name, plan_dtype):
     nvars, cells, nl, nz = EMULATED[name]
-    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float64)
+    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float64, device="cpu")
     phys = torch.from_numpy(
         np.random.default_rng(cells).normal(size=(nvars,) + gt.spatial_shape))
     p = ra.plan(phys.shape, gt.params.b_rDim, plan_dtype)

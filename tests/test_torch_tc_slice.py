@@ -77,7 +77,7 @@ def case(tmp_path_factory):
 
 def test_write_ics_matches_jax(case):
     mt = case["mt"].with_(initial_conditions=str(case["tmp"] / "torch" / "ics.csv"))
-    gt = tx.create_grid(mt.grid_params, torch.float64)
+    gt = tx.create_grid(mt.grid_params, torch.float64, device="cpu")
     tct.write_ics(mt, gt, tmodel.build_context(mt, gt, torch.float64).ref_state, **ICS)
     with open(mt.initial_conditions) as f:
         header = f.readline().strip()
@@ -90,7 +90,7 @@ def test_write_ics_matches_jax(case):
 
 def test_one_step_tendencies_match(case):
     mt = case["mt"]
-    gt, ct, st = tmodel.initialize(mt, torch.float64)
+    gt, ct, st = tmodel.initialize(mt, torch.float64, device="cpu")
     _assert_per_var(ct.extras["sponge_ref"], case["cj"].extras["sponge_ref"], 1e-12)
     st1 = tmodel.build_step(mt, gt, ct, torch.float64)(st)
     sj, sj1 = case["states"][0], case["states"][1]
@@ -102,7 +102,7 @@ def test_one_step_tendencies_match(case):
 
 def test_twenty_steps_match(case):
     before = (column_solve.launches, rlz_analysis.launches)
-    _, phys_t = tx.integrate_model(case["mt"], dtype=torch.float64)
+    _, phys_t = tx.integrate_model(case["mt"], dtype=torch.float64, device="cpu")
     assert (column_solve.launches, rlz_analysis.launches) == before  # CPU: plain
     assert np.isfinite(phys_t).all()
     ref = case["gj"].synthesis(case["states"][N_STEPS].spec)["val"]
@@ -115,11 +115,11 @@ def test_run_continues_in_the_port_from_jax_state(case):
     """JAX 10 steps, the port 10 more from that state and the JAX context
     extras (the sponge's reference), against JAX 20 steps."""
     mt = case["mt"]
-    gt, ct, _ = tmodel.initialize(mt, torch.float64)
-    extras = convert.context_extras_from_numpy(case["cj"].extras)
+    gt, ct, _ = tmodel.initialize(mt, torch.float64, device="cpu")
+    extras = convert.context_extras_from_numpy(case["cj"].extras, device="cpu")
     assert set(extras) == {"sponge_ref"}
     ct.extras.update(extras)
-    st = convert.state_from_numpy(case["states"][10])
+    st = convert.state_from_numpy(case["states"][10], device="cpu")
     step = tmodel.build_step(mt, gt, ct, torch.float64)
     for _ in range(N_STEPS - 10):
         st = step(st)
@@ -140,7 +140,7 @@ def fields(case):
 
 @pytest.fixture(scope="module")
 def grids(case):
-    gt = tx.create_grid(case["mt"].grid_params, torch.float64)
+    gt = tx.create_grid(case["mt"].grid_params, torch.float64, device="cpu")
     return case["gj"], gt
 
 
@@ -220,7 +220,7 @@ def test_vdiff_exclude_takes_a_bare_string(case, grids):
     assert not torch.equal(results[0][1], var[1])  # xi is diffused once not excluded
     # and through the options: a multi-letter name builds and steps
     mt = case["mt"].with_(options={**case["mt"].opts(), "vdiff_exclude": "mu_c"})
-    g, c, s = tmodel.initialize(mt, torch.float64)
+    g, c, s = tmodel.initialize(mt, torch.float64, device="cpu")
     assert torch.isfinite(tmodel.build_step(mt, g, c, torch.float64)(s).spec).all()
     bad = mt.with_(options={**mt.opts(), "vdiff_exclude": "nope"})
     c_bad = tmodel.build_context(bad, g, torch.float64)
@@ -238,7 +238,8 @@ def test_sponge_matches_jax(case):
         if sponge:
             opts.update(sponge_width=100.0e3, sponge_tau=1800.0)
         m = (case["mj"] if pkg is jx else case["mt"]).with_(options=opts)
-        g, c, s = mod.initialize(m, dtype)
+        g, c, s = (mod.initialize(m, dtype) if pkg is jx
+                   else mod.initialize(m, dtype, device="cpu"))
         s = s._replace(spec=s.spec * 1.02)  # away from the sponge's reference
         return np.asarray(mod.build_step(m, g, c, dtype)(s).expdot_nm1)
 
@@ -257,7 +258,7 @@ def test_sponge_matches_jax(case):
 )
 def test_options_beside_the_bundle_still_raise(case, options, named):
     mt = case["mt"].with_(options={**case["mt"].opts(), **options})
-    g, c, _ = tmodel.initialize(mt, torch.float64)
+    g, c, _ = tmodel.initialize(mt, torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match=named):
         tmodel.build_step(mt, g, c, torch.float64)
 
