@@ -14,13 +14,16 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    memory and spills for each kernel;
 3. column solve against its plain PyTorch version on the card: nz in
    {13, 24, 40, 48, 100, 128} x ncols in {37, 1200, 9216} x both stages,
-   f64 kernel vs f64 plain chain (1e-12 of max|ref|), f32 kernel vs f64
-   plain (1e-5, and at most 4x the f32 plain chain's own error), two calls
-   bitwise equal in each dtype, the plan printed per shape; then timed at
-   9216 x 48 and 1200 x 24 f32 and 9216 x 48 f64 in turns (plain, kernel,
-   kernel, plain, library), each as device time and back to back, beside
-   its bound; the library call is one torch.matmul of [x* | w*] by M^T,
-   which the port never calls;
+   the stage's operator applied as the main path applies it
+   (apply_column_operator) and the TPU function's counterpart
+   (fused_column_solve, composed per call): f64 kernel vs f64 plain chain
+   (1e-12 of max|ref|), f32 kernel vs f64 plain (1e-5, and at most 4x the
+   f32 plain chain's own error), two calls bitwise equal in each dtype, the
+   library call's error printed beside the kernel's, the plan printed per
+   shape; then timed at 9216 x 48 and 1200 x 24 f32 and 9216 x 48 f64 in
+   turns (plain, kernel, kernel, plain, library), each as device time and
+   back to back, beside its bound and each one's error; the library call
+   is one torch.matmul of [x* | w*] by M^T, which the port never calls;
 4. RLZ analysis against its plain version on the card: moist3d
    [9, 144, 64, 48], the TC grid [9, 300, 4, 24], the RLZ transform bench
    [8, 192, 128, 60], the two shapes of tests/test_pallas_transforms.py, one
@@ -62,9 +65,10 @@ No phase catches its own failure: any failed check raises and the script
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
 The last lines of standard output are the card's name and power limit, a
 JSON object describing the kernels (each with its bound: the larger of its
-bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's f32
-rate and its f64 tensor-core rate), then {"ok": true, "device": {...}}.  It
-imports nothing of jax.
+bytes over 3.35 TB/s and its operations over the H100 SXM's peak for them:
+products of f32 matrices at the tensor cores' f32-accurate rate, 3xTF32, a
+third of 495 TFLOP/s; of f64 matrices at 67 TFLOP/s; f32 elementwise work at
+67 TFLOP/s), then {"ok": true, "device": {...}}.  It imports nothing of jax.
 """
 
 from __future__ import annotations
@@ -87,10 +91,13 @@ MOIST3D_VARS = ("s", "xi", "mu", "u", "v", "w", "mu_c", "mu_r", "qss")
 # CPU measured 1.03e-4 (PERF.md), so its bound is 3e-4
 TC_F32_BOUND = {"u": 3e-4}
 TC_QC_MIN = 1e-6  # q_c max after 30 min: 6.09e-6 in the CPU f64 run (PERF.md)
-# the H100 SXM's published peaks (NVIDIA's data sheet): HBM, f32 outside the
-# tensor cores, f64 on them
+# the H100 SXM's published dense peaks (NVIDIA's data sheet): HBM; products
+# of f32 matrices to f32 accuracy on the tensor cores (3xTF32: three TF32
+# products, so a third of 495 TFLOP/s); products of f64 matrices on them;
+# f32 elementwise work outside them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"float32": 67e12, "float64": 67e12}
+PEAK_FLOP_PER_S = {"f32 products": 495e12 / 3, "f64 products": 67e12,
+                   "f32 elementwise": 67e12}
 CS_NZ = (13, 24, 40, 48, 100, 128)
 CS_NCOLS = (37, 1200, 9216)
 
@@ -213,18 +220,19 @@ def in_turns(plain, kernel, n, timer=cuda_time_ms, library=None):
     return (times[kernel], times[plain]) + ((times[library],) if library else ())
 
 
-def bound_ms(nbytes, flops, dtype_name):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
+def bound_ms(nbytes, flops, kind):
+    """(ms, "bytes" | "operations"): the least time the card could take;
+    ``kind`` is a key of PEAK_FLOP_PER_S."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def column_solve_bound(ncols, nz, dtype_name):
     """x*, w* and M read once, w and xi written once; 2 ncols (2nz)^2 FLOP."""
-    es = 4 if dtype_name == "float32" else 8
-    return bound_ms((4 * ncols * nz + 4 * nz * nz) * es, 2 * ncols * (2 * nz) ** 2,
-                    dtype_name)
+    f32 = dtype_name == "float32"
+    return bound_ms((4 * ncols * nz + 4 * nz * nz) * (4 if f32 else 8),
+                    2 * ncols * (2 * nz) ** 2, "f32 products" if f32 else "f64 products")
 
 
 def per_field_rel(got, ref):
@@ -242,13 +250,22 @@ def fmt_rel(rel):
     return json.dumps(dict(zip(MOIST3D_VARS, [float(f"{e:.3e}") for e in rel])))
 
 
+def rel_errs(got, ref):
+    """max|got - ref| / max|ref| of each output of a (w, xi) pair, and the
+    largest absolute error."""
+    errs = [float((g.double() - r).abs().max()) for g, r in zip(got, ref)]
+    return max(e / float(r.abs().max()) for e, r in zip(errs, ref)), max(errs)
+
+
 def phase_column_solve(torch, tti, cs, pxi):
-    """Phase 3; returns (max_abs_err at 9216 x 48 f32, {label: (ms,
-    plain_ms, library_ms)}) with device times."""
+    """Phase 3; returns ({"kernel" | "library": max_abs_err at 9216 x 48 f32,
+    AB3 stage}, {label: (ms, plain_ms, library_ms, bound_ms, bound_by)})
+    with device times."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     ts = 0.15
-    worst = {"f64": 0.0, "f32": 0.0, "f32 / plain f32": 0.0}
+    worst = {"f64": 0.0, "f32": 0.0, "f32 / plain f32": 0.0, "library f32 / plain f32": 0.0,
+             "f32 / library f32": 0.0, "counterpart f64": 0.0, "counterpart f32": 0.0}
     main_err, plans = None, []
     for nz in CS_NZ:
         o64 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float64, "cuda")
@@ -256,45 +273,57 @@ def phase_column_solve(torch, tti, cs, pxi):
         for ncols in CS_NCOLS:
             x = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
             w = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+            x32, w32 = x.float(), w.float()
             for stage in ("t1", "ab"):
                 ts_term = 0.5 * ts if stage == "t1" else 1.25 * ts
                 ops64 = (o64.col_filter, o64.col_deriv,
                          o64.hinv_t1 if stage == "t1" else o64.hinv, o64.synth, o64.dsynth)
                 ops32 = (o32.col_filter, o32.col_deriv,
                          o32.hinv_t1 if stage == "t1" else o32.hinv, o32.synth, o32.dsynth)
-                p64 = o64.packed_t1 if stage == "t1" else o64.packed
-                p32 = o32.packed_t1 if stage == "t1" else o32.packed
+                s64 = o64.solve_t1 if stage == "t1" else o64.solve
+                s32 = o32.solve_t1 if stage == "t1" else o32.solve
                 ref = cs.fused_column_solve_plain(x, w, *ops64, ts_term, pxi)
-                plain32 = cs.fused_column_solve_plain(x.float(), w.float(), *ops32, ts_term, pxi)
-                k64, k64b = (cs.fused_column_solve(x, w, *ops64, ts_term, pxi, packed=p64)
-                             for _ in range(2))
-                k32, k32b = (cs.fused_column_solve(x.float(), w.float(), *ops32, ts_term, pxi,
-                                                   packed=p32) for _ in range(2))
+                plain32 = cs.fused_column_solve_plain(x32, w32, *ops32, ts_term, pxi)
+                library32 = cs.apply_column_operator_plain(x32, w32, s32.M)
+                # the main path's call (the stage's operator, built once), twice
+                k64, k64b = (cs.apply_column_operator(x, w, s64) for _ in range(2))
+                k32, k32b = (cs.apply_column_operator(x32, w32, s32) for _ in range(2))
+                # the TPU function's counterpart (composes and packs, then launches)
+                c64 = cs.fused_column_solve(x, w, *ops64, ts_term, pxi)
+                c32 = cs.fused_column_solve(x32, w32, *ops32, ts_term, pxi)
                 torch.cuda.synchronize()
                 where = (nz, ncols, stage)
                 for a, b in zip(k64 + k32, k64b + k32b):
                     assert torch.isfinite(a).all() and torch.equal(a, b), (where, "not repeatable")
-                r64 = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(k64, ref))
-                e32 = [float((g.double() - r).abs().max()) for g, r in zip(k32, ref)]
-                r32 = max(e / float(r.abs().max()) for e, r in zip(e32, ref))
-                rp = max(float((g.double() - r).abs().max() / r.abs().max())
-                         for g, r in zip(plain32, ref))
-                assert r64 <= 1e-12, (where, "f64", r64)
+                r64, _ = rel_errs(k64, ref)
+                r32, e32 = rel_errs(k32, ref)
+                rp, _ = rel_errs(plain32, ref)
+                rl, el = rel_errs(library32, ref)
+                rc64, _ = rel_errs(c64, ref)
+                rc32, _ = rel_errs(c32, ref)
+                assert r64 <= 1e-12 and rc64 <= 1e-12, (where, "f64", r64, rc64)
                 assert r32 <= 1e-5 and r32 <= 4.0 * rp, (where, "f32", r32, "plain f32", rp)
-                worst["f64"] = max(worst["f64"], r64)
-                worst["f32"] = max(worst["f32"], r32)
-                worst["f32 / plain f32"] = max(worst["f32 / plain f32"], r32 / rp)
+                assert rc32 <= 1e-5 and rc32 <= 4.0 * rp, (where, "counterpart f32", rc32, rp)
+                for key, v in (("f64", r64), ("f32", r32), ("f32 / plain f32", r32 / rp),
+                               ("library f32 / plain f32", rl / rp),
+                               ("f32 / library f32", r32 / rl),
+                               ("counterpart f64", rc64), ("counterpart f32", rc32)):
+                    worst[key] = max(worst[key], v)
                 if (ncols, nz, stage) == (9216, 48, "ab"):
-                    main_err = max(e32)
+                    main_err = {"kernel": e32, "library": el}
             q32, q64 = cs.plan(ncols, nz, torch.float32), cs.plan(ncols, nz, torch.float64)
             plans.append(f"{ncols}x{nz}: f32 {q32} resident {q32.resident(nz)}; "
                          f"f64 {q64} resident {q64.resident(nz)}")
     print("  column-solve plans: " + " | ".join(plans), flush=True)
     say("column-solve-vs-plain", t0,
-        f"nz {list(CS_NZ)} x ncols {list(CS_NCOLS)} x 2 stages; max rel err f64 "
-        f"{worst['f64']:.3e} (tol 1e-12), f32 vs f64 {worst['f32']:.3e} (tol 1e-5), "
-        f"largest ratio to the plain f32 chain's error {worst['f32 / plain f32']:.3f} "
-        f"(tol 4); two calls bitwise equal in each dtype")
+        f"nz {list(CS_NZ)} x ncols {list(CS_NCOLS)} x 2 stages, the stage's operator as the "
+        f"main path applies it: max rel err f64 {worst['f64']:.3e} (tol 1e-12), f32 vs f64 "
+        f"{worst['f32']:.3e} (tol 1e-5), largest ratio to the plain f32 chain's error "
+        f"{worst['f32 / plain f32']:.3f} (tol 4; not checked: the library call's largest "
+        f"ratio {worst['library f32 / plain f32']:.3f}, the kernel's largest ratio to the "
+        f"library's error {worst['f32 / library f32']:.3f}); two calls bitwise equal in "
+        f"each dtype; the counterpart fused_column_solve (composed per call) f64 "
+        f"{worst['counterpart f64']:.3e}, f32 {worst['counterpart f32']:.3e} (same tolerances)")
 
     t0 = time.perf_counter()
     times = {}
@@ -302,23 +331,30 @@ def phase_column_solve(torch, tti, cs, pxi):
                                     ("1200x24 f32", 1200, 24, torch.float32),
                                     ("9216x48 f64", 9216, 48, torch.float64)):
         o = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, dtype, "cuda")
+        o64 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float64, "cuda")
         ops = (o.col_filter, o.col_deriv, o.hinv, o.synth, o.dsynth)
-        x = torch.from_numpy(rng.normal(size=(ncols, nz))).to("cuda", dtype)
-        w = torch.from_numpy(rng.normal(size=(ncols, nz))).to("cuda", dtype)
+        x64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        w64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        x, w = x64.to(dtype), w64.to(dtype)
         xw = torch.cat([x, w], dim=1).contiguous()
-        m_t = o.col_op.T
+        m_t = o.solve.M.T
         plain = lambda: cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts, pxi)  # noqa: E731
-        kernel = lambda: cs.fused_column_solve(x, w, *ops, 1.25 * ts, pxi,  # noqa: E731
-                                               packed=o.packed)
+        kernel = lambda: cs.apply_column_operator(x, w, o.solve)  # noqa: E731
         library = lambda: torch.matmul(xw, m_t)  # noqa: E731
+        ref = cs.fused_column_solve_plain(x64, w64, o64.col_filter, o64.col_deriv, o64.hinv,
+                                          o64.synth, o64.dsynth, 1.25 * ts, pxi)
+        lib_out = library()
+        err = {"kernel": rel_errs(kernel(), ref)[0], "plain": rel_errs(plain(), ref)[0],
+               "library": rel_errs((lib_out[:, :nz], lib_out[:, nz:]), ref)[0]}
         kt, pt, lt = in_turns(plain, kernel, 200, timer=queued_time_ms, library=library)
         kb, pb, lb = in_turns(plain, kernel, 200, library=library)
         bound, by = column_solve_bound(ncols, nz, str(dtype).removeprefix("torch."))
         times[label] = (min(kt), min(pt), min(lt), bound, by)
         print(f"  column solve {label}: device time kernel {kt} ms, plain {pt} ms, library "
               f"{lt} ms; back to back kernel {kb} ms, plain {pb} ms, library {lb} ms; bound "
-              f"{bound:.5f} ms ({by}), kernel at {100.0 * bound / min(kt):.1f}% of it",
-              flush=True)
+              f"{bound:.5f} ms ({by}), kernel at {100.0 * bound / min(kt):.1f}% of it; rel err "
+              f"against the f64 chain: kernel {err['kernel']:.3e}, plain {err['plain']:.3e}, "
+              f"library {err['library']:.3e}", flush=True)
     say("column-solve-timing", t0,
         "200 calls a run, min device ms kernel vs plain vs library (bound, share): "
         + ", ".join(f"{k} {a:.5f} vs {b:.5f} vs {c:.5f} ({d:.5f} {e}, "
@@ -657,10 +693,10 @@ def main():
     B = 51
     ra_bound = bound_ms(4 * (V * R * L * Z + L * L + R * L + V * B * R + V * Z * Z + V * B * L * Z),
                         2 * V * R * L * L * Z + 2 * V * B * R * L * Z + 2 * V * B * L * Z * Z,
-                        "float32")
+                        "f32 products")
     n_probe = int(np.prod(ep.SHAPE))
     # seven slot tensors and rinv read, one output written; 21 FLOP an output
-    ep_bound = bound_ms(4 * (8 * n_probe + ep.SHAPE[1]), 21 * n_probe, "float32")
+    ep_bound = bound_ms(4 * (8 * n_probe + ep.SHAPE[1]), 21 * n_probe, "f32 elementwise")
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {
@@ -670,7 +706,8 @@ def main():
             "replaces": "scythe_tpu/ops/pallas_semiimplicit.py:118",
             "launches": tc_launches[0],
             "launches_per_step": tc_launches[0] / tc.num_ts,
-            "max_abs_err": cs_err,
+            "max_abs_err": cs_err["kernel"],
+            "library_max_abs_err": cs_err["library"],
             "ms": cs_main[0],
             "plain_ms": cs_main[1],
             "bound_ms": cs_main[3],

@@ -58,13 +58,16 @@ def _nvcc() -> str:
     return found
 
 
+# scythe_column_solve_f32 / _f64: x, w, packed M, w_out, xi_out; ncols nz;
+# the plan (ops/column_solve.py): RG KSLAB ST, threads, smem, blocks; stream
+COLUMN_SOLVE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("scythe_column_solve_f32", "scythe_column_solve_f64"):
         fn = getattr(lib, name)
-        # x, w, packed M, w_out, xi_out; ncols nz; the plan
-        # (ops/column_solve.py): RG KSLAB ST, threads, smem, blocks
-        fn.argtypes = [ptr] * 5 + [i32] * 2 + [i32] * 6 + [ptr]
+        fn.argtypes = COLUMN_SOLVE_ARGTYPES
         fn.restype = i32
     for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64"):
         fn = getattr(lib, name)

@@ -15,32 +15,40 @@ the same operator up to rounding.
 
 Every stage is linear in (x*, w*), so the chain is one matrix:
 ``[w | xi] = [x* | w*] M^T`` with ``M = compose_column_operator(...)``
-([2nz, 2nz], one for each (ts', Hinv) pair, composed once in float64).  The
-kernel (``csrc/column_solve.cu``) applies M on the tensor cores: 3xTF32 at
-f32 (a hi/lo split of both operands, so f32 accuracy, not TF32's), DMMA at
-f64.  It reads M in the fragment order of ``pack_operator``, which
-``timeintegration.build_semiimplicit_ops`` runs once per stage.  Its tiles
-come from ``plan``: persistent blocks, one copy of M each, row groups of
-warps taking 16-column tiles.
+([2nz, 2nz], one for each (ts', Hinv) pair, composed once in float64).
+``column_operator`` builds a stage's ``ColumnOperator`` from that one M: M
+in the run's dtype and device and M packed in the fragment order of
+``pack_operator``.  ``apply_column_operator``, the main path's call, applies
+it: the kernel (``csrc/column_solve.cu``) on a CUDA device, reading the
+packed M on the tensor cores (3xTF32 at f32: a hi/lo split of both
+operands, so f32 accuracy, not TF32's; DMMA at f64), and its plain version,
+one matmul by M, on the CPU.  The kernel's tiles come from ``plan``:
+persistent blocks, one copy of M each, row groups of warps taking
+16-column tiles.
 
 What bounds it on an H100: at the moist3d shape (9216 x 48, f32) the call
-moves 7.08 MB (2.11 us at 3.35 TB/s) and the composed product is 170 MFLOP
-(2.54 us at 67 TFLOP/s f32), so the bound is 2.54 us; at the TC shape
-(1200 x 24) it is 0.14 us, set by HBM, and launch latency rules.  The kernel
-source says what the design does about each fault of the first one, and
-``column_solve_ablation.py`` times the kernel with parts of its work left
-out.
+moves 7.11 MB (x* and w* read, w and xi written, M read: 2.12 us at 3.35
+TB/s), and the composed product is 170 MFLOP (1.03 us at the card's
+f32-accurate tensor-core rate, 3xTF32: a third of its 495 TFLOP/s dense
+TF32), so HBM binds at 2.12 us; at the TC shape (1200 x 24) it is 0.14 us,
+also HBM, and launch latency rules.  The kernel source says what the design
+does about each fault of the first one;
+``tools/torch_column_solve_ablation.py`` times the kernel with parts of its
+work left out.
 
-The wrapper ``fused_column_solve`` checks its inputs, then takes the plain
-chain for tensors on the CPU and launches the kernel for tensors on a CUDA
-device; there is no fallback between the two.  ``launches`` counts kernel
-launches only.  The bf16x3 ("comp") mode of the TPU kernel is not ported.
+``fused_column_solve`` is the counterpart of the TPU function, with its
+five operators: the plain chain for tensors on the CPU; on a CUDA device it
+composes and packs them (a few small launches) and launches the kernel.
+Every wrapper checks its inputs and has no fallback: on a CUDA tensor it
+launches the kernel or raises.  ``launches`` counts kernel launches only.
+The bf16x3 ("comp") mode of the TPU kernel is not ported.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -223,6 +231,24 @@ def pack_operator(M: torch.Tensor, dtype) -> torch.Tensor:
     return torch.cat([hi, tf32_round(v - hi)], dim=-1).contiguous()
 
 
+class ColumnOperator(NamedTuple):
+    """One stage's chain as one operator, made by ``column_operator`` from
+    one M: ``M`` [2nz, 2nz] in the run's dtype and device, which the plain
+    version applies on the CPU, and ``packed``, pack_operator of the same M,
+    which the kernel reads on a CUDA device."""
+
+    M: torch.Tensor
+    packed: torch.Tensor
+
+
+def column_operator(m64: torch.Tensor, dtype, device) -> ColumnOperator:
+    """A stage's ColumnOperator from its float64 M (compose_column_operator)."""
+    return ColumnOperator(
+        M=m64.to(dtype=dtype, device=device),
+        packed=pack_operator(m64, dtype).to(device),
+    )
+
+
 def fused_column_solve_plain(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
     """The chain in plain PyTorch ([ncols, nz] @ operator^T per stage)."""
     xf = xstar @ F.T
@@ -232,7 +258,16 @@ def fused_column_solve_plain(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar)
     return a @ S.T, xf - ts_term * (a @ Ds.T)
 
 
-def _check(xstar, wstar, ops) -> tuple[int, int]:
+def apply_column_operator_plain(xstar, wstar, M):
+    """[w | xi] = [x* | w*] M^T in plain PyTorch: one matmul."""
+    nz = xstar.shape[1]
+    out = torch.cat([xstar, wstar], dim=1) @ M.T
+    return out[:, :nz].contiguous(), out[:, nz:].contiguous()
+
+
+def _check(xstar, wstar, ops, side) -> tuple[int, int]:
+    """(ncols, nz) of [ncols, nz] x* and w*; the (name, tensor) pairs of
+    ``ops`` must be [side nz, side nz], all in x*'s dtype on its device."""
     if xstar.ndim != 2 or wstar.shape != xstar.shape:
         raise ValueError(
             f"x* and w* must both be [ncols, nz]; got {tuple(xstar.shape)} "
@@ -240,25 +275,31 @@ def _check(xstar, wstar, ops) -> tuple[int, int]:
         )
     ncols, nz = xstar.shape
     if ncols < 1:
-        raise ValueError("fused_column_solve needs at least one column")
+        raise ValueError("the column solve needs at least one column")
     if not 3 <= nz <= MAX_NZ:
         raise ValueError(
-            f"fused_column_solve supports 3 <= nz <= {MAX_NZ}, got nz = {nz}"
+            f"the column solve supports 3 <= nz <= {MAX_NZ}, got nz = {nz}"
         )
     if xstar.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {xstar.dtype}")
-    for name, t in (("w*", wstar),) + tuple(zip(("F", "Dz", "Hinv", "S", "Ds"), ops)):
+    if xstar.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"the column solve runs on cpu or cuda tensors, got {xstar.device}"
+        )
+    for name, t in (("w*", wstar),) + tuple(ops):
         if t.dtype != xstar.dtype or t.device != xstar.device:
             raise ValueError(
                 f"{name} is {t.dtype} on {t.device}; x* is {xstar.dtype} on "
                 f"{xstar.device}"
             )
-    for name, t in zip(("F", "Dz", "Hinv", "S", "Ds"), ops):
-        if tuple(t.shape) != (nz, nz):
-            raise ValueError(f"{name} must be [{nz}, {nz}], got {tuple(t.shape)}")
-    for t in (xstar, wstar) + tuple(ops):
+    for name, t in ops:
+        if tuple(t.shape) != (side * nz, side * nz):
+            raise ValueError(
+                f"{name} must be [{side * nz}, {side * nz}], got {tuple(t.shape)}"
+            )
+    for _, t in (("x*", xstar), ("w*", wstar)) + tuple(ops):
         if not t.is_contiguous():
-            raise ValueError("fused_column_solve needs contiguous tensors")
+            raise ValueError("the column solve needs contiguous tensors")
     return ncols, nz
 
 
@@ -297,23 +338,28 @@ def _launch(xstar, wstar, packed, ncols, nz):
     return w_out, xi_out
 
 
-def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar, packed=None):
-    """Apply the chain to [ncols, nz] column batches; returns (w_new,
-    xi_new).  Argument order as the TPU kernel's: x* (xi*) first.  ``Hinv``
-    is the inverse of the BC-row-shuffled Helmholtz matrix
-    (timeintegration.helmholtz_matrix); ``ts_term`` and ``pxi_bar`` are
-    scalars.  ``packed``: ``pack_operator(compose_column_operator(...))`` of
-    these operators in x*'s dtype and device, as SemiImplicitOps holds it;
-    without it a CUDA call composes and packs first (a few small launches)."""
+def apply_column_operator(xstar, wstar, op: ColumnOperator):
+    """Apply a stage's operator to [ncols, nz] column batches x* (xi*) and
+    w*; returns (w_new, xi_new).  The kernel on a CUDA device (op.packed),
+    its plain version on the CPU (op.M): both from the one M."""
+    ncols, nz = _check(xstar, wstar, (("M", op.M),), 2)
+    if xstar.device.type == "cpu":
+        return apply_column_operator_plain(xstar, wstar, op.M)
+    return _launch(xstar, wstar, op.packed, ncols, nz)
+
+
+def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
+    """The TPU function's counterpart: apply the chain to [ncols, nz] column
+    batches; returns (w_new, xi_new).  Argument order as the TPU kernel's:
+    x* (xi*) first.  ``Hinv`` is the inverse of the BC-row-shuffled
+    Helmholtz matrix (timeintegration.helmholtz_matrix); ``ts_term`` and
+    ``pxi_bar`` are scalars.  The plain chain on the CPU; on a CUDA device
+    the operators are composed in float64 and packed (a few small
+    launches), then the kernel runs.  The main path composes once per stage
+    instead and calls apply_column_operator."""
     ops = (F, Dz, Hinv, S, Ds)
-    ncols, nz = _check(xstar, wstar, ops)
+    ncols, nz = _check(xstar, wstar, tuple(zip(("F", "Dz", "Hinv", "S", "Ds"), ops)), 1)
     if xstar.device.type == "cpu":
         return fused_column_solve_plain(xstar, wstar, *ops, ts_term, pxi_bar)
-    if xstar.device.type != "cuda":
-        raise ValueError(
-            f"fused_column_solve runs on cpu or cuda tensors, got {xstar.device}"
-        )
-    if packed is None:
-        M = compose_column_operator(*(o.double() for o in ops), ts_term, pxi_bar)
-        packed = pack_operator(M, xstar.dtype)
-    return _launch(xstar, wstar, packed, ncols, nz)
+    M = compose_column_operator(*(o.double() for o in ops), ts_term, pxi_bar)
+    return _launch(xstar, wstar, pack_operator(M, xstar.dtype), ncols, nz)

@@ -19,12 +19,13 @@
 // and xi: nothing is concatenated in device memory.
 //
 // What bounds it.  At the moist3d shape (9216 columns, nz 48, f32) a call
-// reads x* and w* and writes w and xi, 4 x 9216 x 48 x 4 B = 7.08 MB: 2.11 us
-// at 3.35 TB/s.  The product is 2 x 9216 x 96^2 = 170 MFLOP: 2.54 us at the
-// card's 67 TFLOP/s f32 (FFMA) rate, so the f32 bound is 2.54 us, operations
-// first and HBM close behind.  At the TC shape (1200 x 24) the bound is
-// 0.14 us, set by HBM; there launch and latency rule.  What bounds this
-// kernel in practice (ops/column_solve_ablation.py on an H100, PERF.md):
+// reads x* and w* and writes w and xi, 4 x 9216 x 48 x 4 B = 7.08 MB, and
+// reads M, 37 KB: 2.12 us at 3.35 TB/s.  The product is 2 x 9216 x 96^2 =
+// 170 MFLOP: 1.03 us at the card's f32-accurate tensor-core rate (3xTF32, a
+// third of its 495 TFLOP/s dense TF32), so HBM binds: 2.12 us.  At the TC
+// shape (1200 x 24) the bound is 0.14 us, also HBM; there launch and
+// latency rule.  What bounds this kernel in practice
+// (tools/torch_column_solve_ablation.py on an H100, PERF.md):
 // the compensated product is three TF32 tensor-core products, ~2 us of the
 // moist3d call at about half the card's dense TF32 rate through mma.sync,
 // and the copies and stores (~3 us with the launch, near their HBM floor)

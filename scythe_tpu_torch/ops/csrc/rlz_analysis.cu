@@ -24,8 +24,10 @@
 //
 // What bounds this one.  moist3d does 2VRL^2Z + 2VBRLZ + 2VBLZ^2 = 1.05
 // GFLOP, the RLZ transform shape [8, 192, 128, 60] 5.1 GFLOP: 16 and 76 us
-// at the card's 67 TFLOP/s f32 FFMA peak.  HBM is not the limit (21.5 MB at
-// moist3d, 6 us at 3.35 TB/s); x is re-read from L2 once per k-tile, 8x at
+// at the card's 67 TFLOP/s f32 FFMA peak, the rate of this kernel's
+// arithmetic.  On the tensor cores at f32 accuracy (3xTF32, a third of 495
+// TFLOP/s) moist3d's would take 6.4 us, level with its bytes (22 MB, 6.6 us
+// at 3.35 TB/s): that is its bound.  x is re-read from L2 once per k-tile, 8x at
 // moist3d (127 MB) and 16x at the transform shape (754 MB).  Timed by phase
 // with clock64 on an H100 (a block's cycles, f32): at moist3d ~74k, of
 // which the lambda and radial stages ~44k, waiting for x ~8k, the vertical

@@ -5,10 +5,10 @@ The counterpart of ``scythe_tpu.timeintegration`` (Durran & Blossey 2012
 AI2*-AB3; ref src/semiimplicit.jl:521-597 and :672-726).  The step index
 ``t`` stays a Python int on the host, so the startup ramp (forward Euler at
 t = 1, AB2 at t = 2, AB3 after) is a Python branch, where the JAX package
-switches on a traced index.  The AI2* corrector runs through
-``ops.column_solve.fused_column_solve``: on the card the CUDA kernel, which
-applies the chain composed into one operator per stage (built once, with
-the operators); on the CPU the plain chain.
+switches on a traced index.  The AI2* corrector's column chain is
+composed into one operator per stage, once, with the other operators, and
+runs through ``ops.column_solve.apply_column_operator``: on the card the
+CUDA kernel, on the CPU its plain version (one matmul by the same operator).
 """
 
 from __future__ import annotations
@@ -109,12 +109,10 @@ class SemiImplicitOps(NamedTuple):
     dsynth: torch.Tensor  # [nz, nz] coeff -> d/dz
     pxi_bar: float  # scalar Pxi (a host float)
     ts: float
-    # the chain composed (column_solve.compose_column_operator, [2nz, 2nz])
-    # and packed for the kernel (column_solve.pack_operator), step 1 and AB3
-    col_op_t1: torch.Tensor
-    col_op: torch.Tensor
-    packed_t1: torch.Tensor
-    packed: torch.Tensor
+    # the column chain composed into one operator (column_solve.ColumnOperator)
+    # for step 1 (ts_term = ts/2, hinv_t1) and for AB3 (1.25 ts, hinv)
+    solve_t1: column_solve.ColumnOperator
+    solve: column_solve.ColumnOperator
 
 
 def build_semiimplicit_ops(
@@ -146,26 +144,19 @@ def build_semiimplicit_ops(
     }
     f64 = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in f64.items()}
 
-    def composed(ts_term, hinv):
-        return column_solve.compose_column_operator(
+    def stage(ts_term, hinv):
+        m = column_solve.compose_column_operator(
             f64["col_filter"], f64["col_deriv"], hinv, f64["synth"], f64["dsynth"],
             ts_term, float(pxi_bar),
         )
-
-    m_t1 = composed(0.5 * ts, f64["hinv_t1"])
-    m = composed(1.25 * ts, f64["hinv"])
-
-    def dev(a):
-        return a.to(dtype=dtype, device=device)
+        return column_solve.column_operator(m, dtype, device)
 
     return SemiImplicitOps(
-        **{k: dev(v) for k, v in f64.items()},
+        **{k: v.to(dtype=dtype, device=device) for k, v in f64.items()},
         pxi_bar=float(pxi_bar),
         ts=ts,
-        col_op_t1=dev(m_t1),
-        col_op=dev(m),
-        packed_t1=column_solve.pack_operator(m_t1, dtype).to(device),
-        packed=column_solve.pack_operator(m, dtype).to(device),
+        solve_t1=stage(0.5 * ts, f64["hinv_t1"]),
+        solve=stage(1.25 * ts, f64["hinv"]),
     )
 
 
@@ -185,15 +176,15 @@ def semiimplicit_adjustment(
     src/semiimplicit.jl:521-597).  All inputs are [..., nz] with z last;
     ``xidot_*`` is the implicit tendency of w (= -Pxi xi_z) and ``wdot_*``
     that of xi (= -w_z), matching the reference's view naming.  The column
-    chain runs through ``column_solve.fused_column_solve`` on the
-    [-1, nz] view of the stage's (xi*, w*), with the stage's packed
-    operator.  Returns (w_new, xi_new)."""
+    chain is the stage's composed operator, applied by
+    ``column_solve.apply_column_operator`` to the [-1, nz] view of its
+    (xi*, w*).  Returns (w_new, xi_new)."""
     ts = ops.ts
     if t == 1:
         # trapezoidal (AM2): subtract Euler-explicit, add ts/2-implicit
         w_star = w_np1 - ts * xidot_n + 0.5 * ts * xidot_n
         xi_star = xi_np1 - ts * wdot_n + 0.5 * ts * wdot_n
-        ts_term, hinv, packed = 0.5 * ts, ops.hinv_t1, ops.packed_t1
+        solve = ops.solve_t1
     elif t == 2:
         w_star = (
             w_np1
@@ -207,7 +198,7 @@ def semiimplicit_adjustment(
             - ts * wdot_n
             + 0.75 * ts * wdot_nm1
         )
-        ts_term, hinv, packed = 1.25 * ts, ops.hinv, ops.packed
+        solve = ops.solve
     else:
         w_star = (
             w_np1
@@ -221,20 +212,13 @@ def semiimplicit_adjustment(
             - ts * wdot_n
             + 0.75 * ts * wdot_nm1
         )
-        ts_term, hinv, packed = 1.25 * ts, ops.hinv, ops.packed
+        solve = ops.solve
 
     shape = xi_star.shape
     nz = shape[-1]
-    w_new, xi_new = column_solve.fused_column_solve(
+    w_new, xi_new = column_solve.apply_column_operator(
         xi_star.reshape(-1, nz).contiguous(),
         w_star.reshape(-1, nz).contiguous(),
-        ops.col_filter,
-        ops.col_deriv,
-        hinv,
-        ops.synth,
-        ops.dsynth,
-        ts_term,
-        ops.pxi_bar,
-        packed=packed,
+        solve,
     )
     return w_new.reshape(shape), xi_new.reshape(shape)

@@ -1,8 +1,10 @@
 """The AI2* column solve of the port (ops.column_solve) against the JAX
-package: its plain version against the einsum path of
-scythe_tpu.timeintegration.semiimplicit_adjustment (1e-10 of max|ref|, f64),
-and against the Pallas kernel in interpret mode (mode="plain", f32, atol
-2e-4 of max|ref| as in tests/test_pallas_semiimplicit.py).  The CUDA kernel
+package: semiimplicit_adjustment, which applies each stage's composed
+operator (on the CPU one matmul by it), against the einsum path of
+scythe_tpu.timeintegration.semiimplicit_adjustment (1e-10 of max|ref|, f64);
+the plain chain and the composed path against the Pallas kernel in
+interpret mode (mode="plain", atol 2e-4 of max|ref| as in
+tests/test_pallas_semiimplicit.py).  The CUDA kernel
 itself runs only on the card: chip_smoke.py holds it against this plain
 version there.
 
@@ -109,6 +111,39 @@ def test_wrapper_on_cpu_takes_plain_and_counts_nothing():
         assert torch.equal(a, b)
 
 
+def test_apply_operator_on_cpu_takes_plain_and_counts_nothing():
+    _, ot = _ops(24, 0.1, 1.0e5, zmax=1000.0)
+    x, w = _columns(37, 24, 1)
+    before = column_solve.launches
+    got = column_solve.apply_column_operator(x, w, ot.solve)
+    ref = torch.cat([x, w], dim=1) @ ot.solve.M.T
+    assert column_solve.launches == before
+    assert torch.equal(got[0], ref[:, :24]) and torch.equal(got[1], ref[:, 24:])
+    assert got[0].is_contiguous() and got[1].is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_column_operator_is_one_m(dtype):
+    """M and the kernel's packed operator both come from the one float64 M."""
+    m64 = torch.from_numpy(np.random.default_rng(2).normal(size=(26, 26)))
+    op = column_solve.column_operator(m64, dtype, "cpu")
+    assert torch.equal(op.M, m64.to(dtype))
+    assert torch.equal(op.packed, column_solve.pack_operator(m64, dtype))
+
+
+@pytest.mark.parametrize(
+    "m_shape,m_dtype,match",
+    [((24, 24), torch.float64, r"\[26, 26\]"), ((26, 26), torch.float32, "float32")],
+    ids=["operator-shape", "operator-dtype"],
+)
+def test_apply_operator_rejects_an_operator_of_another_shape(m_shape, m_dtype, match):
+    x = torch.zeros((8, 13), dtype=torch.float64)
+    op = column_solve.ColumnOperator(M=torch.zeros(m_shape, dtype=m_dtype),
+                                     packed=torch.zeros(0))
+    with pytest.raises(ValueError, match=match):
+        column_solve.apply_column_operator(x, x.clone(), op)
+
+
 def test_plain_bc_shift_drops_first_and_last_g():
     """g -> [0, 0, g[1], ..., g[nz-2]]: with identity operators and
     ts' Pxi = 1, a = shift(x* - w*)."""
@@ -189,7 +224,7 @@ def test_composed_operator_matches_chain_f64(nz, stage):
     x, w = _columns(64, nz, nz)
     ref = column_solve.fused_column_solve_plain(x, w, *ops, ts_term, ot.pxi_bar)
     m = column_solve.compose_column_operator(*ops, ts_term, ot.pxi_bar)
-    assert torch.equal(m, ot.col_op_t1 if stage == "t1" else ot.col_op)
+    assert torch.equal(m, (ot.solve_t1 if stage == "t1" else ot.solve).M)
     out = torch.cat([x, w], dim=1) @ m.T
     assert _max_rel((out[:, :nz], out[:, nz:]), ref) <= 1e-13
 
@@ -207,7 +242,7 @@ def test_composed_operator_f32_error_within_4x_the_chain(nz, stage):
     ref = column_solve.fused_column_solve_plain(x, w, *ops64, ts_term, o64.pxi_bar)
     chain32 = column_solve.fused_column_solve_plain(
         x.float(), w.float(), *ops32, ts_term, o32.pxi_bar)
-    m32 = o32.col_op_t1 if stage == "t1" else o32.col_op
+    m32 = (o32.solve_t1 if stage == "t1" else o32.solve).M
     out = torch.cat([x, w], dim=1).float() @ m32.T
     composed = _max_rel((out[:, :nz], out[:, nz:]), ref)
     assert composed <= 4.0 * _max_rel(chain32, ref) and composed <= 1e-5
@@ -342,7 +377,7 @@ def test_plan_decomposition_matches_the_chain(ncols, nz, dtype):
     ops64, ts_term = _stage_ops(o64, "ab")
     ref = column_solve.fused_column_solve_plain(x, w, *ops64, ts_term, o64.pxi_bar)
     p = column_solve.plan(ncols, nz, dtype)
-    got, hits = _emulate(x.to(dtype), w.to(dtype), ot.packed, p)
+    got, hits = _emulate(x.to(dtype), w.to(dtype), ot.solve.packed, p)
     assert torch.equal(hits, torch.ones_like(hits)), p  # every output once
     err = _max_rel(got, ref)
     if dtype == torch.float64:
@@ -392,24 +427,24 @@ def test_tf32_split_is_nearest_ties_away_and_exact_to_2_22():
 
 @pytest.mark.parametrize("t", [1, 2, 5])
 def test_adjustment_on_the_composed_path(monkeypatch, t):
-    """semiimplicit_adjustment hands each stage's packed operator to the
-    column solve: applied as the kernel applies it (the emulation), it
+    """semiimplicit_adjustment hands each stage's operator to the column
+    solve: its packed M applied as the kernel applies it (the emulation)
     matches the JAX package's einsum path at f64."""
     nz, ncols, ts, pxi = 24, 37, 0.2, 9.0e4
     oj, ot = _ops(nz, ts, pxi)
     seen = []
 
-    def composed(x, w, *args, packed=None):
-        seen.append(packed)
-        got, _ = _emulate(x, w, packed, column_solve.plan(x.shape[0], nz, x.dtype))
+    def composed(x, w, op):
+        seen.append(op)
+        got, _ = _emulate(x, w, op.packed, column_solve.plan(x.shape[0], nz, x.dtype))
         return got
 
-    monkeypatch.setattr(column_solve, "fused_column_solve", composed)
+    monkeypatch.setattr(column_solve, "apply_column_operator", composed)
     rng = np.random.default_rng(t)
     args = [rng.normal(size=(ncols, nz)) for _ in range(8)]
     wj, xj = jti.semiimplicit_adjustment(oj, *map(jnp.asarray, args), jnp.asarray(t))
     wt, xt = tti.semiimplicit_adjustment(ot, *map(torch.from_numpy, args), t)
-    assert seen[0] is (ot.packed_t1 if t == 1 else ot.packed)
+    assert seen[0] is (ot.solve_t1 if t == 1 else ot.solve)
     assert _rel_err(wt, wj) <= 1e-10 and _rel_err(xt, xj) <= 1e-10
 
 
@@ -419,8 +454,8 @@ def test_composed_path_matches_pallas_interpret(nz, ncols, tile, stage):
     ts, pxi = 0.2, 9.0e4
     oj, ot = _ops(nz, ts, pxi)
     ts_term, hj, packed = (
-        (0.5 * ts, oj.hinv_t1, ot.packed_t1) if stage == "t1"
-        else (1.25 * ts, oj.hinv, ot.packed)
+        (0.5 * ts, oj.hinv_t1, ot.solve_t1.packed) if stage == "t1"
+        else (1.25 * ts, oj.hinv, ot.solve.packed)
     )
     x, w = _columns(ncols, nz, ncols)
     wk, xk = pallas_solve(
