@@ -61,6 +61,34 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    u, which starts at zero, has the bound PERF.md derives from the same
    comparison on the CPU).
 
+9. the flagship path at full width: the Cha & Bell two-layer workflow of
+   scythe_tpu_torch/examples/cha_bell_initialization.py (RL grid, 100 cells x
+   256 azimuths, rDim 300, b_rDim 103, 6 vars, ts 3 s) in f32 on "cuda"
+   through integrate_model and the IC files: write_rankine_ics, the one-way
+   spinup for 10 simulated minutes (200 steps), add_wave2 on its last output,
+   then Twoway_ShallowWater_Slab for 20 simulated minutes (400 steps), three
+   CSV outputs; all fields finite, vg.max and the wavenumber-2 amplitude of
+   vg at r = 50 km inside bands PERF.md sets from a CPU f64 run of the same
+   600 steps (tools/torch_flagship_reference.py), no odd wavenumber there,
+   wavenumber 2 the largest at r = 45 km, wb not identically zero (the
+   override reached the output); no hand-written kernel lies on this path,
+   and the counts say so;
+10. flagship steps/s: 200 two-way steps after 10 warm-up, by CUDA events and
+   by the host clock; torch.profiler over 10 steps: device busy and launches
+   a step and the share of device time in the einsum GEMMs against the
+   elementwise kernels (table in chiprun_out/flagship_profile.txt);
+11. the golden trajectory on the card: flagship_model(32, 32), 50 f64 steps
+   from vortex_state on "cuda" against
+   tests/golden/twoway_slab_50steps_f64.npz and against the same run on the
+   CPU, 1e-9 of each field's max;
+12. flagship f32 against f64 on the card at full width, 50 steps from the
+   wave-2 ICs, per field (bounds in FLAGSHIP_F32_BOUND, from PERF.md);
+13. the height-resolved boundary layer (Oneway_ShallowWater_HeightResolvedBL,
+   an RLZ set: 16 cells x 16 azimuths x 12 levels, ts 0.2 s, the
+   configuration of tests/test_rlz_tcbl.py), 100 f64 steps on "cuda" against
+   the CPU at 1e-9, its closing analysis the CUDA kernel (101 launches) and
+   no column solve.
+
 No phase catches its own failure: any failed check raises and the script
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
 The last lines of standard output are the card's name and power limit, a
@@ -85,12 +113,24 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MOIST3D_VARS = ("s", "xi", "mu", "u", "v", "w", "mu_c", "mu_r", "qss")
+FLAGSHIP_VARS = ("h", "u", "v", "ub", "vb", "wb")  # u, v: the free layer's ug, vg
 # f32 against f64 after 20 full-width TC steps: 1e-4 of each field's max,
 # except u: it starts at zero, and its 20-step max (0.14 m/s) sits under the
 # round-off of the 15 m/s gradient-wind balance; the same comparison on the
 # CPU measured 1.03e-4 (PERF.md), so its bound is 3e-4
 TC_F32_BOUND = {"u": 3e-4}
 TC_QC_MIN = 1e-6  # q_c max after 30 min: 6.09e-6 in the CPU f64 run (PERF.md)
+# the flagship workflow after 200 spinup + 400 two-way steps; the bands sit
+# around the readings of the CPU f64 run of the same 600 steps
+# (tools/torch_flagship_reference.py; PERF.md)
+FLAGSHIP_VG_BAND = (49.5, 50.3)  # m/s; 49.887 in the CPU f64 run
+# m/s, wavenumber-2 amplitude of vg at r = 50 km; 0.6785 in the CPU f64 run
+FLAGSHIP_WAVE2_BAND = (0.5, 0.9)
+# f32 against f64 after 50 full-width two-way steps: 1e-4 of each field's
+# max, except wb: it is diagnosed each step from derivatives of ub and vb, so
+# their round-off shows in it undamped; the same comparison on the CPU
+# measured 6.6e-4 from f32-made ICs (PERF.md), so its bound is 2e-3
+FLAGSHIP_F32_BOUND = {"wb": 2e-3}
 # the H100 SXM's published dense peaks (NVIDIA's data sheet): HBM; products
 # of f32 matrices to f32 accuracy on the tensor cores (3xTF32: three TF32
 # products, so a third of 495 TFLOP/s); products of f64 matrices on them;
@@ -98,6 +138,8 @@ TC_QC_MIN = 1e-6  # q_c max after 30 min: 6.09e-6 in the CPU f64 run (PERF.md)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"f32 products": 495e12 / 3, "f64 products": 67e12,
                    "f32 elementwise": 67e12}
+# what the library's matrix-product kernels (behind torch.einsum) are named
+GEMM_KERNEL_WORDS = ("gemm", "gemv", "cutlass", "xmma", "splitk")
 CS_NZ = (13, 24, 40, 48, 100, 128)
 CS_NCOLS = (37, 1200, 9216)
 
@@ -175,6 +217,88 @@ def small(tx, tmp, n_steps):
                        bubble=(4000.0, 2000.0, 1500.0, 3.0))
 
 
+def flagship_workflow(tx, cb, base, dtype, device, twoway_steps=400):
+    """The Cha & Bell workflow as a user runs it, through the IC files and
+    integrate_model: Rankine ICs, the one-way spinup for 10 simulated minutes
+    (200 steps), add_wave2 on its last output, then the two-way model for
+    ``twoway_steps`` with an output halfway.  Returns (two-way model, grid,
+    final fields)."""
+    cb.initialize_wave2(base, quick=True, dtype=dtype, device=device)
+    t_end = twoway_steps * 3.0
+    tw = cb.twoway_model(base).with_(integration_time=t_end, output_interval=t_end / 2)
+    grid, phys = tx.integrate_model(tw, dtype=dtype, device=device)
+    return tw, grid, phys
+
+
+def ring_amplitudes(grid, field, radius):
+    """Amplitudes by azimuthal wavenumber (0 .. nl/2) of ``field`` [rDim, nl]
+    on the ring nearest ``radius``."""
+    i = int(np.argmin(np.abs(grid.r_mish - radius)))
+    c = np.fft.rfft(np.asarray(field[i], np.float64)) / field.shape[1]
+    amp = 2.0 * np.abs(c)
+    amp[0] *= 0.5
+    return amp
+
+
+def flagship_readings(grid, phys):
+    """What phase 9 checks, from the final fields [6, rDim, nl].  At r = 50 km
+    the ellipse moves the vortex's edge across the ring, so wavenumber 4
+    outgrows 2 there; 5 km inside the edge wavenumber 2 is the largest."""
+    at50 = ring_amplitudes(grid, phys[2], 50.0e3)
+    at45 = ring_amplitudes(grid, phys[2], 45.0e3)
+    return {
+        "vg_max": float(phys[2].max()),
+        "vg_wave2_at_50km": float(at50[2]),
+        "vg_wave4_at_50km": float(at50[4]),
+        "vg_odd_waves_at_50km": float(at50[1::2].max()),
+        "vg_wave2_at_45km": float(at45[2]),
+        "vg_largest_wave_at_45km": int(np.argmax(at45[1:]) + 1),
+        "h_min": float(phys[0].min()),
+        "ub_min": float(phys[3].min()),
+        "wb_min": float(phys[5].min()),
+        "wb_max": float(phys[5].max()),
+    }
+
+
+def hrbl_model(tx, tmp, n_steps):
+    """Oneway_ShallowWater_HeightResolvedBL at the configuration of
+    tests/test_rlz_tcbl.py::test_height_resolved_bl_smoke: a balanced
+    Rankine vortex over a 16 x 16 x 12 RLZ grid, its ICs written under
+    ``tmp``."""
+    import torch
+    from scythe_tpu_torch import io as sio
+
+    BC = tx.BC
+    gp = tx.GridParameters(
+        geometry="RLZ", xmin=0.0, xmax=2.0e5, num_cells=16, lDim=16,
+        zmin=0.0, zmax=2000.0, zDim=12,
+        BCL={"h": BC.R1T1, "u": BC.R1T0, "v": BC.R1T0, "ub": BC.R1T0, "vb": BC.R1T0,
+             "wb": BC.R1T1},
+        BCR={"h": BC.R0, "u": BC.R1T1, "v": BC.R0, "ub": BC.R1T1, "vb": BC.R0},
+        vars={n: i + 1 for i, n in enumerate(FLAGSHIP_VARS)},
+    )
+    ics = os.path.join(tmp, "hrbl_ics.csv")
+    pts = tx.create_grid(gp, torch.float64, device="cpu").gridpoints()
+    r = pts[:, 0]
+    rm, vm, f_cor, g = 5.0e4, 20.0, 5.0e-5, 9.81
+    v = np.where(r < rm, vm * r / rm, vm * rm / r)
+    r_u = np.unique(r)
+    v_u = np.where(r_u < rm, vm * r_u / rm, vm * rm / r_u)
+    dhdr_u = (f_cor * v_u + v_u**2 / r_u) / g
+    h_u = np.concatenate([[0.0], np.cumsum(0.5 * (dhdr_u[1:] + dhdr_u[:-1]) * np.diff(r_u))])
+    zero = np.zeros_like(r)
+    cols = np.concatenate(
+        [pts, np.stack([h_u[np.searchsorted(r_u, r)], zero, v, zero, v, zero], axis=1)], axis=1)
+    sio._write_csv(ics, ["r", "l", "z", *FLAGSHIP_VARS], cols)
+    return tx.ModelParameters(
+        ts=0.2, integration_time=n_steps * 0.2, output_interval=n_steps * 0.2,
+        equation_set="Oneway_ShallowWater_HeightResolvedBL", initial_conditions=ics,
+        output_dir=os.path.join(tmp, "hrbl_out"), grid_params=gp,
+        physical_params={"g": g, "Kh": 3000.0, "Cd": 2.4e-3, "Hfree": 2000.0,
+                         "f": f_cor, "Um": 0.0, "Vm": 0.0},
+    )
+
+
 def cuda_time_ms(fn, n):
     import torch
 
@@ -235,6 +359,18 @@ def column_solve_bound(ncols, nz, dtype_name):
                     2 * ncols * (2 * nz) ** 2, "f32 products" if f32 else "f64 products")
 
 
+def analysis_bound(shape, b_rdim):
+    """The f32 RLZ analysis of x [V, R, L, Z] to [V, b_rDim, L, Z]: x, the DFT
+    matrix, the ring mask and both operator stacks read once, the
+    coefficients written once; the lambda, radial and vertical products."""
+    V, R, L, Z = shape
+    B = b_rdim
+    return bound_ms(
+        4 * (V * R * L * Z + L * L + R * L + V * B * R + V * Z * Z + V * B * L * Z),
+        2 * V * R * L * L * Z + 2 * V * B * R * L * Z + 2 * V * B * L * Z * Z,
+        "f32 products")
+
+
 def per_field_rel(got, ref):
     """max|got - ref| / max|ref| per leading-axis field (fields whose ref is
     identically zero are compared absolutely and reported as such)."""
@@ -246,8 +382,8 @@ def per_field_rel(got, ref):
     return out
 
 
-def fmt_rel(rel):
-    return json.dumps(dict(zip(MOIST3D_VARS, [float(f"{e:.3e}") for e in rel])))
+def fmt_rel(rel, names=MOIST3D_VARS):
+    return json.dumps(dict(zip(names, [float(f"{e:.3e}") for e in rel])))
 
 
 def rel_errs(got, ref):
@@ -388,7 +524,8 @@ ANALYSIS_SHAPES = {
 
 def phase_analysis(tx, torch, ra):
     """Phase 4; returns (max_abs_err at the TC shape f32, {"moist3d" |
-    "transform" | "tc" | "moist3d_f64": (ms, plain_ms)}), device times."""
+    "transform" | "tc" | "moist3d_f64": (ms, plain_ms[, bound_ms, bound_by])}),
+    device times, the bound for the f32 shapes."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
     lines, tc_err = [], None
@@ -433,11 +570,19 @@ def phase_analysis(tx, torch, ra):
         kt, pt = in_turns(plain, kernel, 100, timer=queued_time_ms)
         kb, pb = in_turns(plain, kernel, 100)
         times[name] = (min(kt), min(pt))
+        note = ""
+        if dtype == torch.float32:
+            bound, by = analysis_bound(tuple(x.shape), g.params.b_rDim)
+            times[name] += (bound, by)
+            note = (f"; bound {bound:.5f} ms ({by}), kernel at "
+                    f"{100.0 * bound / min(kt):.1f}% of it")
         print(f"  analysis {name} {list(x.shape)}: device time kernel {kt} ms, plain {pt} ms; "
-              f"back to back kernel {kb} ms, plain {pb} ms", flush=True)
+              f"back to back kernel {kb} ms, plain {pb} ms{note}", flush=True)
     say("analysis-timing", t0,
-        "100 calls a run, min device ms kernel vs plain (f32 unless named): "
-        + ", ".join(f"{k} {a:.5f} vs {b:.5f}" for k, (a, b) in times.items()))
+        "100 calls a run, min device ms kernel vs plain (f32 unless named; then the bound): "
+        + ", ".join(f"{k} {t[0]:.5f} vs {t[1]:.5f}"
+                    + (f" ({t[2]:.5f} {t[3]})" if len(t) > 2 else "")
+                    for k, t in times.items()))
     return tc_err, times
 
 
@@ -487,8 +632,9 @@ def time_steps(torch, tmodel, model, n):
 
 def profile_steps(torch, state, step, card, label, path, n=10):
     """torch.profiler over ``n`` steps; returns (busy us/step, wall us/step,
-    kernel launches/step, column-solve us/step) and writes the kernel table
-    to ``path``."""
+    kernel launches/step, column-solve us/step, matrix-product us/step: the
+    library's GEMM kernels behind torch.einsum, by name) and writes the kernel
+    table to ``path``."""
     from torch.profiler import ProfilerActivity, profile as tprof
 
     torch.cuda.synchronize()
@@ -505,13 +651,18 @@ def profile_steps(torch, state, step, card, label, path, n=10):
     busy_us = sum(e.self_device_time_total for e in kernels)
     solve = [e for e in kernels if "column_solve_kernel" in e.key]
     solve_us = sum(e.self_device_time_total for e in solve)
+    gemm = [e for e in kernels if any(w in e.key.lower() for w in GEMM_KERNEL_WORDS)]
+    gemm_us = sum(e.self_device_time_total for e in gemm)
     table = avg.table(sort_by="self_device_time_total", row_limit=40)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(f"{card}\n{n} steps of {label} f32, host wall {wall_us:.1f} us "
                 f"(profiled), device busy {busy_us:.1f} us, column solve {solve_us:.1f} us "
-                f"in {sum(e.count for e in solve)} launches\n{table}\n")
-    return busy_us / n, wall_us / n, sum(e.count for e in kernels) / n, solve_us / n
+                f"in {sum(e.count for e in solve)} launches, matrix products {gemm_us:.1f} us "
+                f"in {sum(e.count for e in gemm)} launches ({sorted(e.key for e in gemm)})\n"
+                f"{table}\n")
+    return (busy_us / n, wall_us / n, sum(e.count for e in kernels) / n, solve_us / n,
+            gemm_us / n)
 
 
 def main():
@@ -529,6 +680,7 @@ def main():
     import scythe_tpu_torch as tx
     from scythe_tpu_torch import model as tmodel
     from scythe_tpu_torch import timeintegration as tti
+    from scythe_tpu_torch.examples import cha_bell_initialization as cb
     from scythe_tpu_torch.examples.tc_intensification_rlz import tc_mature_model
     from scythe_tpu_torch.ops import _build
     from scythe_tpu_torch.ops import column_solve as cs
@@ -593,8 +745,8 @@ def main():
             f"100 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
             f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
         t0 = time.perf_counter()
-        busy, wall, nk, solve = profile_steps(torch, state, step, card, "moist3d",
-                                              os.path.join(out_dir, "moist3d_profile.txt"))
+        busy, wall, nk, solve, _ = profile_steps(torch, state, step, card, "moist3d",
+                                                 os.path.join(out_dir, "moist3d_profile.txt"))
         say("moist3d-profile", t0,
             f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
             f"(profiled), {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step; "
@@ -630,8 +782,9 @@ def main():
             f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
         tc_sps = 1000.0 / ms_step
         t0 = time.perf_counter()
-        busy, wall, nk, solve = profile_steps(torch, state, step, card, "tc_mature",
-                                              os.path.join(out_dir, "tc_mature_profile.txt"))
+        busy, wall, nk, solve, _ = profile_steps(
+            torch, state, step, card, "tc_mature",
+            os.path.join(out_dir, "tc_mature_profile.txt"))
         say("tc-profile", t0,
             f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
             f"(profiled), {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step; "
@@ -683,17 +836,126 @@ def main():
             f"(tol 1e-4 on {[MOIST3D_VARS[v] for v in checked]}); TC full width "
             f"{fmt_rel(rel_tc)} (tol {TC_F32_BOUND} else 1e-4, on "
             f"{[MOIST3D_VARS[v] for v in tc_checked]})")
+
+        # ---- phase 9: the flagship two-layer path; no hand-written kernel
+        # lies on it, and the counts, reset just before it, say so
+        t0 = time.perf_counter()
+        cs.launches = ra.launches = ep.launches = 0
+        tw, grid, phys = flagship_workflow(tx, cb, os.path.join(tmp, "flagship"),
+                                           torch.float32, "cuda")
+        fl_launches = (cs.launches, ra.launches, ep.launches)
+        assert fl_launches == (0, 0, 0), fl_launches
+        assert (grid.params.rDim, grid.params.b_rDim, grid.nl) == (300, 103, 256)
+        assert phys.shape == (6, 300, 256) and np.isfinite(phys).all()
+        fl = flagship_readings(grid, phys)
+        assert FLAGSHIP_VG_BAND[0] < fl["vg_max"] < FLAGSHIP_VG_BAND[1], fl
+        assert (FLAGSHIP_WAVE2_BAND[0] < fl["vg_wave2_at_50km"]
+                < FLAGSHIP_WAVE2_BAND[1]), fl
+        assert fl["vg_largest_wave_at_45km"] == 2, fl
+        assert fl["vg_odd_waves_at_50km"] < 1e-3 * fl["vg_wave2_at_50km"], fl
+        assert fl["wb_max"] > 0.0 and fl["wb_min"] < 0.0, fl
+        spin_outs, outs = (
+            sorted(f for f in os.listdir(m.output_dir) if f.startswith("physical_out_"))
+            for m in (cb.spinup_model(os.path.join(tmp, "flagship")), tw))
+        assert spin_outs == ["physical_out_0.0.csv", "physical_out_600.0.csv"], spin_outs
+        assert outs == ["physical_out_0.0.csv", "physical_out_1200.0.csv",
+                        "physical_out_600.0.csv"], outs
+        with open(os.path.join(tw.output_dir, outs[1])) as f:
+            assert sum(1 for _ in f) == 1 + 300 * 256
+        say("flagship-path", t0,
+            f"cha_bell_initialization workflow f32 on cuda through integrate_model: "
+            f"Rankine ICs, Oneway_ShallowWater_Slab spinup 200 steps, add_wave2, "
+            f"Twoway_ShallowWater_Slab {tw.num_ts} steps on {list(phys.shape)}; hand-written "
+            f"kernel launches {fl_launches} (none lies on this path); all fields finite; "
+            f"{json.dumps(fl)} (vg.max band {FLAGSHIP_VG_BAND}, wave-2 band "
+            f"{FLAGSHIP_WAVE2_BAND}); outputs {outs}")
+
+        # ---- phase 10: flagship steps/s and profile
+        t0 = time.perf_counter()
+        ms_step, host_sps, state, step = time_steps(torch, tmodel, tw, 200)
+        fl_sps = 1000.0 / ms_step
+        say("flagship-steps-per-second", t0,
+            f"200 two-way steps after 10 warm-up: {fl_sps:.2f} steps/s ({ms_step:.4f} "
+            f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
+        t0 = time.perf_counter()
+        busy, wall, nk, _, gemm = profile_steps(
+            torch, state, step, card, "flagship two-way",
+            os.path.join(out_dir, "flagship_profile.txt"))
+        assert busy > 0.0 and gemm > 0.0, (busy, gemm)
+        say("flagship-profile", t0,
+            f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
+            f"(profiled), {nk:.0f} kernel launches/step, matrix products (einsum) "
+            f"{gemm:.1f} us/step = {100.0 * gemm / busy:.1f}% of busy, other kernels "
+            f"(elementwise, copies) {busy - gemm:.1f} us/step; table in "
+            f"chiprun_out/flagship_profile.txt")
+        del state, step
+
+        # ---- phase 11: the golden trajectory on the card
+        t0 = time.perf_counter()
+        gm = cb.flagship_model(32, 32)
+        golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                      "twoway_slab_50steps_f64.npz"))["phys"]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            g = tx.create_grid(gm.grid_params, torch.float64, device=dev)
+            gstep = tmodel.build_step(gm, g, tmodel.build_context(gm, g, torch.float64),
+                                      torch.float64)
+            out = tmodel.make_scan(gstep, 50)(cb.vortex_state(g, torch.float64))
+            assert out.spec.device.type == dev
+            runs[dev] = g.synthesis(out.spec)["val"].cpu().numpy()
+        rel_golden = per_field_rel(runs["cuda"], golden)
+        rel_cpu = per_field_rel(runs["cuda"], runs["cpu"])
+        assert max(rel_golden) <= 1e-9 and max(rel_cpu) <= 1e-9, (rel_golden, rel_cpu)
+        say("flagship-golden", t0,
+            f"flagship_model(32, 32) 50 f64 steps on cuda, rel err per field (tol 1e-9): "
+            f"vs tests/golden/twoway_slab_50steps_f64.npz "
+            f"{fmt_rel(rel_golden, FLAGSHIP_VARS)}; vs the same run on the cpu "
+            f"{fmt_rel(rel_cpu, FLAGSHIP_VARS)}")
+
+        # ---- phase 12: flagship f32 against f64 on the card, 50 steps
+        t0 = time.perf_counter()
+        tw50 = tw.with_(integration_time=150.0, output_interval=150.0)
+        _, p32 = tx.integrate_model(tw50, dtype=torch.float32, device="cuda",
+                                    write_outputs=False)
+        _, p64 = tx.integrate_model(tw50, dtype=torch.float64, device="cuda",
+                                    write_outputs=False)
+        rel_fl = per_field_rel(p32, p64)
+        fl_bounds = [FLAGSHIP_F32_BOUND.get(n, 1e-4) for n in FLAGSHIP_VARS]
+        print(f"  flagship 50 steps cuda f32 vs f64 rel err {fmt_rel(rel_fl, FLAGSHIP_VARS)}",
+              flush=True)
+        assert all(np.abs(p64[v]).max() > 0.0 for v in range(6))
+        assert all(r <= b for r, b in zip(rel_fl, fl_bounds)), (rel_fl, fl_bounds)
+        say("flagship-parity-f32", t0,
+            f"cuda f32 vs cuda f64, 50 two-way steps from the wave-2 ICs at full width, "
+            f"rel err per field {fmt_rel(rel_fl, FLAGSHIP_VARS)} (tol {FLAGSHIP_F32_BOUND} "
+            f"else 1e-4)")
+
+        # ---- phase 13: the height-resolved BL, an RLZ set: its closing
+        # analysis is the CUDA kernel; the counts reset just before it
+        t0 = time.perf_counter()
+        hm = hrbl_model(tx, tmp, 100)
+        cs.launches = ra.launches = 0
+        _, p_gpu = tx.integrate_model(hm, dtype=torch.float64, device="cuda",
+                                      write_outputs=False)
+        hrbl_launches = (cs.launches, ra.launches)
+        assert hrbl_launches == (0, hm.num_ts + 1) == (0, 101), hrbl_launches
+        _, p_cpu = tx.integrate_model(hm, dtype=torch.float64, device="cpu",
+                                      write_outputs=False)
+        assert ra.launches == 101  # the CPU run launched nothing
+        rel_hrbl = per_field_rel(p_gpu, p_cpu)
+        assert np.isfinite(p_gpu).all() and max(rel_hrbl) <= 1e-9, rel_hrbl
+        assert p_gpu[3].min() < 0.0 and np.abs(p_gpu[5]).max() > 0.0  # inflow, wb written
+        say("height-resolved-bl-path", t0,
+            f"Oneway_ShallowWater_HeightResolvedBL {list(p_gpu.shape)} 100 f64 steps on "
+            f"cuda: column-solve launches {hrbl_launches[0]}, analysis launches "
+            f"{hrbl_launches[1]}; vs cpu f64 rel err per field (tol 1e-9) "
+            f"{fmt_rel(rel_hrbl, FLAGSHIP_VARS)}; ub.min {float(p_gpu[3].min()):.4f} m/s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    print(f"  TC mature path: {tc_sps:.2f} steps/s; moist3d launches {m3d_launches}",
-          flush=True)
+    print(f"  TC mature path: {tc_sps:.2f} steps/s; moist3d launches {m3d_launches}; "
+          f"flagship two-way: {fl_sps:.2f} steps/s", flush=True)
     cs_main = cs_times["9216x48 f32"]
-    V, R, L, Z = 9, 144, 64, 48  # the analysis at moist3d: b_rDim 51
-    B = 51
-    ra_bound = bound_ms(4 * (V * R * L * Z + L * L + R * L + V * B * R + V * Z * Z + V * B * L * Z),
-                        2 * V * R * L * L * Z + 2 * V * B * R * L * Z + 2 * V * B * L * Z * Z,
-                        "f32 products")
     n_probe = int(np.prod(ep.SHAPE))
     # seven slot tensors and rinv read, one output written; 21 FLOP an output
     ep_bound = bound_ms(4 * (8 * n_probe + ep.SHAPE[1]), 21 * n_probe, "f32 elementwise")
@@ -706,6 +968,9 @@ def main():
             "replaces": "scythe_tpu/ops/pallas_semiimplicit.py:118",
             "launches": tc_launches[0],
             "launches_per_step": tc_launches[0] / tc.num_ts,
+            "launches_by_path": {"moist3d": m3d_launches[0], "tc_mature": tc_launches[0],
+                                 "flagship": fl_launches[0],
+                                 "height_resolved_bl": hrbl_launches[0]},
             "max_abs_err": cs_err["kernel"],
             "library_max_abs_err": cs_err["library"],
             "ms": cs_main[0],
@@ -729,16 +994,23 @@ def main():
             "replaces": "scythe_tpu/ops/pallas_transforms.py:105",
             "launches": tc_launches[1],
             "launches_per_step": (tc_launches[1] - 1) / tc.num_ts,  # + the initial one
+            "launches_by_path": {"moist3d": m3d_launches[1], "tc_mature": tc_launches[1],
+                                 "flagship": fl_launches[1],
+                                 "height_resolved_bl": hrbl_launches[1]},
             "max_abs_err": ra_err,
             "ms": ra_times["moist3d"][0],
             "plain_ms": ra_times["moist3d"][1],
-            "bound_ms": ra_bound[0],
-            "bound_by": ra_bound[1],
+            "bound_ms": ra_times["moist3d"][2],
+            "bound_by": ra_times["moist3d"][3],
             "library_ms": None,
             "tc_ms": ra_times["tc"][0],
             "tc_plain_ms": ra_times["tc"][1],
+            "tc_bound_ms": ra_times["tc"][2],
+            "tc_bound_by": ra_times["tc"][3],
             "transform_ms": ra_times["transform"][0],
             "transform_plain_ms": ra_times["transform"][1],
+            "transform_bound_ms": ra_times["transform"][2],
+            "transform_bound_by": ra_times["transform"][3],
             "moist3d_f64_ms": ra_times["moist3d_f64"][0],
             "moist3d_f64_plain_ms": ra_times["moist3d_f64"][1],
         },

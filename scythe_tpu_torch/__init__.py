@@ -1,13 +1,16 @@
 """scythe_tpu_torch: the PyTorch / CUDA port of scythe-tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference ``scythe_tpu``, with the same
-module names.  It imports torch and never jax.  Ported so far: the moist
-3-D semi-implicit core on RLZ grids (``MoistEulerRLZ`` with the AI2*
-corrector) and the mature-TC option bundle; its vertical column solve and
-RLZ analysis are hand-written CUDA kernels (``ops/csrc``) built with nvcc
-at first use on the card.  The entry points run on the card by default
-(``device="cuda"``) and raise where there is none; pass ``device="cpu"``
-to run on the CPU, as the tests do.
+module names.  It imports torch and never jax.  Ported so far: the R, RL,
+RZ and RLZ grids with every equation set they carry (the flagship Cha & Bell
+two-layer shallow-water / slab models among them,
+``examples/cha_bell_initialization.py``), the explicit AB3 and the
+semi-implicit AI2* steppers, and the step options but for a few that raise by
+name (``model.py``).  The vertical column solve and the RLZ analysis are
+hand-written CUDA kernels (``ops/csrc``) built with nvcc at first use on the
+card; the other transforms are matrix products (``torch.einsum``).  The entry
+points run on the card by default (``device="cuda"``) and raise where there
+is none; pass ``device="cpu"`` to run on the CPU, as the tests do.
 """
 
 from .config import BC, ZBC, GridParameters, ModelParameters

@@ -3,8 +3,8 @@
 The dynamical core has no learned weights: what a run carries is the grid
 operators (rebuilt from the configuration by either package), the reference
 state, the model state and the context extras its options read (the
-sponge's reference state).  These functions move the last three across as
-numpy arrays, so a run can start in one package from the other's state.
+sponges' and the radiation boundary's reference fields).  These functions
+move the last three across as numpy arrays, so a run can start in one package from the other's state.
 Nothing here imports jax: a JAX array converts through ``np.asarray``.
 Every loader puts its tensors on the card unless the caller asks for the
 CPU (``device="cpu"``).
@@ -23,7 +23,7 @@ from .timeintegration import ModelState
 
 _STATE_ARRAYS = ("spec", "expdot_nm1", "expdot_nm2", "impdot_nm1", "impdot_nm2")
 # ctx.extras a ported option reads (model._set_boundary_refs builds them)
-_CONTEXT_EXTRAS = ("sponge_ref",)
+_CONTEXT_EXTRAS = ("sponge_ref", "radiation_ref_dr")
 
 
 def _fields(src, names) -> dict:
@@ -69,7 +69,9 @@ def load_jax_checkpoint(path: str, device: Any = DEFAULT, dtype=None):
 def context_extras_from_numpy(extras, device: Any = DEFAULT, dtype=None) -> dict:
     """The context extras a run carries besides its state, from the JAX
     package's ``ctx.extras`` (a mapping of arrays): ``sponge_ref``, the
-    filtered initial state the radial sponge relaxes toward.  Merge the
+    filtered initial state the sponges relax toward, and
+    ``radiation_ref_dr``, its radial derivative, which the radiation
+    boundary reads.  Merge the
     result into the port's ``ctx.extras`` to continue a run begun in the
     JAX package."""
     device = resolve_device(device)

@@ -19,8 +19,10 @@ The counterpart of ``scythe_tpu.grids.base`` in its plain-matmul mode:
 * ``project`` + ``solve_spectral`` factor the analysis into a local
   quadrature and a small solve, as in the JAX package.
 
-Not ported yet (each raises NotImplementedError): the XYZ / SL / SLZ
-geometries, the factored DFT (nl > 2048) and ``matmul="compensated"``.
+All four geometries carry their equation sets end to end (R, RL, RZ through
+the einsum operators alone).  Not ported yet (each raises
+NotImplementedError): the XYZ / SL / SLZ geometries, the factored DFT
+(nl > 2048) and ``matmul="compensated"``.
 """
 
 from __future__ import annotations

@@ -8,12 +8,17 @@ of eager steps; the host touches data only at output boundaries (CSV write
 + NaN watchdog), the reference cadence (semiimplicit.jl:288-293).
 
 Ported options: ``semiimplicit`` (constant ``si_mode`` only), ``si_scale``,
-the radial sponge (``sponge_width``, ``sponge_tau``), ``surface_fluxes``,
-``implicit_vdiff`` (with ``vdiff_exclude``), and the equation-set hooks
-(``reference_quirks``, ``exact_vertical_pgf``, ``stiff_relaxation``,
-``condensation``, ``condensation_rate_cap``, ``condensation_tau``,
-``sedimentation``, ``smagorinsky``, ``smagorinsky_axes``).  Every other
-option the JAX ``build_step`` reads raises NotImplementedError naming it.
+the radial and top sponges (``sponge_width``, ``sponge_tau``,
+``sponge_top_width``, ``sponge_top_tau``, ``sponge_top_vars``), the
+radiation boundary (``radiation_width``, ``radiation_speed``), the modal
+filter (``modal_filter_tau``, ``modal_filter_order``, ``modal_filter_axes``),
+``incremental_analysis``, ``surface_fluxes``, ``implicit_vdiff`` (with
+``vdiff_exclude``), and the equation-set hooks (``reference_quirks``,
+``exact_vertical_pgf``, ``stiff_relaxation``, ``condensation``,
+``condensation_rate_cap``, ``condensation_tau``, ``sedimentation``,
+``smagorinsky``, ``smagorinsky_axes``).  Still raising NotImplementedError
+by name: ``topography_file``, ``checkpoint_interval``, ``write_spectral``,
+``output_format='nc'`` and ``si_mode='variable'``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from . import io as sio
 from . import timeintegration as ti
-from .basis import chebyshev
+from .basis import bspline, chebyshev, fourier
 from .config import ModelParameters
 from .device import DEFAULT
 from .equations.common import EqContext, get_equation_set
@@ -42,10 +47,6 @@ log = logging.getLogger("scythe_tpu_torch")
 # options of the JAX build_step / run loop that are not ported yet: each
 # raises when it is switched on (a value that is not falsy)
 _UNPORTED_OPTIONS = (
-    "sponge_top_width",
-    "radiation_width",
-    "modal_filter_tau",
-    "incremental_analysis",
     "topography_file",
     "checkpoint_interval",
     "write_spectral",
@@ -83,6 +84,138 @@ def build_context(model: ModelParameters, grid: Grid, dtype) -> EqContext:
         var_index=grid.params.var_index,
         ref_state=ref,
     )
+
+
+def infer_radiation_speed(params: dict, opts: dict) -> float:
+    """Outgoing-wave speed for the Sommerfeld radiation strip:
+    options['radiation_speed'] if set, else sqrt(g H) from the physical
+    params (H or Hfree)."""
+    rad_c = opts.get("radiation_speed")
+    if rad_c is None:
+        g_ = params.get("g")
+        H_ = params.get("H", params.get("Hfree"))
+        if g_ is None or H_ is None:
+            raise ValueError(
+                "options['radiation_width'] needs options['radiation_speed'] "
+                "or physical params g and H/Hfree to infer the gravity-wave "
+                "speed"
+            )
+        rad_c = float(np.sqrt(float(g_) * float(H_)))
+    return float(rad_c)
+
+
+def _second_difference(n: int, periodic: bool) -> np.ndarray:
+    d2 = np.zeros((n, n))
+    for i in range(n) if periodic else range(1, n - 1):
+        d2[i, i] = -2.0
+        d2[i, (i - 1) % n] = 1.0
+        d2[i, (i + 1) % n] = 1.0
+    return d2
+
+
+def build_modal_filter(grid: Grid, tau: float, order: int, ts: float, dtype,
+                       axes: str = "rlz"):
+    """Per-step scale-selective modal damping in coefficient space
+    (``scythe_tpu.model.build_modal_filter``): exact exponential damping
+    with e-folding time ``tau`` at the grid scale, falling as (scale
+    fraction)^order toward the resolved scales.
+
+    * B-spline radial axis, per variable: F_v = Q V exp(-(ts/tau) lam/lam_max)
+      V^T Q^T, Q an orthonormal basis of the variable's BC-constraint
+      subspace range(T_v) and (lam, V) the eigendecomposition of the
+      coefficient fourth-difference energy restricted to it, so the filter
+      cannot move the state off its boundary conditions.  A periodic
+      variable is filtered in its n-dim periodic coefficient space by the
+      circulant operator and lifted as T F pinv(T).
+    * Where the grid's ring mask depends on r (RL, RLZ) the radial factor is
+      applied ring-masked and factored: synthesis pre-composed with F_v,
+      the mask in (ring, k) space, re-analysis.
+    * Fourier axis: exp(-(ts/tau) (|k|/kmax)^order) per wavenumber;
+      Chebyshev axis: exp(-(ts/tau) (n/nmax)^order) per mode.
+
+    Every operator is built in float64 numpy and cast once.  ``axes``
+    (options['modal_filter_axes']) selects the filtered directions; without
+    "r" the radial factor is skipped.  Returns a function spec -> spec."""
+    p = grid.params
+    g = grid.geometry
+    a = ts / tau
+
+    def prep(o):
+        return torch.as_tensor(np.asarray(o), dtype=dtype, device=grid.device)
+
+    br = p.b_rDim
+    F_r = F_rk = None
+    if "r" in axes:
+        fs = []
+        for v in range(p.nvars):
+            T = bspline.constraint_matrix(p.num_cells, p.BCL[v], p.BCR[v])
+            if p.BCL[v] == bspline.BC.PERIODIC:
+                d2 = _second_difference(p.num_cells, periodic=True)
+                lam, vec = np.linalg.eigh(d2.T @ d2)
+                core = (
+                    vec * np.exp(-a * np.clip(lam / lam.max(), 0.0, None))
+                ) @ vec.T
+                fs.append(T @ core @ np.linalg.pinv(T))
+                continue
+            q, _ = np.linalg.qr(T)
+            b = _second_difference(br, periodic=False) @ q
+            lam, vec = np.linalg.eigh(b.T @ b)
+            lmax = lam.max()
+            if lmax <= 0.0:
+                fs.append(q @ q.T)
+                continue
+            core = (vec * np.exp(-a * np.clip(lam / lmax, 0.0, None))) @ vec.T
+            fs.append(q @ core @ q.T)
+        F_r = prep(np.stack(fs))
+        if grid.ring_mask is not None:
+            mask = grid.ring_mask.detach().cpu().numpy().astype(np.float64)
+            if not np.allclose(mask, mask[0][None, :]):
+                a_ops, sf_ops = [], []
+                for v in range(p.nvars):
+                    ops = bspline.build_ops(
+                        p.xmin, p.xmax, p.num_cells, p.BCL[v], p.BCR[v], p.l_q
+                    )
+                    a_ops.append(ops.analysis)  # [b_r, rDim]
+                    sf_ops.append(ops.synth[0] @ fs[v])  # [rDim, b_r]
+                F_rk = (prep(np.stack(a_ops)), prep(np.stack(sf_ops)), prep(mask))
+                F_r = None
+
+    f_l = f_z = None
+    if g in ("RL", "RLZ") and "l" in axes:
+        # dense-DFT slot layout; a factored DFT (nl > 2048) never gets here:
+        # create_grid raises for it
+        k = np.abs(fourier.coeff_wavenumbers(grid.nl)).astype(np.float64)
+        kmax = max(k.max(), 1.0)
+        f_l = prep(np.exp(-a * (k / kmax) ** order))
+    if g in ("RZ", "RLZ") and "z" in axes:
+        n = np.arange(p.zDim, dtype=np.float64)
+        nmax = max(p.zDim - 1, 1)
+        f_z = prep(np.exp(-a * (n / nmax) ** order))
+
+    def apply(spec):
+        out = spec
+        if F_r is not None:
+            out = grid._mm("vab,vb...->va...", F_r, out)
+        elif F_rk is not None:
+            A_st, SF_st, mk = F_rk
+            if g == "RL":
+                mid = grid._mm("vrb,vbk->vrk", SF_st, out) * mk[None]
+                out = grid._mm("vbr,vrk->vbk", A_st, mid)
+            else:
+                mid = grid._mm("vrb,vbkK->vrkK", SF_st, out) * mk[None, :, :, None]
+                out = grid._mm("vbr,vrkK->vbkK", A_st, mid)
+        if g == "RL" and f_l is not None:
+            out = out * f_l[None, None, :]
+        elif g == "RZ" and f_z is not None:
+            out = out * f_z[None, None, :]
+        elif g == "RLZ":
+            if f_l is not None:
+                out = out * f_l[None, None, :, None]
+            if f_z is not None:
+                out = out * f_z[None, None, None, :]
+        return out
+
+    return apply
 
 
 def build_surface_fluxes(grid: Grid, ctx: EqContext, cfg: dict, dtype):
@@ -257,13 +390,68 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
     if sp_w > 0.0:
         tau = float(opts.get("sponge_tau", 600.0))
         ramp = torch.clamp((ctx.coords["r"] - (p.xmax - sp_w)) / sp_w, 0.0, 1.0)
-        sponge_sigma = (torch.sin(0.5 * np.pi * ramp) ** 2 / tau).to(dtype)
+        # [1, *spatial]: sigma carries the variable axis from here on
+        sponge_sigma = (torch.sin(0.5 * np.pi * ramp) ** 2 / tau).to(dtype)[None]
+
+    # optional top (z) Rayleigh sponge over the top ``sponge_top_width``
+    # meters, timescale ``sponge_top_tau``, on all variables or on
+    # ``sponge_top_vars`` only; adds to the radial sponge, same reference
+    sp_tw = float(opts.get("sponge_top_width", 0.0) or 0.0)
+    if sp_tw > 0.0:
+        if "z" not in ctx.coords:
+            raise ValueError(
+                "options['sponge_top_width'] needs a vertical axis "
+                f"(geometry {p.geometry!r} has none)"
+            )
+        tau_t = float(opts.get("sponge_top_tau", 600.0))
+        ramp_t = torch.clamp((ctx.coords["z"] - (p.zmax - sp_tw)) / sp_tw, 0.0, 1.0)
+        sigma_t = (torch.sin(0.5 * np.pi * ramp_t) ** 2 / tau_t).to(dtype)[None]
+        sp_vars = opts.get("sponge_top_vars")
+        if sp_vars is not None:
+            mask = torch.zeros((grid.nvars,) + (1,) * (sigma_t.ndim - 1),
+                               dtype=dtype, device=grid.device)
+            for name in sp_vars:
+                mask[p.var_index(name)] = 1.0
+            sigma_t = sigma_t * mask
+        sponge_sigma = sigma_t if sponge_sigma is None else sponge_sigma + sigma_t
+    if sponge_sigma is not None:
         if "sponge_ref" not in ctx.extras:
             raise ValueError(
-                "options['sponge_width'] needs ctx.extras['sponge_ref'] (the "
-                "initial far-field state); initialize() sets it"
+                "options['sponge_width'] / ['sponge_top_width'] need "
+                "ctx.extras['sponge_ref'] (the filtered initial state); "
+                "initialize() sets it"
             )
         sponge_ref = ctx.extras["sponge_ref"]
+
+    # optional Sommerfeld (radiating) outer boundary: over the outer
+    # ``radiation_width`` meters the tendency blends toward the one-way wave
+    # equation d(phi')/dt = -c d(phi')/dr on the perturbation from the
+    # filtered initial state
+    rad_blend = rad_ref_dr = rad_c = None
+    rad_w = float(opts.get("radiation_width", 0.0) or 0.0)
+    if rad_w > 0.0:
+        rad_c = infer_radiation_speed(ctx.params, opts)
+        ramp = torch.clamp((ctx.coords["r"] - (p.xmax - rad_w)) / rad_w, 0.0, 1.0)
+        rad_blend = (torch.sin(0.5 * np.pi * ramp) ** 2).to(dtype)[None]
+        if "radiation_ref_dr" not in ctx.extras:
+            raise ValueError(
+                "options['radiation_width'] needs ctx.extras['radiation_ref_dr'] "
+                "(d/dr of the filtered initial state); initialize() sets it"
+            )
+        rad_ref_dr = ctx.extras["radiation_ref_dr"]
+
+    modal_filter = None
+    mf_tau = float(opts.get("modal_filter_tau", 0.0) or 0.0)
+    if mf_tau > 0.0:
+        modal_filter = build_modal_filter(
+            grid, mf_tau, int(opts.get("modal_filter_order", 4)), ts, dtype,
+            axes=str(opts.get("modal_filter_axes", "rlz")),
+        )
+
+    # options['incremental_analysis']: close the step with spec + A(delta)
+    # instead of A(var_np1), so only the step's increment passes through the
+    # analysis round trip
+    incremental = bool(opts.get("incremental_analysis", False))
 
     sfx_apply = None
     sfx_cfg = opts.get("surface_fluxes")
@@ -292,8 +480,11 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
         expdot = res.expdot
         if sfx_apply is not None:
             expdot = sfx_apply(expdot, phys)
+        if rad_blend is not None:
+            rad_dot = -rad_c * (fields["dr"] - rad_ref_dr)
+            expdot = (1.0 - rad_blend) * expdot + rad_blend * rad_dot
         if sponge_sigma is not None:
-            expdot = expdot - sponge_sigma[None] * (phys - sponge_ref)
+            expdot = expdot - sponge_sigma * (phys - sponge_ref)
         var_np1, e_nm1, e_nm2 = ti.explicit_step(
             phys, expdot, state.expdot_nm1, state.expdot_nm2, state.t, ts
         )
@@ -336,8 +527,16 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
             var_np1 = vdiff_apply(var_np1, res.k_v, ts)
         if needs_condensation:
             var_np1 = mp.condensation_adjustment(var_np1, impdot, ctx)
+        if incremental:
+            # the delta is taken against the synthesis value itself, not the
+            # override-patched phys, for A(S spec) = spec to cancel
+            spec_new = state.spec + grid.analysis(var_np1 - fields["val"])
+        else:
+            spec_new = grid.analysis(var_np1)
+        if modal_filter is not None:
+            spec_new = modal_filter(spec_new)
         return ti.ModelState(
-            spec=grid.analysis(var_np1),
+            spec=spec_new,
             expdot_nm1=e_nm1,
             expdot_nm2=e_nm2,
             impdot_nm1=i_nm1,
@@ -346,6 +545,19 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
         )
 
     return step
+
+
+def make_scan(step, n_steps: int):
+    """``step`` applied ``n_steps`` times: the counterpart of
+    ``scythe_tpu.model.make_scan``, which compiles the steps between two
+    outputs into one scan; here they are eager steps in a Python loop."""
+
+    def chunk(state):
+        for _ in range(n_steps):
+            state = step(state)
+        return state
+
+    return chunk
 
 
 def imp_history_rows(model: ModelParameters) -> int | None:
@@ -374,12 +586,22 @@ def initialize(model: ModelParameters, dtype=None, device: Any = DEFAULT):
 
 
 def _set_boundary_refs(ctx, grid, spec0):
-    """The radial sponge's reference: the *filtered* initial state, what the
+    """Reference extras for the sponges and the radiation boundary: both
+    relax toward / radiate against the *filtered* initial state, what the
     spline space represents, not the raw ICs (``scythe_tpu.model.
-    _set_boundary_refs``; the top sponge and the radiation boundary, which
-    also read it there, are not ported)."""
-    if float(ctx.options.get("sponge_width", 0.0) or 0.0) > 0.0:
-        ctx.extras["sponge_ref"] = grid.synthesis(spec0)["val"].clone()
+    _set_boundary_refs``)."""
+    need_sponge = (
+        float(ctx.options.get("sponge_width", 0.0) or 0.0) > 0.0
+        or float(ctx.options.get("sponge_top_width", 0.0) or 0.0) > 0.0
+    )
+    need_rad = float(ctx.options.get("radiation_width", 0.0) or 0.0) > 0.0
+    if not (need_sponge or need_rad):
+        return
+    fields0 = grid.synthesis(spec0)
+    if need_sponge:
+        ctx.extras["sponge_ref"] = fields0["val"].clone()
+    if need_rad:
+        ctx.extras["radiation_ref_dr"] = fields0["dr"].clone()
 
 
 def integrate_model(
@@ -476,8 +698,7 @@ def run_loop(
     steps_done = 0
     while steps_done < num_ts:
         n = min(output_int, num_ts - steps_done)
-        for _ in range(n):
-            state = step(state)
+        state = make_scan(step, n)(state)
         steps_done += n
         t_sim = t_sim0 + steps_done * model.ts
         phys = fetch_phys(state)  # the host copy waits for the device

@@ -1,10 +1,9 @@
 """Warm-rain (Ooyama 2001-style) microphysics (ref src/microphysics.jl), in
 PyTorch.
 
-The process rates ``MoistEulerRLZ`` uses and the post-step
-``condensation_adjustment``, elementwise on tensors.  The Newton
-``saturation_adjustment`` of the JAX package is not on this path and is not
-ported yet.
+The process rates, the post-step ``condensation_adjustment`` and the
+Newton ``saturation_adjustment`` (a fixed nine passes with a converged mask,
+as the JAX package's ``fori_loop``), elementwise on tensors.
 """
 
 from __future__ import annotations
@@ -72,6 +71,53 @@ def vapor_diffusity(Tk, p):
     return 0.211 * (Tk / 273.15) ** 1.94 * (1013.25 / p)
 
 
+def linear_saturation_adjustment(qss, Tk, p, q_v, q_l):
+    """(ref microphysics.jl:85-100)."""
+    q_sat = td.q_sat_liquid(Tk, p)
+    Q_s = Q_s_factor(Tk, p, q_v, q_l)
+    dq = (q_v - q_sat - qss) / (1.0 + Q_s)
+    dq = torch.minimum(q_v, dq)
+    dq = torch.maximum(-q_l, dq)
+    return torch.where(q_v == 0.0, 0.0, dq)
+
+
+def saturation_adjustment(s, xi, mu, mu_l, tol=1.0e-12):
+    """Newton iteration to saturation (ref microphysics.jl:1-70); returns
+    (dq, dT).  Nine passes; a point that has converged keeps its dq."""
+    incr = 1.0e-6
+    q_v, rho_d, Tk, p = td.thermodynamic_tuple(s, xi, mu)
+    q_l = td.ahyp(mu_l)
+    q_sat = td.q_sat_liquid(Tk, p)
+    e_s = td.sat_pressure_liquid_buck(Tk, p)
+    dqsdT = td.sat_pressure_liquid_buck_dT(Tk, p) * td.Eps * p / (p - e_s) ** 2
+    cp = td.Cpd + q_v * td.Cpv + q_l * td.Cl
+    dq = (q_sat - q_v) / (1.0 + td.L_v(Tk) * dqsdT / cp)
+    SS0 = q_v - q_sat
+
+    for _ in range(9):
+        dq_up = dq + incr
+        dT_up = -dq_up * td.L_v(Tk) / cp
+        SS_up = (q_v + dq_up) - td.q_sat_liquid(Tk + dT_up, p)
+        dT = -dq * td.L_v(Tk) / cp
+        SS_dn = (q_v + dq) - td.q_sat_liquid(Tk + dT, p)
+        dSSdq = (SS_up - SS_dn) / incr
+        step = torch.where(torch.abs(dSSdq) > 0, SS_dn / dSSdq, 0.0)
+        active = torch.abs(SS_dn) > tol
+        dq = torch.where(active, dq - step, dq)
+
+    # clamp to available water (ref microphysics.jl:52-63), in this order
+    dq = torch.where(q_v + dq < 0.0, -q_v, dq)
+    dq = torch.where(q_l - dq < 0.0, q_l, dq)
+    dT = -dq * td.L_v(Tk) / cp
+    zero = q_v == 0.0
+    dq = torch.where(zero, 0.0, dq)
+    dT = torch.where(zero, 0.0, dT)
+    init_sat = torch.abs(SS0) < tol
+    dq = torch.where(init_sat, 0.0, dq)
+    dT = torch.where(init_sat, 0.0, dT)
+    return dq, dT
+
+
 def autoconversion(q_c, rho_d):
     """Ooyama (2001) (ref microphysics.jl:197-205)."""
     return torch.clamp(0.001 * (q_c - 0.001), min=0.0)
@@ -103,6 +149,14 @@ def rain_evaporation(q_r, rho_d, Tk, p):
 def f_ventilation(q_r, rho_d, Tk):
     rho_r = torch.clamp(q_r * rho_d, min=0.0)
     return torch.clamp(1.6 + 30.39 * rho_r**0.2046 * f_ice(Tk) ** 1.5, min=0.0)
+
+
+def sedimentation_formula(q_r, rho_d, Tk):
+    """The reference's terminal-velocity expression verbatim
+    (microphysics.jl:240-249): a negative magnitude clamped at zero."""
+    rho_r = torch.clamp(q_r * rho_d, min=0.0)
+    Vt = -14.164 * rho_r**0.1364 * torch.sqrt(td.rho_d0 / rho_d) * f_ice(Tk)
+    return torch.clamp(Vt, min=0.0)
 
 
 def sedimentation(q_r, rho_d, Tk):

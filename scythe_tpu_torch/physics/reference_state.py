@@ -30,6 +30,15 @@ class ReferenceState(NamedTuple):
     Pxi_prof: torch.Tensor
 
 
+def empty_reference_state(nz: int = 1, dtype=torch.float32, *, device: Any) -> ReferenceState:
+    z = torch.zeros((nz, 3), dtype=dtype, device=device)
+    return ReferenceState(
+        z, z, z, z,
+        torch.zeros((), dtype=dtype, device=device),
+        torch.zeros((nz,), dtype=dtype, device=device),
+    )
+
+
 def _host(fn, *arrays):
     """Run a thermodynamic function on float64 numpy data via CPU tensors."""
     out = fn(*(torch.from_numpy(np.asarray(a, np.float64)) for a in arrays))

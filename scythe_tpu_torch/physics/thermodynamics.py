@@ -1,10 +1,10 @@
 """Moist thermodynamic state functions (ref src/thermodynamics.jl), in
 PyTorch.
 
-The functions of ``scythe_tpu.physics.thermodynamics`` that the moist RLZ
-slice uses, elementwise on tensors of any shape, dtype and device.  Inputs
-are tensors; the host-side reference-state builder hands them CPU float64
-tensors (``torch.from_numpy``), so no value leaves the host there.
+The functions of ``scythe_tpu.physics.thermodynamics``, elementwise on
+tensors of any shape, dtype and device.  Inputs are tensors; where the
+reference state is made on the host they are CPU float64 tensors
+(``torch.from_numpy``), so no value leaves the host there.
 Constants follow Emanuel (1994) as in the reference (thermodynamics.jl:1-32).
 """
 
@@ -38,12 +38,32 @@ _TINY = 1.0e-37  # representable in float32, unlike 1e-300 (which would turn
 # every clamp(x, min=_TINY) guard into a no-op on the f32 path)
 
 
+def sat_pressure_liquid(Tk):
+    Tc = Tk - 273.15
+    return 6.112 * torch.exp(17.67 * Tc / (Tc + 243.5))
+
+
+def sat_pressure_ice(Tk):
+    Tc = Tk - 273.15
+    return 6.112 * torch.exp(21.8745584 * Tc / (Tc + 265.49))
+
+
 def L_v(Tk):
     return L_v0 + (Cpv - Cl) * (Tk - T_0)
 
 
 def vapor_pressure(p, q_v):
     return (p * q_v) / (Eps + q_v)
+
+
+def mixing_ratio(p, e):
+    return (Eps * e) / (p - e)
+
+
+def dewpoint(p, q_v):
+    e = vapor_pressure(p, q_v)
+    le = torch.log(e / 6.112)
+    return 243.5 * le / (17.67 - le) + 273.15
 
 
 def entropy(Tk, rho_d, q_v):
@@ -58,6 +78,15 @@ def entropy(Tk, rho_d, q_v):
     return Cfactor * torch.log(Tk / T_0) - Rd * torch.log(rho_d / rho_d0) - qfactor
 
 
+def vapor_entropy(Tk, rho_d, q_v):
+    qs = torch.clamp(q_v, min=_TINY)
+    return torch.where(
+        q_v > 0.0,
+        Cvv * torch.log(Tk / T_0) - Rv * torch.log(qs * rho_d / rho_v0) + L_v(T_0) / T_0,
+        0.0,
+    )
+
+
 def temperature(s, rho_d, q_v):
     """Inverse of entropy at fixed (rho_d, q_v) (ref thermodynamics.jl:70-84)."""
     Cfactor = Cvd + q_v * Cvv
@@ -68,6 +97,11 @@ def temperature(s, rho_d, q_v):
     rhofactor = (rho_d / rho_d0) ** (Rd / Cfactor)
     Tfactor = torch.exp((s - (q_v * L_v(T_0) / T_0)) / Cfactor)
     return T_0 * Tfactor * rhofactor * qfactor
+
+
+def pressure(s, rho_d, q_v):
+    Tk = temperature(s, rho_d, q_v)
+    return 0.01 * Rd * Tk * rho_d + 0.01 * Rv * Tk * rho_d * q_v
 
 
 # Buck-formula temperature guard (see scythe_tpu.physics.thermodynamics):
@@ -97,9 +131,21 @@ def sat_pressure_liquid_buck_dT(Tk, phPa):
     return ew4 * d_fw4 + fw4 * d_ew4
 
 
+def sat_pressure_ice_buck(Tk, phPa):
+    Tc = torch.clamp(Tk - 273.15, _T_SAT_MIN - 273.15, _T_SAT_MAX - 273.15)
+    fi4 = 1.0 + 2.2e-4 + phPa * (3.83e-6 + 6.4e-10 * Tc**2)
+    ei3 = 6.1115 * torch.exp((23.036 - Tc / 333.7) * Tc / (Tc + 279.82))
+    return fi4 * ei3
+
+
 def q_sat_liquid(Tk, phPa):
     ew = sat_pressure_liquid_buck(Tk, phPa)
     return Eps * ew / (phPa - ew)
+
+
+def q_sat_ice(Tk, phPa):
+    ei = sat_pressure_ice_buck(Tk, phPa)
+    return Eps * ei / (phPa - ei)
 
 
 def bhyp(q_v):
@@ -157,6 +203,11 @@ def P_qv(Tk, rho_d, q_v):
     return torch.where(q_v != 0.0, rho_d * Rv * Tk + qfactor, 0.0)
 
 
+def P_mu(Tk, rho_d, mu):
+    q_v = ahyp(mu)
+    return P_qv(Tk, rho_d, q_v) / dmudq(mu, q_v)
+
+
 def pressure_gradient(Tk, rho_d, q_v, s_x, xi_x, qv_x):
     """(ref thermodynamics.jl:246-254)."""
     return (
@@ -195,3 +246,30 @@ def thermodynamic_tuple(s, xi, mu):
     pd = 0.01 * Rd * Tk * rho_d
     e = 0.01 * Rv * Tk * rho_d * q_v
     return q_v, rho_d, Tk, pd + e
+
+
+def potential_temperature(s, xi, mu):
+    q_v, rho_d, Tk, p = thermodynamic_tuple(s, xi, mu)
+    return Tk * (p_0 / p) ** (Rd / Cpd)
+
+
+def reversible_theta_e(s, xi, mu, mu_l=None):
+    """``mu_l`` None means no liquid (the JAX package's default 0.0)."""
+    q_v, rho_d, Tk, p = thermodynamic_tuple(s, xi, mu)
+    q_l = ahyp(torch.zeros_like(mu) if mu_l is None else mu_l)
+    q_t = q_v + q_l
+    e = vapor_pressure(p, q_v)
+    es = sat_pressure_liquid_buck(Tk, p)
+    cp = Cpd + Cl * q_t
+    theta_term = Tk * (p_0 / (p - e)) ** (Rd / cp)
+    H_term = (e / es) ** ((-Rv * q_v) / cp)
+    exp_term = torch.exp(L_v(Tk) * q_v / (cp * Tk))
+    return theta_term * H_term * exp_term
+
+
+def theta_rho(s, xi, mu, mu_l=None):
+    """``mu_l`` None means no liquid (the JAX package's default 0.0)."""
+    q_v, rho_d, Tk, p = thermodynamic_tuple(s, xi, mu)
+    q_l = ahyp(torch.zeros_like(mu) if mu_l is None else mu_l)
+    theta = potential_temperature(s, xi, mu)
+    return theta * (1.0 + q_v / Eps) / (1.0 + q_v + q_l)

@@ -20,6 +20,7 @@ import scythe_tpu_torch as tx
 from scythe_tpu_torch import convert, io as sio
 from scythe_tpu_torch import model as tmodel
 from scythe_tpu_torch import timeintegration as tti
+from scythe_tpu_torch.examples import cha_bell_initialization as cb
 from scythe_tpu_torch.physics import reference_state as trs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,6 +35,7 @@ ENTRY_POINTS = {
     "convert.load_jax_checkpoint": convert.load_jax_checkpoint,
     "convert.context_extras_from_numpy": convert.context_extras_from_numpy,
     "convert.reference_state_from_numpy": convert.reference_state_from_numpy,
+    "examples.cha_bell_initialization.initialize_wave2": cb.initialize_wave2,
 }
 
 
@@ -44,7 +46,7 @@ def test_entry_point_defaults_to_the_card(name):
 
 
 @pytest.mark.parametrize("fn", [tti.build_semiimplicit_ops, trs.interpolate_reference_file,
-                                trs.exact_reference_state])
+                                trs.exact_reference_state, trs.empty_reference_state])
 def test_operator_helpers_take_the_device_from_their_caller(fn):
     assert inspect.signature(fn).parameters["device"].default is inspect.Parameter.empty
 
@@ -98,6 +100,10 @@ def _calls_without_device(tmp):
         "convert.reference_state_from_numpy":
             lambda: convert.reference_state_from_numpy(
                 {k: getattr(ref, k).numpy() for k in ref._fields}).sbar,
+        "examples.cha_bell_initialization.initialize_wave2":
+            lambda: tx.create_grid(
+                cb.initialize_wave2(tmp, quick=True, grid_params=cb.cha_bell_grid(4, 8))
+                .grid_params, torch.float32).synth_r,
     }
 
 

@@ -178,17 +178,15 @@ def test_state_round_trip(case):
 @pytest.mark.parametrize(
     "options,named",
     [
-        ({"sponge_top_width": 1000.0}, "sponge_top_width"),
-        ({"radiation_width": 1000.0}, "radiation_width"),
-        ({"modal_filter_tau": 30.0}, "modal_filter_tau"),
-        ({"incremental_analysis": True}, "incremental_analysis"),
         ({"topography_file": "hs.csv"}, "topography_file"),
         ({"checkpoint_interval": 1.0}, "checkpoint_interval"),
         ({"write_spectral": True}, "write_spectral"),
         ({"output_format": "nc"}, "output_format"),
         ({"si_mode": "variable"}, "si_mode"),
-        # the production profile switches on options that are not ported
-        ({"profile": "moist_production"}, "modal_filter_tau"),
+        # the production profile switches on the variable-coefficient solve,
+        # which is not ported (tests/test_torch_options.py runs the profile
+        # with si_mode='constant' against the JAX package)
+        ({"profile": "moist_production"}, "si_mode"),
     ],
     ids=lambda o: o if isinstance(o, str) else next(iter(o)),
 )
@@ -203,13 +201,15 @@ def test_unported_options_raise(case, options, named):
 @pytest.mark.parametrize(
     "options",
     [{"sponge_width": 3000.0}, {"surface_fluxes": {"sst": 300.0}},
-     {"implicit_vdiff": True}, {"smagorinsky": 0.2}],
+     {"implicit_vdiff": True}, {"smagorinsky": 0.2},
+     {"sponge_top_width": 1000.0}, {"radiation_width": 1000.0, "radiation_speed": 300.0},
+     {"modal_filter_tau": 30.0}, {"incremental_analysis": True}],
     ids=lambda o: next(iter(o)),
 )
 def test_options_ported_with_the_tc_slice_run(case, options):
-    """Options ported with the mature-TC slice build and step on this
-    configuration too (tests/test_torch_tc_slice.py holds them against the
-    JAX package)."""
+    """Options ported with the mature-TC slice and with the explicit main
+    path build and step on this configuration too (tests/test_torch_tc_slice.py
+    and tests/test_torch_options.py hold them against the JAX package)."""
     m = _model(tx, case, 1, options)
     grid, ctx, state = tmodel.initialize(m, torch.float64, device="cpu")
     out = tmodel.build_step(m, grid, ctx, torch.float64)(state)
@@ -233,4 +233,4 @@ def test_unported_geometry_and_matmul_raise():
     with pytest.raises(KeyError, match="MoistEulerRLZ"):
         from scythe_tpu_torch.equations.common import get_equation_set
 
-        get_equation_set("LinearAdvection1D")
+        get_equation_set("MoistEulerXYZ")  # waits for its geometry

@@ -1,7 +1,8 @@
 """scythe_tpu_torch imports and runs with jax (and the JAX package) blocked:
 a fresh interpreter with sys.modules['jax'] = None imports the package (its
-kernels' modules and the TC example included) and runs 3 steps of the moist
-RLZ core on the CPU, importing no triton."""
+kernels' modules and both examples included), runs 3 steps of the moist
+RLZ core and of the flagship two-way slab model on the CPU, and registers
+every R / RL / RZ / RLZ equation set, importing no triton."""
 
 import os
 import subprocess
@@ -25,7 +26,10 @@ SCRIPT = textwrap.dedent(
     import scythe_tpu_torch as tx
     from scythe_tpu_torch.ops import column_solve, elementwise_probe, rlz_analysis
     from scythe_tpu_torch.examples import tc_intensification_rlz  # noqa: F401
+    from scythe_tpu_torch.examples import cha_bell_initialization as cb
     from scythe_tpu_torch.physics import turbulence  # noqa: F401
+    from scythe_tpu_torch import diagnostics  # noqa: F401
+    from scythe_tpu_torch.equations.common import REGISTRY, get_equation_set
 
     tmp = tempfile.mkdtemp()
     gp = tx.GridParameters(
@@ -57,6 +61,18 @@ SCRIPT = textwrap.dedent(
     assert np.isfinite(phys).all() and phys.shape == (9, 12, 8, 8)
     assert column_solve.launches == rlz_analysis.launches == 0
     assert elementwise_probe.launches == 0 and "triton" not in sys.modules
+    assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
+                   for m in sys.modules if sys.modules[m] is not None)
+    # the flagship two-way slab model, and every equation set registered
+    fm = cb.flagship_model(8, 8)
+    fg = tx.create_grid(fm.grid_params, torch.float64, device="cpu")
+    from scythe_tpu_torch import model as tmodel
+    fstep = tmodel.build_step(fm, fg, tmodel.build_context(fm, fg, torch.float64),
+                              torch.float64)
+    fout = tmodel.make_scan(fstep, 3)(cb.vortex_state(fg, torch.float64))
+    assert torch.isfinite(fout.spec).all() and fout.t == 4
+    get_equation_set("Twoway_ShallowWater_Slab")
+    assert len(REGISTRY) == 17, sorted(REGISTRY)
     assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NOJAX_OK", sorted(os.listdir(os.path.join(tmp, "out"))))

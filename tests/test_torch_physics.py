@@ -1,6 +1,7 @@
-"""The port's thermodynamics, microphysics and reference-state builders
-against scythe_tpu's, float64 on the CPU, on inputs in the physical range
-(exactly dry points included), within 1e-12 of max|ref|."""
+"""The port's thermodynamics, microphysics (the Newton saturation adjustment
+included) and reference states against scythe_tpu's, float64 on the CPU, on
+inputs in the physical range (exactly dry points included), within 1e-12 of
+max|ref|."""
 
 from types import SimpleNamespace
 
@@ -46,6 +47,9 @@ def state():
         mu=np.asarray(jtd.bhyp(q_v)) + rng.normal(0.0, 1e-9, N),
         q_cond=rng.normal(0.0, 1e-5, N),
         rate=rng.uniform(0.0, 20.0, N),
+        e=rng.uniform(0.05, 40.0, N),
+        q_v_pos=rng.uniform(1e-6, 0.02, N),
+        mu_l=np.abs(rng.normal(0.0, 1e-3, N)),
     )
 
 
@@ -69,6 +73,18 @@ THERMO = {
     "P_xi_from_s": ("s", "xi", "mu"),
     "pressure_gradient_coeffs": ("Tk", "rho_d", "q_v"),
     "thermodynamic_tuple": ("s", "xi", "mu"),
+    "sat_pressure_liquid": ("Tk",),
+    "sat_pressure_ice": ("Tk",),
+    "mixing_ratio": ("p", "e"),
+    "dewpoint": ("p", "q_v_pos"),
+    "vapor_entropy": ("Tk", "rho_d", "q_v"),
+    "pressure": ("s", "rho_d", "q_v"),
+    "sat_pressure_ice_buck": ("Tk", "p"),
+    "q_sat_ice": ("Tk", "p"),
+    "P_mu": ("Tk", "rho_d", "mu"),
+    "potential_temperature": ("s", "xi", "mu"),
+    "reversible_theta_e": ("s", "xi", "mu"),
+    "theta_rho": ("s", "xi", "mu"),
 }
 
 MICRO = {
@@ -83,6 +99,8 @@ MICRO = {
     "f_ventilation": ("q_r", "rho_d", "Tk"),
     "sedimentation": ("q_r", "rho_d", "Tk"),
     "sedimentation_active": ("q_r", "rho_d", "Tk"),
+    "sedimentation_formula": ("q_r", "rho_d", "Tk"),
+    "linear_saturation_adjustment": ("qss", "Tk", "p", "q_v", "q_l"),
 }
 
 
@@ -134,6 +152,34 @@ def test_condensation_rates_match(state):
         jmp.invtau_condensation(jnp.asarray(st["Tk"]), jnp.asarray(st["p"]), 100.0, 10.0),
         "invtau_condensation",
     )
+
+
+@pytest.mark.parametrize("name", ["reversible_theta_e", "theta_rho"])
+def test_moist_potential_temperatures_with_liquid_match(state, name):
+    _call_both(jtd, ttd, name, ("s", "xi", "mu", "mu_l"), state)
+
+
+def test_saturation_adjustment_matches(state):
+    """The Newton iteration (nine passes, a converged point frozen) on
+    consistent states: s from entropy(Tk, rho_d, q_v), so the points lie
+    around saturation, warm and cold; the exactly dry ones return zero."""
+    st = dict(state)
+    st["s"] = np.array(jtd.entropy(*(jnp.asarray(state[k]) for k in ("Tk", "rho_d", "q_v"))))
+    st["xi"] = np.log(state["rho_d"] / jtd.rho_d0)
+    st["mu"] = np.array(jtd.bhyp(jnp.asarray(state["q_v"])))
+    _call_both(jmp, tmp_, "saturation_adjustment", ("s", "xi", "mu", "mu_l"), st)
+    dq, dT = tmp_.saturation_adjustment(*(torch.from_numpy(st[k])
+                                          for k in ("s", "xi", "mu", "mu_l")))
+    assert torch.isfinite(dq).all() and float(dq.abs().max()) > 1e-5
+    assert (dq[::17] == 0).all() and (dT[::17] == 0).all()
+    assert (dq > 0).any() and (dq < 0).any()  # evaporation and condensation
+
+
+def test_empty_reference_state_matches():
+    ref = jrs.empty_reference_state(5, jnp.float64)
+    got = trs.empty_reference_state(5, torch.float64, device="cpu")
+    for name in jrs.ReferenceState._fields:
+        assert np.array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
 
 
 @pytest.fixture(scope="module")

@@ -251,16 +251,41 @@ def test_sponge_matches_jax(case):
 
 @pytest.mark.parametrize(
     "options,named",
-    [({"sponge_top_width": 1000.0}, "sponge_top_width"),
-     ({"radiation_width": 1000.0}, "radiation_width"),
-     ({"modal_filter_tau": 30.0}, "modal_filter_tau")],
-    ids=["sponge_top_width", "radiation_width", "modal_filter_tau"],
+    [({"topography_file": "hs.csv"}, "topography_file"),
+     ({"checkpoint_interval": 60.0}, "checkpoint_interval"),
+     ({"si_mode": "variable"}, "si_mode")],
+    ids=["topography_file", "checkpoint_interval", "si_mode"],
 )
 def test_options_beside_the_bundle_still_raise(case, options, named):
     mt = case["mt"].with_(options={**case["mt"].opts(), **options})
     g, c, _ = tmodel.initialize(mt, torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match=named):
         tmodel.build_step(mt, g, c, torch.float64)
+
+
+@pytest.mark.parametrize(
+    "options",
+    [{"sponge_top_width": 4000.0, "sponge_top_vars": ("v", "w")},
+     {"radiation_width": 50.0e3, "radiation_speed": 50.0},
+     {"modal_filter_tau": 30.0, "modal_filter_axes": "l"},
+     {"incremental_analysis": True}],
+    ids=["sponge_top_width", "radiation_width", "modal_filter_tau", "incremental_analysis"],
+)
+def test_options_beside_the_bundle_run(case, options):
+    """The options ported after the bundle, each on top of it: three steps in
+    both packages, 1e-9 of each field's max|ref|."""
+    finals = []
+    for pkg, mod, dtype, kw, key in ((jx, jmodel, jnp.float64, {}, "mj"),
+                                     (tx, tmodel, torch.float64, {"device": "cpu"}, "mt")):
+        m = case[key].with_(options={**case[key].opts(), **options})
+        g, c, s = mod.initialize(m, dtype, **kw)
+        step = mod.build_step(m, g, c, dtype)
+        for _ in range(3):
+            s = step(s)
+        finals.append(np.asarray(g.synthesis(s.spec)["val"]))
+    ref, got = finals
+    for v in range(ref.shape[0]):
+        assert np.abs(got[v] - ref[v]).max() <= 1e-9 * np.abs(ref[v]).max(), v
 
 
 def test_tc_mature_model_is_the_named_configuration(tmp_path):
