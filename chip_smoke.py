@@ -14,6 +14,8 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    memory and spills for each kernel;
 3. column solve against its plain PyTorch version on the card: nz in
    {13, 24, 40, 48, 100, 128} x ncols in {37, 1200, 9216} x both stages,
+   then the variable-coefficient operator (the moist3d sounding's Pxi_prof)
+   at 9216 x 48 and the shower's scalar and profile operators at 2304 x 32,
    the stage's operator applied as the main path applies it
    (apply_column_operator) and the TPU function's counterpart
    (fused_column_solve, composed per call): f64 kernel vs f64 plain chain
@@ -22,13 +24,16 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    library call's error printed beside the kernel's, the plan printed per
    shape; then timed at 9216 x 48 and 1200 x 24 f32 and 9216 x 48 f64 in
    turns (plain, kernel, kernel, plain, library), each as device time and
-   back to back, beside its bound and each one's error; the library call
-   is one torch.matmul of [x* | w*] by M^T, which the port never calls;
+   back to back, beside its bound and each one's error, and the profile
+   operator and both shower operators the same way; the library call is one
+   torch.matmul of [x* | w*] by M^T, which the port never calls;
 4. RLZ analysis against its plain version on the card: moist3d
    [9, 144, 64, 48], the TC grid [9, 300, 4, 24], the RLZ transform bench
    [8, 192, 128, 60], the two shapes of tests/test_pallas_transforms.py, one
    large-nl shape [2, 24, 1024, 16] (l streamed through shared memory) and a
-   ragged one [3, 21, 12, 13] (nz 13: x copied element by element); f64
+   ragged one [3, 21, 12, 13] (nz 13: x copied element by element), and on
+   their own geometries the XYZ shower [9, 144, 16, 32], the SLZ test grid
+   [9, 36, 32, 24] and the JW06 grid [9, 72, 96, 24] (timed too); f64
    kernel vs f64 plain (1e-12 of max|ref|), f32 kernel vs f64 plain (1e-5,
    and at most 4x the f32 plain chain's own error), two calls bitwise equal
    in each dtype, the plan and its block count printed; then the f32 kernel
@@ -87,7 +92,25 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    an RLZ set: 16 cells x 16 azimuths x 12 levels, ts 0.2 s, the
    configuration of tests/test_rlz_tcbl.py), 100 f64 steps on "cuda" against
    the CPU at 1e-9, its closing analysis the CUDA kernel (101 launches) and
-   no column solve.
+   no column solve;
+14-15. the convective shower at full width (scythe_tpu_torch/examples/
+   convective_shower_xyz.py: MoistEulerXYZ, 48 cells x 16 x 32, 9 vars, ts
+   0.25 s) in f32 on "cuda" through integrate_model, 240 steps (60 s), once
+   with the example's options and once under profile='moist_production':
+   240 column-solve and 241 analysis launches each, fields finite, w.max and
+   q_c max inside bands PERF.md sets from a CPU f64 run of the same steps
+   (tools/torch_shower_reference.py), seven outputs; steps/s by CUDA events,
+   device busy and launches a step from torch.profiler
+   (chiprun_out/shower{,_production}_profile.txt);
+16. parity of the new geometries: XYZ at tests/test_xyz.py's size and SLZ
+   at tests/test_slz.py's, 20 f64 steps on "cuda" against the CPU at 1e-9;
+   the shower 20 steps f32 against f64 on the card at 1e-4 of each field;
+17. the SLZ rest state (tests/test_slz.py's grid), 200 f64 steps on "cuda":
+   w and u below 1e-10, 200 column-solve and 201 analysis launches;
+18. Williamson case 2 on the SL sphere (models/williamson2_sphere.py's
+   configuration: 32 cells x 96, ts 300 s) for a day in f64 on "cuda": l2(h)
+   against the analytic state below 5e-4; no hand-written kernel lies on
+   this RL-structured path, and the counts say 0.
 
 No phase catches its own failure: any failed check raises and the script
 exits non-zero.  Without a CUDA device it exits 2 and prints no result.
@@ -131,6 +154,13 @@ FLAGSHIP_WAVE2_BAND = (0.5, 0.9)
 # their round-off shows in it undamped; the same comparison on the CPU
 # measured 6.6e-4 from f32-made ICs (PERF.md), so its bound is 2e-3
 FLAGSHIP_F32_BOUND = {"wb": 2e-3}
+# the convective shower after 240 steps (60 s): (w.max band m/s, q_c max band
+# kg/kg) of each run, around the readings of the CPU f64 run of the same 240
+# steps (tools/torch_shower_reference.py; PERF.md): w.max 1.12497 and
+# 1.96606 m/s, q_c max 2.98594e-3 and 2.30000e-3.  f32 against f64 after 20
+# steps: every field within 1e-4 there (the largest, v, 5.6e-5), so 1e-4
+SHOWER_BANDS = {"shower": ((1.0, 1.25), (2.5e-3, 3.5e-3)),
+                "shower_production": ((1.75, 2.2), (2.0e-3, 2.6e-3))}
 # the H100 SXM's published dense peaks (NVIDIA's data sheet): HBM; products
 # of f32 matrices to f32 accuracy on the tensor cores (3xTF32: three TF32
 # products, so a third of 495 TFLOP/s); products of f64 matrices on them;
@@ -142,6 +172,18 @@ PEAK_FLOP_PER_S = {"f32 products": 495e12 / 3, "f64 products": 67e12,
 GEMM_KERNEL_WORDS = ("gemm", "gemv", "cutlass", "xmma", "splitk")
 CS_NZ = (13, 24, 40, 48, 100, 128)
 CS_NCOLS = (37, 1200, 9216)
+# (label, ncols, nz, reference state, per-level Pxi): the variable-coefficient
+# operator at the moist3d shape, both of the shower's (48 x 16 columns x 32)
+CS_MORE = (("9216x48 profile", 9216, 48, "moist3d", True),
+           ("2304x32", 2304, 32, "shower", False),
+           ("2304x32 profile", 2304, 32, "shower", True))
+# (label, ncols, nz, reference state, per-level Pxi, dtype) of the timed calls
+CS_TIMED = (("9216x48 f32", 9216, 48, "moist3d", False, "float32"),
+            ("1200x24 f32", 1200, 24, "moist3d", False, "float32"),
+            ("9216x48 f64", 9216, 48, "moist3d", False, "float64"),
+            ("9216x48 f32 profile", 9216, 48, "moist3d", True, "float32"),
+            ("2304x32 f32", 2304, 32, "shower", False, "float32"),
+            ("2304x32 f32 profile", 2304, 32, "shower", True, "float32"))
 
 
 def say(phase, t0, msg):
@@ -215,6 +257,107 @@ def small(tx, tmp, n_steps):
     return moist_model(tx, tmp, "small", cells=8, ldim=16, xmax=10000.0, zdim=16,
                        ts=0.25, n_steps=n_steps, out_every=n_steps,
                        bubble=(4000.0, 2000.0, 1500.0, 3.0))
+
+
+def write_ics(sio, path, coord_names, pts, cols):
+    """An IC CSV: the grid points, then a column per variable (zero where
+    ``cols`` has none)."""
+    data = np.zeros((len(pts), len(pts[0]) + len(MOIST3D_VARS)))
+    data[:, :pts.shape[1]] = pts
+    for j, n in enumerate(MOIST3D_VARS):
+        if n in cols:
+            data[:, pts.shape[1] + j] = cols[n]
+    sio._write_csv(path, [*coord_names, *MOIST3D_VARS], data)
+
+
+def xyz_test_model(tx, tmp, n_steps):
+    """MoistEulerXYZ at tests/test_xyz.py's size (12 cells x 16 x 16, a
+    12 x 8 x 10 km box, ts 0.2 s, K 20, semi-implicit) with its sounding and
+    its warm bubble, modulated in y, written under ``tmp``."""
+    import torch
+    from scythe_tpu_torch import io as sio
+
+    lx, ly, lz = 12000.0, 8000.0, 10000.0
+    gp = tx.GridParameters(
+        geometry="XYZ", xmin=0.0, xmax=lx, num_cells=12, lDim=16, ymin=0.0, ymax=ly,
+        zmin=0.0, zmax=lz, zDim=16, BCL={"u": tx.BC.R1T0, "w": tx.BC.R1T1},
+        BCR={"u": tx.BC.R1T0}, vars=MOIST3D_VARS,
+    )
+    zs = np.linspace(0.0, 1.2 * lz, 40)
+    snd = os.path.join(tmp, "xyz_sounding.txt")
+    with open(snd, "w") as f:
+        f.write("1015.0 300.0 12.0\n")
+        for z in zs[1:]:
+            f.write(f"{z} {300.0 + 0.004 * z} {12.0 * np.exp(-z / 2500.0)}\n")
+    pts = tx.create_grid(gp, torch.float64, device="cpu").gridpoints()
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    rad = np.sqrt(((x - 0.4 * lx) / 2500.0) ** 2 + ((z - 2500.0) / 2000.0) ** 2)
+    s_pert = (2.0 * np.maximum(0.0, np.cos(np.pi * np.minimum(rad, 1.0) / 2.0)) ** 2
+              * (1.0 + 0.3 * np.sin(2.0 * np.pi * y / ly)))
+    ics = os.path.join(tmp, "xyz_ics.csv")
+    write_ics(sio, ics, ("x", "y", "z"), pts, {"s": s_pert})
+    return tx.ModelParameters(
+        ts=0.2, integration_time=n_steps * 0.2, output_interval=n_steps * 0.2,
+        equation_set="MoistEulerXYZ", initial_conditions=ics,
+        output_dir=os.path.join(tmp, "xyz_out"), ref_state_file=snd, grid_params=gp,
+        physical_params={"K": 20.0}, options={"semiimplicit": True},
+    )
+
+
+def slz_test_model(tx, tmp, n_steps, thermal):
+    """MoistEulerSLZ at tests/test_slz.py's size (12 cells x 32 x 24, a
+    15 km lid, ts 0.25 s, K 100, semi-implicit, active sedimentation) with
+    its sounding, from zero perturbation or (``thermal``) a warm thermal at
+    30N, written under ``tmp``."""
+    import torch
+    from scythe_tpu_torch import io as sio
+
+    ZBC = tx.ZBC
+    gp = tx.GridParameters(
+        geometry="SLZ", xmin=-np.pi / 2, xmax=np.pi / 2, num_cells=12, lDim=32,
+        sphere_radius=6.37122e6, zmin=0.0, zmax=15000.0, zDim=24,
+        BCB={"s": ZBC.R1T1, "u": ZBC.R1T1, "v": ZBC.R1T1, "mu": ZBC.R1T1,
+             "mu_c": ZBC.R1T1, "w": ZBC.R1T0},
+        BCT={"s": ZBC.R1T1, "u": ZBC.R1T1, "v": ZBC.R1T1, "mu": ZBC.R1T1,
+             "mu_c": ZBC.R1T1, "mu_r": ZBC.R1T1, "w": ZBC.R1T0},
+        vars=MOIST3D_VARS,
+    )
+    zs = np.linspace(0.0, 24000.0, 80)
+    theta = np.where(zs <= 12000.0, 300.0 + 43.0 * (zs / 12000.0) ** 1.25,
+                     343.0 * np.exp(9.81 / (1004.0 * 213.0) * (zs - 12000.0)))
+    qv = np.where(zs <= 1200.0, 13.0, 13.0 * np.exp(-(zs - 1200.0) / 2200.0))
+    qv = np.where(zs > 9000.0, 0.02, qv)
+    snd = os.path.join(tmp, "slz_sounding.txt")
+    with open(snd, "w") as f:
+        f.write(f"1000.0 {theta[0]} {qv[0]}\n")
+        for z, th, q in zip(zs[1:], theta[1:], qv[1:]):
+            f.write(f"{z} {th} {q}\n")
+    pts = tx.create_grid(gp, torch.float64, device="cpu").gridpoints()
+    cols = {}
+    if thermal:
+        phi, lam, z = pts[:, 0], pts[:, 1], pts[:, 2]
+        rad = np.sqrt(((phi - np.pi / 6) / 0.5) ** 2 + ((lam - np.pi) / 0.5) ** 2
+                      + ((z - 1500.0) / 1500.0) ** 2)
+        cols["s"] = 10.0 * np.maximum(0.0, np.cos(np.pi * np.minimum(rad, 1.0) / 2.0)) ** 2
+    name = f"slz_{'thermal' if thermal else 'rest'}"
+    ics = os.path.join(tmp, f"{name}_ics.csv")
+    write_ics(sio, ics, ("lat", "lon", "z"), pts, cols)
+    return tx.ModelParameters(
+        ts=0.25, integration_time=n_steps * 0.25, output_interval=n_steps * 0.25,
+        equation_set="MoistEulerSLZ", initial_conditions=ics,
+        output_dir=os.path.join(tmp, f"{name}_out"), ref_state_file=snd, grid_params=gp,
+        physical_params={"K": 100.0},
+        options={"semiimplicit": True, "sedimentation": "active"},
+    )
+
+
+def shower(tx, sh, base, n_steps, profile=None):
+    """The convective shower of scythe_tpu_torch/examples/
+    convective_shower_xyz.py at its own width (48 cells x 16 x 32, ts
+    0.25 s), its sounding and ICs written under ``base``, cut to ``n_steps``
+    steps (outputs every sixth of them, as the example); ``profile`` puts an
+    options profile over the example's options."""
+    return sh.shower_model(base, profile=profile, t_end=n_steps * 0.25)
 
 
 def flagship_workflow(tx, cb, base, dtype, device, twoway_steps=400):
@@ -393,58 +536,66 @@ def rel_errs(got, ref):
     return max(e / float(r.abs().max()) for e, r in zip(errs, ref)), max(errs)
 
 
-def phase_column_solve(torch, tti, cs, pxi):
-    """Phase 3; returns ({"kernel" | "library": max_abs_err at 9216 x 48 f32,
-    AB3 stage}, {label: (ms, plain_ms, library_ms, bound_ms, bound_by)})
-    with device times."""
+def check_stage(torch, cs, o64, o32, x, w, stage, pxi):
+    """One stage of the column solve on the card against its plain chain:
+    the stage's operator as the main path applies it, twice in each dtype,
+    and the TPU function's counterpart composed per call; returns the
+    relative errors (and the f32 kernel's and library's largest absolute
+    error)."""
+    ts = o64.ts
+    ts_term = 0.5 * ts if stage == "t1" else 1.25 * ts
+    ops64 = (o64.col_filter, o64.col_deriv,
+             o64.hinv_t1 if stage == "t1" else o64.hinv, o64.synth, o64.dsynth)
+    ops32 = (o32.col_filter, o32.col_deriv,
+             o32.hinv_t1 if stage == "t1" else o32.hinv, o32.synth, o32.dsynth)
+    s64 = o64.solve_t1 if stage == "t1" else o64.solve
+    s32 = o32.solve_t1 if stage == "t1" else o32.solve
+    x32, w32 = x.float(), w.float()
+    ref = cs.fused_column_solve_plain(x, w, *ops64, ts_term, pxi)
+    plain32 = cs.fused_column_solve_plain(x32, w32, *ops32, ts_term, pxi)
+    library32 = cs.apply_column_operator_plain(x32, w32, s32.M)
+    k64, k64b = (cs.apply_column_operator(x, w, s64) for _ in range(2))
+    k32, k32b = (cs.apply_column_operator(x32, w32, s32) for _ in range(2))
+    c64 = cs.fused_column_solve(x, w, *ops64, ts_term, pxi)
+    c32 = cs.fused_column_solve(x32, w32, *ops32, ts_term, pxi)
+    torch.cuda.synchronize()
+    where = (tuple(x.shape), stage, "profile" if np.ndim(pxi) else "scalar Pxi")
+    for a, b in zip(k64 + k32, k64b + k32b):
+        assert torch.isfinite(a).all() and torch.equal(a, b), (where, "not repeatable")
+    r64, _ = rel_errs(k64, ref)
+    r32, e32 = rel_errs(k32, ref)
+    rp, _ = rel_errs(plain32, ref)
+    rl, el = rel_errs(library32, ref)
+    rc64, _ = rel_errs(c64, ref)
+    rc32, _ = rel_errs(c32, ref)
+    assert r64 <= 1e-12 and rc64 <= 1e-12, (where, "f64", r64, rc64)
+    assert r32 <= 1e-5 and r32 <= 4.0 * rp, (where, "f32", r32, "plain f32", rp)
+    assert rc32 <= 1e-5 and rc32 <= 4.0 * rp, (where, "counterpart f32", rc32, rp)
+    return {"f64": r64, "f32": r32, "f32 / plain f32": r32 / rp,
+            "library f32 / plain f32": rl / rp, "f32 / library f32": r32 / rl,
+            "counterpart f64": rc64, "counterpart f32": rc32}, e32, el
+
+
+def phase_column_solve(torch, tti, cs, columns):
+    """Phase 3; ``columns`` maps "moist3d" and "shower" to (zmax, ts, Pxi_bar,
+    Pxi_prof) of their reference states.  Returns ({"kernel" | "library":
+    max_abs_err at 9216 x 48 f32, AB3 stage}, {label: (ms, plain_ms,
+    library_ms, bound_ms, bound_by)}) with device times."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    ts = 0.15
-    worst = {"f64": 0.0, "f32": 0.0, "f32 / plain f32": 0.0, "library f32 / plain f32": 0.0,
-             "f32 / library f32": 0.0, "counterpart f64": 0.0, "counterpart f32": 0.0}
+    zmax, ts, pxi, _ = columns["moist3d"]
+    worst = {}
     main_err, plans = None, []
     for nz in CS_NZ:
-        o64 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float64, "cuda")
-        o32 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float32, "cuda")
+        o64 = tti.build_semiimplicit_ops(nz, 0.0, zmax, None, pxi, ts, torch.float64, "cuda")
+        o32 = tti.build_semiimplicit_ops(nz, 0.0, zmax, None, pxi, ts, torch.float32, "cuda")
         for ncols in CS_NCOLS:
             x = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
             w = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
-            x32, w32 = x.float(), w.float()
             for stage in ("t1", "ab"):
-                ts_term = 0.5 * ts if stage == "t1" else 1.25 * ts
-                ops64 = (o64.col_filter, o64.col_deriv,
-                         o64.hinv_t1 if stage == "t1" else o64.hinv, o64.synth, o64.dsynth)
-                ops32 = (o32.col_filter, o32.col_deriv,
-                         o32.hinv_t1 if stage == "t1" else o32.hinv, o32.synth, o32.dsynth)
-                s64 = o64.solve_t1 if stage == "t1" else o64.solve
-                s32 = o32.solve_t1 if stage == "t1" else o32.solve
-                ref = cs.fused_column_solve_plain(x, w, *ops64, ts_term, pxi)
-                plain32 = cs.fused_column_solve_plain(x32, w32, *ops32, ts_term, pxi)
-                library32 = cs.apply_column_operator_plain(x32, w32, s32.M)
-                # the main path's call (the stage's operator, built once), twice
-                k64, k64b = (cs.apply_column_operator(x, w, s64) for _ in range(2))
-                k32, k32b = (cs.apply_column_operator(x32, w32, s32) for _ in range(2))
-                # the TPU function's counterpart (composes and packs, then launches)
-                c64 = cs.fused_column_solve(x, w, *ops64, ts_term, pxi)
-                c32 = cs.fused_column_solve(x32, w32, *ops32, ts_term, pxi)
-                torch.cuda.synchronize()
-                where = (nz, ncols, stage)
-                for a, b in zip(k64 + k32, k64b + k32b):
-                    assert torch.isfinite(a).all() and torch.equal(a, b), (where, "not repeatable")
-                r64, _ = rel_errs(k64, ref)
-                r32, e32 = rel_errs(k32, ref)
-                rp, _ = rel_errs(plain32, ref)
-                rl, el = rel_errs(library32, ref)
-                rc64, _ = rel_errs(c64, ref)
-                rc32, _ = rel_errs(c32, ref)
-                assert r64 <= 1e-12 and rc64 <= 1e-12, (where, "f64", r64, rc64)
-                assert r32 <= 1e-5 and r32 <= 4.0 * rp, (where, "f32", r32, "plain f32", rp)
-                assert rc32 <= 1e-5 and rc32 <= 4.0 * rp, (where, "counterpart f32", rc32, rp)
-                for key, v in (("f64", r64), ("f32", r32), ("f32 / plain f32", r32 / rp),
-                               ("library f32 / plain f32", rl / rp),
-                               ("f32 / library f32", r32 / rl),
-                               ("counterpart f64", rc64), ("counterpart f32", rc32)):
-                    worst[key] = max(worst[key], v)
+                errs, e32, el = check_stage(torch, cs, o64, o32, x, w, stage, pxi)
+                for key, v in errs.items():
+                    worst[key] = max(worst.get(key, 0.0), v)
                 if (ncols, nz, stage) == (9216, 48, "ab"):
                     main_err = {"kernel": e32, "library": el}
             q32, q64 = cs.plan(ncols, nz, torch.float32), cs.plan(ncols, nz, torch.float64)
@@ -461,30 +612,53 @@ def phase_column_solve(torch, tti, cs, pxi):
         f"each dtype; the counterpart fused_column_solve (composed per call) f64 "
         f"{worst['counterpart f64']:.3e}, f32 {worst['counterpart f32']:.3e} (same tolerances)")
 
+    # the variable-coefficient operator (a per-level Pxi) and the shower's shape
+    t0 = time.perf_counter()
+    worst, lines = {}, []
+    for label, ncols, nz, src, profile in CS_MORE:
+        zmax_, ts_, bar, prof = columns[src]
+        p = prof if profile else bar
+        o64 = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, p, ts_, torch.float64, "cuda")
+        o32 = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, p, ts_, torch.float32, "cuda")
+        x = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        w = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        for stage in ("t1", "ab"):
+            errs, _, _ = check_stage(torch, cs, o64, o32, x, w, stage, p)
+            for key, v in errs.items():
+                worst[key] = max(worst.get(key, 0.0), v)
+            lines.append(f"{label} {stage}: f64 {errs['f64']:.2e}, f32 {errs['f32']:.2e} "
+                         f"({errs['f32 / plain f32']:.2f}x the plain f32 chain's)")
+    say("column-solve-profile-and-shower-vs-plain", t0,
+        "the Pxi_prof operator of the moist3d sounding at 9216 x 48 and the shower's "
+        "scalar and profile operators at 2304 x 32, both stages, the same tolerances: "
+        + "; ".join(lines))
+
     t0 = time.perf_counter()
     times = {}
-    for label, ncols, nz, dtype in (("9216x48 f32", 9216, 48, torch.float32),
-                                    ("1200x24 f32", 1200, 24, torch.float32),
-                                    ("9216x48 f64", 9216, 48, torch.float64)):
-        o = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, dtype, "cuda")
-        o64 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float64, "cuda")
+    for label, ncols, nz, src, profile, dname in CS_TIMED:
+        dtype = getattr(torch, dname)
+        zmax_, ts_, bar, prof = columns[src]
+        p = prof if profile else bar
+        o = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, p, ts_, dtype, "cuda")
+        o64 = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, p, ts_, torch.float64, "cuda")
         ops = (o.col_filter, o.col_deriv, o.hinv, o.synth, o.dsynth)
         x64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
         w64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
         x, w = x64.to(dtype), w64.to(dtype)
         xw = torch.cat([x, w], dim=1).contiguous()
         m_t = o.solve.M.T
-        plain = lambda: cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts, pxi)  # noqa: E731
+        p_dev = torch.as_tensor(p, dtype=dtype, device="cuda") if profile else p
+        plain = lambda: cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts_, p_dev)  # noqa: E731
         kernel = lambda: cs.apply_column_operator(x, w, o.solve)  # noqa: E731
         library = lambda: torch.matmul(xw, m_t)  # noqa: E731
         ref = cs.fused_column_solve_plain(x64, w64, o64.col_filter, o64.col_deriv, o64.hinv,
-                                          o64.synth, o64.dsynth, 1.25 * ts, pxi)
+                                          o64.synth, o64.dsynth, 1.25 * ts_, p)
         lib_out = library()
         err = {"kernel": rel_errs(kernel(), ref)[0], "plain": rel_errs(plain(), ref)[0],
                "library": rel_errs((lib_out[:, :nz], lib_out[:, nz:]), ref)[0]}
         kt, pt, lt = in_turns(plain, kernel, 200, timer=queued_time_ms, library=library)
         kb, pb, lb = in_turns(plain, kernel, 200, library=library)
-        bound, by = column_solve_bound(ncols, nz, str(dtype).removeprefix("torch."))
+        bound, by = column_solve_bound(ncols, nz, dname)
         times[label] = (min(kt), min(pt), min(lt), bound, by)
         print(f"  column solve {label}: device time kernel {kt} ms, plain {pt} ms, library "
               f"{lt} ms; back to back kernel {kb} ms, plain {pb} ms, library {lb} ms; bound "
@@ -498,19 +672,37 @@ def phase_column_solve(torch, tti, cs, pxi):
     return main_err, times
 
 
-def analysis_grid(tx, torch, nv, cells, ldim, nz, dtype):
-    gp = tx.GridParameters(
+def analysis_params(tx, name):
+    """The grid of an analysis shape: RLZ, or for the XYZ shower and the SLZ
+    shapes their own geometry (the shower's periodic box, the SLZ test's and
+    JW06's shells), so the kernel runs on their own masks and operators."""
+    nv, cells, ldim, nz = ANALYSIS_SHAPES[name]
+    names = {n: i + 1 for i, n in enumerate("abcdefghi"[:nv])}
+    geometry = ANALYSIS_GEOMETRY.get(name, "RLZ")
+    if geometry == "XYZ":
+        return tx.GridParameters(
+            geometry="XYZ", xmin=-3.0e4, xmax=3.0e4, num_cells=cells, lDim=ldim, ymin=0.0,
+            ymax=2.0e4, zmin=0.0, zmax=1.5e4, zDim=nz, BCL=tx.BC.PERIODIC,
+            BCR=tx.BC.PERIODIC, BCB=tx.ZBC.R1T1, BCT=tx.ZBC.R1T1, vars=names)
+    if geometry == "SLZ":
+        return tx.GridParameters(
+            geometry="SLZ", xmin=-np.pi / 2, xmax=np.pi / 2, num_cells=cells, lDim=ldim,
+            sphere_radius=6.37122e6, zmin=0.0, zmax=3.0e4 if name == "jw06" else 1.5e4,
+            zDim=nz, BCB=tx.ZBC.R1T0, BCT=tx.ZBC.R1T0, vars=names)
+    return tx.GridParameters(
         geometry="RLZ", xmin=0.0, xmax=3.0e5, num_cells=cells, lDim=ldim,
-        zmin=0.0, zmax=1.0e4, zDim=nz,
-        vars={n: i + 1 for i, n in enumerate("abcdefghi"[:nv])},
-    )
-    g = tx.create_grid(gp, dtype, device="cuda")
+        zmin=0.0, zmax=1.0e4, zDim=nz, vars=names)
+
+
+def analysis_grid(tx, torch, name, dtype):
+    g = tx.create_grid(analysis_params(tx, name), dtype, device="cuda")
     return g, (g.l_analysis, g.ring_mask, g.analysis_r, g.analysis_z)
 
 
 # (nvars, cells, lDim, nz): moist3d, the TC grid, the RLZ transform bench,
 # tests/test_pallas_transforms.py's two, a large nl (l streamed) and a
-# ragged one (every tile ragged; nz 13 rows are not 16-byte units)
+# ragged one (every tile ragged; nz 13 rows are not 16-byte units); the XYZ
+# shower, the SLZ test grid and the JW06 grid, each on its own geometry
 ANALYSIS_SHAPES = {
     "moist3d": (9, 48, 64, 48),
     "tc": (9, 100, 4, 24),
@@ -519,7 +711,11 @@ ANALYSIS_SHAPES = {
     "pallas_test_b": (2, 12, 32, 16),
     "large_nl": (2, 8, 1024, 16),
     "ragged": (3, 7, 12, 13),
+    "shower": (9, 48, 16, 32),
+    "slz_test": (9, 12, 32, 24),
+    "jw06": (9, 24, 96, 24),
 }
+ANALYSIS_GEOMETRY = {"shower": "XYZ", "slz_test": "SLZ", "jw06": "SLZ"}
 
 
 def phase_analysis(tx, torch, ra):
@@ -530,8 +726,8 @@ def phase_analysis(tx, torch, ra):
     rng = np.random.default_rng(1)
     lines, tc_err = [], None
     for name, (nv, cells, ldim, nz) in ANALYSIS_SHAPES.items():
-        g64, ops64 = analysis_grid(tx, torch, nv, cells, ldim, nz, torch.float64)
-        _, ops32 = analysis_grid(tx, torch, nv, cells, ldim, nz, torch.float32)
+        g64, ops64 = analysis_grid(tx, torch, name, torch.float64)
+        _, ops32 = analysis_grid(tx, torch, name, torch.float32)
         x = torch.from_numpy(rng.normal(size=(nv,) + g64.spatial_shape)).cuda()
         ref = ra.rlz_analysis_plain(x, *ops64)
         plain32 = ra.rlz_analysis_plain(x.float(), *ops32)
@@ -551,8 +747,9 @@ def phase_analysis(tx, torch, ra):
             tc_err = e32
         p64 = ra.plan(x.shape, g64.params.b_rDim, torch.float64)
         p32 = ra.plan(x.shape, g64.params.b_rDim, torch.float32)
-        lines.append(f"{name} {list(x.shape)}->b_rDim {g64.params.b_rDim}: rel err f64 "
-                     f"{e64 / scale:.2e}, f32 {e32 / scale:.2e} (plain f32 {ep / scale:.2e}); "
+        lines.append(f"{name} {g64.geometry} {list(x.shape)}->b_rDim {g64.params.b_rDim}: "
+                     f"rel err f64 {e64 / scale:.2e}, f32 {e32 / scale:.2e} (plain f32 "
+                     f"{ep / scale:.2e}); "
                      f"f32 {p32} {p32.ctas} blocks; f64 {p64} {p64.ctas} blocks")
     say("analysis-vs-plain", t0,
         "tol f64 1e-12, f32 vs f64 1e-5 of max|ref| and <= 4x the plain f32 chain's "
@@ -561,9 +758,11 @@ def phase_analysis(tx, torch, ra):
     t0 = time.perf_counter()
     times = {}
     for name, dtype in (("moist3d", torch.float32), ("transform", torch.float32),
-                        ("tc", torch.float32), ("moist3d_f64", torch.float64)):
-        nv, cells, ldim, nz = ANALYSIS_SHAPES[name.removesuffix("_f64")]
-        g, ops = analysis_grid(tx, torch, nv, cells, ldim, nz, dtype)
+                        ("tc", torch.float32), ("moist3d_f64", torch.float64),
+                        ("shower", torch.float32), ("slz_test", torch.float32),
+                        ("jw06", torch.float32)):
+        g, ops = analysis_grid(tx, torch, name.removesuffix("_f64"), dtype)
+        nv = ANALYSIS_SHAPES[name.removesuffix("_f64")][0]
         x = torch.from_numpy(rng.normal(size=(nv,) + g.spatial_shape)).to("cuda", dtype)
         plain = lambda: ra.rlz_analysis_plain(x, *ops)  # noqa: E731
         kernel = lambda: ra.rlz_analysis(x, *ops)  # noqa: E731
@@ -681,6 +880,8 @@ def main():
     from scythe_tpu_torch import model as tmodel
     from scythe_tpu_torch import timeintegration as tti
     from scythe_tpu_torch.examples import cha_bell_initialization as cb
+    from scythe_tpu_torch.examples import convective_shower_xyz as sh
+    from scythe_tpu_torch.examples import williamson_sphere as wm
     from scythe_tpu_torch.examples.tc_intensification_rlz import tc_mature_model
     from scythe_tpu_torch.ops import _build
     from scythe_tpu_torch.ops import column_solve as cs
@@ -716,11 +917,15 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         model = moist3d(tx, tmp, n_steps=120, out_every=60)
-        ref = tmodel.build_context(
-            model, tx.create_grid(model.grid_params, torch.float64, device="cpu"),
-            torch.float64,
-        ).ref_state
-        cs_err, cs_times = phase_column_solve(torch, tti, cs, float(ref.Pxi_bar))
+        columns = {}
+        for name, m in (("moist3d", model),
+                        ("shower", shower(tx, sh, os.path.join(tmp, "shower"), 240))):
+            rs = tmodel.build_context(
+                m, tx.create_grid(m.grid_params, torch.float64, device="cpu"), torch.float64,
+            ).ref_state
+            columns[name] = (m.grid_params.zmax, m.ts, float(rs.Pxi_bar),
+                             rs.Pxi_prof.numpy().astype(np.float64))
+        cs_err, cs_times = phase_column_solve(torch, tti, cs, columns)
         ra_err, ra_times = phase_analysis(tx, torch, ra)
         ep_err, ep_ms, ep_plain_ms, ep_launches = phase_probe(torch, ep)
 
@@ -950,11 +1155,116 @@ def main():
             f"cuda: column-solve launches {hrbl_launches[0]}, analysis launches "
             f"{hrbl_launches[1]}; vs cpu f64 rel err per field (tol 1e-9) "
             f"{fmt_rel(rel_hrbl, FLAGSHIP_VARS)}; ub.min {float(p_gpu[3].min()):.4f} m/s")
+
+        # ---- phases 14-15: the convective shower at full width, with the
+        # example's options and under moist_production; the counts reset
+        # just before each run
+        shower_runs = {}
+        for label, profile in (("shower", None), ("shower_production", "moist_production")):
+            t0 = time.perf_counter()
+            sm = shower(tx, sh, os.path.join(tmp, label), 240, profile)
+            cs.launches = ra.launches = 0
+            grid, phys = tx.integrate_model(sm, dtype=torch.float32, device="cuda")
+            launches = (cs.launches, ra.launches)
+            assert launches == (sm.num_ts, sm.num_ts + 1) == (240, 241), launches
+            assert phys.shape == (9, 144, 16, 32) and np.isfinite(phys).all()
+            r = sh.readings(phys)
+            band_w, band_qc = SHOWER_BANDS[label]
+            assert band_w[0] < r["w_max"] < band_w[1], (label, r)
+            assert band_qc[0] < r["qc_max"] < band_qc[1], (label, r)
+            outs = sorted(f for f in os.listdir(sm.output_dir) if f.startswith("physical_out_"))
+            assert len(outs) == 7, outs
+            say(f"{label}-path", t0,
+                f"integrate_model convective shower (MoistEulerXYZ, {list(phys.shape)}) f32 "
+                f"on cuda, 240 steps (60 s), options {json.dumps(sm.opts(), default=str)}: "
+                f"column-solve launches {launches[0]}, analysis launches {launches[1]}; all "
+                f"fields finite; {json.dumps(r)} (w.max band {band_w}, q_c max band "
+                f"{band_qc}); {len(outs)} outputs")
+            t0 = time.perf_counter()
+            ms_step, host_sps, state, step = time_steps(torch, tmodel, sm, 100)
+            busy, wall, nk, solve, gemm = profile_steps(
+                torch, state, step, card, label, os.path.join(out_dir, f"{label}_profile.txt"))
+            shower_runs[label] = {"launches": launches, "steps_per_s": 1000.0 / ms_step,
+                                  "busy_us": busy, "launches_per_step": nk}
+            say(f"{label}-steps-per-second", t0,
+                f"100 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
+                f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}; "
+                f"profile of 10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step "
+                f"wall, {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step, "
+                f"matrix products {gemm:.1f} us/step; table in chiprun_out/{label}_profile.txt")
+            del state, step, grid
+
+        # ---- phase 16: parity of the new geometries on the card
+        t0 = time.perf_counter()
+        xm = xyz_test_model(tx, tmp, 20)
+        _, p_gpu = tx.integrate_model(xm, dtype=torch.float64, device="cuda",
+                                      write_outputs=False)
+        _, p_cpu = tx.integrate_model(xm, dtype=torch.float64, device="cpu",
+                                      write_outputs=False)
+        rel_xyz = per_field_rel(p_gpu, p_cpu)
+        assert max(rel_xyz) <= 1e-9, rel_xyz
+        s20 = shower(tx, sh, os.path.join(tmp, "shower_20"), 20)
+        _, p32 = tx.integrate_model(s20, dtype=torch.float32, device="cuda",
+                                    write_outputs=False)
+        _, p64 = tx.integrate_model(s20, dtype=torch.float64, device="cuda",
+                                    write_outputs=False)
+        rel_sh = per_field_rel(p32, p64)
+        sh_checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
+        assert all(rel_sh[v] <= 1e-4 for v in sh_checked), rel_sh
+        zm = slz_test_model(tx, tmp, 20, thermal=True)
+        _, p_gpu = tx.integrate_model(zm, dtype=torch.float64, device="cuda",
+                                      write_outputs=False)
+        _, p_cpu = tx.integrate_model(zm, dtype=torch.float64, device="cpu",
+                                      write_outputs=False)
+        rel_slz = per_field_rel(p_gpu, p_cpu)
+        assert max(rel_slz) <= 1e-9, rel_slz
+        say("xyz-slz-parity", t0,
+            f"rel err per field: XYZ (tests/test_xyz.py's 12-cell grid) 20 f64 steps cuda vs "
+            f"cpu {fmt_rel(rel_xyz)} (tol 1e-9); the shower 20 steps cuda f32 vs f64 "
+            f"{fmt_rel(rel_sh)} (tol 1e-4, on "
+            f"{[MOIST3D_VARS[v] for v in sh_checked]}); SLZ (tests/test_slz.py's grid) 20 "
+            f"f64 steps cuda vs cpu {fmt_rel(rel_slz)} (tol 1e-9)")
+
+        # ---- phase 17: the SLZ global balance, the counts reset just before
+        t0 = time.perf_counter()
+        zb = slz_test_model(tx, tmp, 200, thermal=False)
+        cs.launches = ra.launches = 0
+        _, p_gpu = tx.integrate_model(zb, dtype=torch.float64, device="cuda",
+                                      write_outputs=False)
+        slz_launches = (cs.launches, ra.launches)
+        assert slz_launches == (200, 201), slz_launches
+        w_abs, u_abs = float(np.abs(p_gpu[5]).max()), float(np.abs(p_gpu[3]).max())
+        assert np.isfinite(p_gpu).all() and w_abs < 1e-10 and u_abs < 1e-10, (w_abs, u_abs)
+        say("slz-balance", t0,
+            f"MoistEulerSLZ {list(p_gpu.shape)} from zero perturbation, 200 f64 steps on "
+            f"cuda: column-solve launches {slz_launches[0]}, analysis launches "
+            f"{slz_launches[1]}; max|w| {w_abs:.3e}, max|u| {u_abs:.3e} (tol 1e-10)")
+
+        # ---- phase 18: Williamson case 2 on the SL sphere, one day; an RL
+        # structure, so no hand-written kernel lies on it and the counts say so
+        t0 = time.perf_counter()
+        w2 = wm.williamson2_model(os.path.join(tmp, "williamson2"))
+        cs.launches = ra.launches = 0
+        grid, phys = tx.integrate_model(w2, dtype=torch.float64, device="cuda")
+        sl_launches = (cs.launches, ra.launches)
+        assert sl_launches == (0, 0), sl_launches
+        h2, u2, _ = wm.w2_fields(grid.gridpoints()[:, 0].reshape(grid.spatial_shape))
+        l2 = float(np.sqrt(np.mean((phys[0] - h2) ** 2)) / np.sqrt(np.mean(h2**2)))
+        v_abs = float(np.abs(phys[2]).max())
+        assert np.isfinite(phys).all() and l2 < 5.0e-4 and v_abs < 0.05, (l2, v_abs)
+        outs = sorted(f for f in os.listdir(w2.output_dir) if f.startswith("physical_out_"))
+        assert len(outs) == 3, outs
+        say("williamson2-path", t0,
+            f"ShallowWaterSphere {list(phys.shape)} (models/williamson2_sphere.py's "
+            f"configuration) f64 on cuda, {w2.num_ts} steps (one day): hand-written kernel "
+            f"launches {sl_launches} (none lies on this path); l2(h) against the analytic "
+            f"state {l2:.3e} (tol 5e-4), max|v| {v_abs:.4f} m/s (tol 0.05); outputs {outs}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     print(f"  TC mature path: {tc_sps:.2f} steps/s; moist3d launches {m3d_launches}; "
-          f"flagship two-way: {fl_sps:.2f} steps/s", flush=True)
+          f"flagship two-way: {fl_sps:.2f} steps/s; shower: "
+          f"{json.dumps(shower_runs)}", flush=True)
     cs_main = cs_times["9216x48 f32"]
     n_probe = int(np.prod(ep.SHAPE))
     # seven slot tensors and rinv read, one output written; 21 FLOP an output
@@ -966,11 +1276,14 @@ def main():
             "route": "cuda",
             "source": "scythe_tpu_torch/ops/csrc/column_solve.cu",
             "replaces": "scythe_tpu/ops/pallas_semiimplicit.py:118",
-            "launches": tc_launches[0],
-            "launches_per_step": tc_launches[0] / tc.num_ts,
+            "launches": shower_runs["shower"]["launches"][0],
+            "launches_per_step": shower_runs["shower"]["launches"][0] / 240,
             "launches_by_path": {"moist3d": m3d_launches[0], "tc_mature": tc_launches[0],
                                  "flagship": fl_launches[0],
-                                 "height_resolved_bl": hrbl_launches[0]},
+                                 "height_resolved_bl": hrbl_launches[0],
+                                 **{k: v["launches"][0] for k, v in shower_runs.items()},
+                                 "slz_balance": slz_launches[0],
+                                 "williamson2": sl_launches[0]},
             "max_abs_err": cs_err["kernel"],
             "library_max_abs_err": cs_err["library"],
             "ms": cs_main[0],
@@ -986,17 +1299,26 @@ def main():
             "f64_plain_ms": cs_times["9216x48 f64"][1],
             "f64_library_ms": cs_times["9216x48 f64"][2],
             "f64_bound_ms": cs_times["9216x48 f64"][3],
+            **{f"{key}_{k}": cs_times[label][i]
+               for key, label in (("profile", "9216x48 f32 profile"),
+                                  ("shower", "2304x32 f32"),
+                                  ("shower_profile", "2304x32 f32 profile"))
+               for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by"))},
         },
         {
             "name": "rlz_analysis",
             "route": "cuda",
             "source": "scythe_tpu_torch/ops/csrc/rlz_analysis.cu",
             "replaces": "scythe_tpu/ops/pallas_transforms.py:105",
-            "launches": tc_launches[1],
-            "launches_per_step": (tc_launches[1] - 1) / tc.num_ts,  # + the initial one
+            "launches": shower_runs["shower"]["launches"][1],
+            "launches_per_step": (shower_runs["shower"]["launches"][1] - 1) / 240,
             "launches_by_path": {"moist3d": m3d_launches[1], "tc_mature": tc_launches[1],
                                  "flagship": fl_launches[1],
-                                 "height_resolved_bl": hrbl_launches[1]},
+                                 "height_resolved_bl": hrbl_launches[1],
+                                 **{k: v["launches"][1] for k, v in shower_runs.items()},
+                                 "slz_balance": slz_launches[1],
+                                 "williamson2": sl_launches[1]},
             "max_abs_err": ra_err,
             "ms": ra_times["moist3d"][0],
             "plain_ms": ra_times["moist3d"][1],
@@ -1013,6 +1335,8 @@ def main():
             "transform_bound_by": ra_times["transform"][3],
             "moist3d_f64_ms": ra_times["moist3d_f64"][0],
             "moist3d_f64_plain_ms": ra_times["moist3d_f64"][1],
+            **{f"{name}_{k}": ra_times[name][i] for name in ("shower", "slz_test", "jw06")
+               for i, k in enumerate(("ms", "plain_ms", "bound_ms", "bound_by"))},
         },
         {
             "name": "probe_expr",

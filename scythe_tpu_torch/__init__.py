@@ -2,13 +2,16 @@
 
 A second package beside the JAX reference ``scythe_tpu``, with the same
 module names.  It imports torch and never jax.  Ported so far: the R, RL,
-RZ and RLZ grids with every equation set they carry (the flagship Cha & Bell
-two-layer shallow-water / slab models among them,
-``examples/cha_bell_initialization.py``), the explicit AB3 and the
-semi-implicit AI2* steppers, and the step options but for a few that raise by
-name (``model.py``).  The vertical column solve and the RLZ analysis are
-hand-written CUDA kernels (``ops/csrc``) built with nvcc at first use on the
-card; the other transforms are matrix products (``torch.einsum``).  The entry
+RZ and RLZ grids, the XYZ box and the SL / SLZ spheres (dense DFT) with all
+21 equation sets (the flagship Cha & Bell two-layer shallow-water / slab
+models among them, ``examples/cha_bell_initialization.py``; the convective
+shower, ``examples/convective_shower_xyz.py``; the Williamson tests,
+``examples/williamson_sphere.py``), the explicit AB3 and the semi-implicit
+AI2* steppers, every step and run-loop option (``model.py``), and CSV,
+NetCDF, spectral and checkpoint I/O.  The vertical column solve and the
+analysis of the RLZ-structured grids are hand-written CUDA kernels
+(``ops/csrc``) built with nvcc at first use on the card; the other
+transforms are matrix products (``torch.einsum``).  The entry
 points run on the card by default (``device="cuda"``) and raise where there
 is none; pass ``device="cpu"`` to run on the CPU, as the tests do.
 """
@@ -28,9 +31,9 @@ __all__ = [
 
 
 def integrate_model(model, dtype=None, write_outputs=True, resume_from=None,
-                    device="cuda"):
+                    profile_dir=None, device="cuda"):
     """Public driver (ref src/Scythe.jl:37-62); see model.integrate_model."""
     from .model import integrate_model as _run
 
     return _run(model, dtype=dtype, write_outputs=write_outputs,
-                resume_from=resume_from, device=device)
+                resume_from=resume_from, profile_dir=profile_dir, device=device)

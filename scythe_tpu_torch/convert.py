@@ -22,8 +22,9 @@ from .physics.reference_state import ReferenceState
 from .timeintegration import ModelState
 
 _STATE_ARRAYS = ("spec", "expdot_nm1", "expdot_nm2", "impdot_nm1", "impdot_nm2")
-# ctx.extras a ported option reads (model._set_boundary_refs builds them)
-_CONTEXT_EXTRAS = ("sponge_ref", "radiation_ref_dr")
+# ctx.extras a ported option reads (model._set_boundary_refs and
+# model._set_topography build them)
+_CONTEXT_EXTRAS = ("sponge_ref", "radiation_ref_dr", "hs_grad", "hs_filtered")
 
 
 def _fields(src, names) -> dict:
@@ -69,9 +70,10 @@ def load_jax_checkpoint(path: str, device: Any = DEFAULT, dtype=None):
 def context_extras_from_numpy(extras, device: Any = DEFAULT, dtype=None) -> dict:
     """The context extras a run carries besides its state, from the JAX
     package's ``ctx.extras`` (a mapping of arrays): ``sponge_ref``, the
-    filtered initial state the sponges relax toward, and
-    ``radiation_ref_dr``, its radial derivative, which the radiation
-    boundary reads.  Merge the
+    filtered initial state the sponges relax toward, ``radiation_ref_dr``,
+    its radial derivative, which the radiation boundary reads, and
+    ``hs_grad`` and ``hs_filtered``, the filtered topography gradient and
+    height (options['topography_file']).  Merge the
     result into the port's ``ctx.extras`` to continue a run begun in the
     JAX package."""
     device = resolve_device(device)

@@ -128,7 +128,7 @@ class EqResult:
 
 def get_equation_set(name: str) -> Callable:
     # import submodules lazily so registration side effects happen
-    from . import shallow_water, tcbl, test_models  # noqa: F401
+    from . import shallow_water, sphere, tcbl, test_models  # noqa: F401
 
     if name not in REGISTRY:
         raise KeyError(

@@ -2,8 +2,8 @@
 
 The counterpart of ``scythe_tpu.equations.test_models``, term for term:
 linear advection on the four grids, the compressible Euler family
-(Euler_test, BF02_test, rainfall_test) in (s, xi, mu) perturbation form and
-``MoistEulerRLZ``.  ``MoistEulerXYZ`` waits for its geometry.
+(Euler_test, BF02_test, rainfall_test) in (s, xi, mu) perturbation form,
+``MoistEulerRLZ`` and ``MoistEulerXYZ``.
 """
 
 from __future__ import annotations
@@ -531,6 +531,154 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
     imp[8] = qss
     return EqResult(
         expdot=adv_all + lap_all + stack_tendencies(nvars, sh, dt, extra),
+        impdot=stack_tendencies(nvars, sh, dt, imp),
+        k_v=(
+            torch.broadcast_to(torch.as_tensor(k_v, dtype=dt, device=u.device), sh)
+            if ivd else None
+        ),
+    )
+
+
+@equation_set(geometry="XYZ")
+def MoistEulerXYZ(fields, ctx: EqContext) -> EqResult:
+    """3-D Cartesian-box moist compressible Euler core with warm rain, term
+    for term as ``scythe_tpu.equations.test_models.MoistEulerXYZ``: the
+    perturbation thermodynamics and Ooyama microphysics of rainfall_test in a
+    periodic-y box with an optional f-plane, its terms in rainfall_test's
+    order with the y/v terms inserted, so that a y-invariant state with
+    v = 0 and f = 0 reduces to the RZ set.
+
+    Vars: s xi mu u v w mu_c mu_r qss  (u = dx-wind, v = dy-wind).  The
+    dl/dll slots of an XYZ grid are true d/dy, d2/dy2.
+    """
+    K = ctx.p("K")
+    f_cor = ctx.p("f", 0.0)
+    rs = ctx.ref_state
+    val, dx, dxx, dy, dyy, dz, dzz = (
+        fields["val"],
+        fields["dr"],
+        fields["drr"],
+        fields["dl"],
+        fields["dll"],
+        fields["dz"],
+        fields["dzz"],
+    )
+    s, xi, mu = val[0], val[1], val[2]
+    u, v, w = val[3], val[4], val[5]
+    mu_c, mu_r, qss = val[6], val[7], val[8]
+
+    sbar_z = rs.sbar[None, None, :, 1]
+    xibar_z = rs.xibar[None, None, :, 1]
+    mubar_z = rs.mubar[None, None, :, 1]
+    q_v, rho_d, Tk, p = td.thermodynamic_tuple(
+        s + rs.sbar[None, None, :, 0],
+        xi + rs.xibar[None, None, :, 0],
+        mu + rs.mubar[None, None, :, 0],
+    )
+    mu_total = mu + rs.mubar[None, None, :, 0]
+    q_c = td.ahyp(mu_c)
+    q_r = td.ahyp(mu_r)
+    q_l = q_c + q_r
+    q_t = q_v + q_l
+    rho_t = rho_d * (1.0 + q_t)
+    mu_fac = td.dmudq(mu_total, q_v)
+    qvp_x = dx[2] / mu_fac
+    qvp_y = dy[2] / mu_fac
+    qvp_z = dz[2] / mu_fac
+    rhobar = td.dry_density(rs.xibar[None, None, :, 0]) * (
+        1.0
+        + td.ahyp(rs.mubar[None, None, :, 0])
+        + td.ahyp(rs.mu_lbar[None, None, :, 0])
+    )
+    rho_p = rho_t - rhobar
+    # shared local PGF coefficients; the vertical carries the exact
+    # reference-gradient cross term (EqContext.vertical_pgf)
+    coeffs = td.pressure_gradient_coeffs(Tk, rho_d, q_v)
+    Ps, Pxi, Pqv = coeffs
+    dpdx = Ps * dx[0] + Pxi * dx[1] + Pqv * qvp_x
+    dpdy = Ps * dy[0] + Pxi * dy[1] + Pqv * qvp_y
+    dpdz = ctx.vertical_pgf(coeffs, dz[0], dz[1], qvp_z)
+
+    Cm = (q_l * td.Cl) / (td.Cvd + q_v * td.Cvv + q_l * td.Cl)
+    s_div = Cm * (td.Rd + q_v * td.Rv) * (dx[3] + dy[4] + dz[5])
+    N_c, r_c = 100.0, 10.0
+    cloudtau = ctx.stiff_rate(mp.invtau_condensation(Tk, p, N_c, r_c))
+    raintau = ctx.stiff_rate(mp.rain_evaporation(q_r, rho_d, Tk, p))
+    q_cond = mp.q_condensation(qss, Tk, p, q_v, q_l, N_c, r_c, invtau=cloudtau)
+    q_cond = ctx.cap_condensation(q_cond)
+    s_cond = mp.s_condensation(q_cond, Tk, rho_d, q_v, q_l, p)
+    q_evap = -qss * raintau
+    if ctx.options.get("condensation") == "diagnostic":
+        # phase change moves to the post-step adjustment; rain evaporation
+        # takes the Kessler-style subsaturation form
+        q_cond = torch.zeros_like(Tk)
+        s_cond = torch.zeros_like(Tk)
+        q_evap = raintau * torch.clamp(td.q_sat_liquid(Tk, p) - q_v, min=0.0)
+    qss_cond = (
+        mp.dqsdp(Tk, p, rho_d, q_v, q_l)
+        * ((u * dpdx) + (v * dpdy) + (w * (dpdz - rhobar * td.GRAVITY)))
+        - qss * (cloudtau + raintau)
+    )
+    q_auto = mp.autoconversion(q_c, rho_d)
+    q_coll = mp.collection(q_c, q_r, rho_d, Tk)
+    Vt = ctx.sedimentation(q_r, rho_d, Tk)
+    Vt_flux = ctx.grid.column_flux_derivative(q_r * Vt) / rho_d
+
+    def adv(i, bar_z=None):
+        # rainfall_test's (-u dx) + (-w (dz + bar)) with the y term after x
+        wdz = dz[i] if bar_z is None else (dz[i] + bar_z)
+        return (-u * dx[i]) + (-v * dy[i]) + (-w * wdz)
+
+    # physical_params['K_v']: separate constant vertical diffusivity
+    K_v_const = float(ctx.p("K_v", K))
+    cs = float(ctx.options.get("smagorinsky", 0.0) or 0.0)
+    ivd = bool(ctx.options.get("implicit_vdiff"))
+    smag_h = str(ctx.options.get("smagorinsky_axes", "rlz")) == "rl"
+    K_eff, Kz_eff, k_v = K, K_v_const, (K_v_const if ivd else None)
+    if cs > 0.0:
+        k_t = tb.smagorinsky_viscosity(
+            ctx.grid, ctx.ts, cs,
+            (dx[3], dy[3], dz[3]), (dx[4], dy[4], dz[4]),
+            (dx[5], dy[5], dz[5]), u.dtype,
+            n2=None if smag_h else (td.GRAVITY / td.Cpd) * (dz[0] + sbar_z),
+            split_vertical=ivd and not smag_h,
+            horizontal_only=smag_h,
+        )
+        if smag_h:
+            K_eff = K + k_t
+        elif ivd:
+            K_eff, k_v = K + k_t[0], K_v_const + k_t[1]
+        else:
+            K_eff, Kz_eff = K + k_t, K_v_const + k_t
+
+    def lap(i):
+        # rainfall_test's K (dxx + dzz) with dyy inserted in the middle
+        if ivd:
+            return K_eff * (dxx[i] + dyy[i])
+        if K_v_const == K and not smag_h:
+            return K_eff * (dxx[i] + dyy[i] + dzz[i])
+        return K_eff * (dxx[i] + dyy[i]) + Kz_eff * dzz[i]
+
+    nvars = ctx.grid.nvars
+    sh, dt = u.shape, u.dtype
+    exp, imp = {}, {}
+    exp[0] = adv(0, sbar_z) + s_cond + s_div + lap(0)
+    exp[1] = adv(1, xibar_z) - dx[3] - dy[4] - dz[5]
+    imp[1] = -dz[5]
+    exp[2] = adv(2, mubar_z) + mu_fac * (q_evap - q_cond) + lap(2)
+    imp[2] = q_v
+    exp[3] = adv(3) + f_cor * v - dpdx / rho_t + lap(3)
+    exp[4] = adv(4) - f_cor * u - dpdy / rho_t + lap(4)
+    exp[5] = adv(5) + ((-td.GRAVITY * rho_p) - dpdz) / rho_t + lap(5)
+    imp[5] = -(ctx.pxi_si() * dz[1])
+    exp[6] = adv(6) + ctx.dmudq_source(mu_c, q_c) * (q_cond - q_auto - q_coll) + lap(6)
+    exp[7] = adv(7) + ctx.dmudq_source(mu_r, q_r) * (
+        q_auto + q_coll - q_evap - Vt_flux
+    ) + lap(7)
+    exp[8] = adv(8) + qss_cond
+    imp[8] = qss
+    return EqResult(
+        expdot=stack_tendencies(nvars, sh, dt, exp),
         impdot=stack_tendencies(nvars, sh, dt, imp),
         k_v=(
             torch.broadcast_to(torch.as_tensor(k_v, dtype=dt, device=u.device), sh)

@@ -1,5 +1,6 @@
 """Grid objects: mixed-basis spectral transforms on the reference's four
-geometries (R / RL / RZ / RLZ), in PyTorch.
+geometries (R / RL / RZ / RLZ) and the JAX package's XYZ Cartesian box and
+SL / SLZ spherical shells, in PyTorch.
 
 The counterpart of ``scythe_tpu.grids.base`` in its plain-matmul mode:
 
@@ -11,18 +12,23 @@ The counterpart of ``scythe_tpu.grids.base`` in its plain-matmul mode:
   with ``torch.einsum``: cubic B-splines in r, real-DFT matrices with a
   per-ring wavenumber mask in lambda, Chebyshev (dense DCT matrices) in z.
   These are plain GEMMs; the JAX package also leaves them to the compiler.
-  The RLZ analysis is the exception: on the card it is one hand-written
-  CUDA kernel (``ops/rlz_analysis.py``), as the JAX package reserves its
-  fused Pallas analysis for RLZ.
+  The analysis of the RLZ structural class (RLZ, XYZ, SLZ) is the
+  exception: on the card it is one hand-written CUDA kernel
+  (``ops/rlz_analysis.py``).
+* XYZ and SLZ share the RLZ array ranks and transform composition, SL the
+  RL ones (``_struct``); only coordinates and the periodic axis' mask and
+  scaling differ.  An XYZ grid's dl/dll slots are true d/dy, d2/dy2 (the
+  derivative operators scaled by 2 pi / Ly); an SL/SLZ grid's x is latitude
+  in radians and its ring mask uses the ring radius a cos(lat).
 * ``synthesis`` returns every derivative slot of the reference physical
   layout: value, d/dr, d2/dr2 (+ d/dl, d2/dl2) (+ d/dz, d2/dz2).
 * ``project`` + ``solve_spectral`` factor the analysis into a local
   quadrature and a small solve, as in the JAX package.
 
-All four geometries carry their equation sets end to end (R, RL, RZ through
-the einsum operators alone).  Not ported yet (each raises
-NotImplementedError): the XYZ / SL / SLZ geometries, the factored DFT
-(nl > 2048) and ``matmul="compensated"``.
+Every geometry carries its equation sets end to end (R, RL, RZ and SL
+through the einsum operators alone).  Not ported yet (each raises
+NotImplementedError): the factored DFT (nl > 2048 on any periodic axis) and
+``matmul="compensated"``.
 """
 
 from __future__ import annotations
@@ -38,8 +44,7 @@ from ..config import GridParameters
 from ..device import DEFAULT, resolve_device
 from ..ops import rlz_analysis
 
-GEOMETRIES = ("R", "RL", "RZ", "RLZ")
-_NOT_PORTED = ("XYZ", "SL", "SLZ")
+GEOMETRIES = ("R", "RL", "RZ", "RLZ", "XYZ", "SL", "SLZ")
 # the JAX package switches to its factored DFT above this many points
 _DENSE_NL_MAX = 2048
 
@@ -86,24 +91,31 @@ class Grid:
         return self.params.nvars
 
     @property
+    def _struct(self) -> str:
+        """Structural class: XYZ and SLZ share the RLZ array ranks and paths,
+        SL the RL ones."""
+        g = self.params.geometry
+        return {"XYZ": "RLZ", "SL": "RL", "SLZ": "RLZ"}.get(g, g)
+
+    @property
     def spatial_shape(self) -> tuple[int, ...]:
         p = self.params
-        if self.geometry == "R":
+        if self._struct == "R":
             return (p.rDim,)
-        if self.geometry == "RL":
+        if self._struct == "RL":
             return (p.rDim, self.nl)
-        if self.geometry == "RZ":
+        if self._struct == "RZ":
             return (p.rDim, p.zDim)
         return (p.rDim, self.nl, p.zDim)
 
     @property
     def spectral_shape(self) -> tuple[int, ...]:
         p = self.params
-        if self.geometry == "R":
+        if self._struct == "R":
             return (p.nvars, p.b_rDim)
-        if self.geometry == "RL":
+        if self._struct == "RL":
             return (p.nvars, p.b_rDim, self.kDim)
-        if self.geometry == "RZ":
+        if self._struct == "RZ":
             return (p.nvars, p.b_rDim, p.zDim)
         return (p.nvars, p.b_rDim, self.kDim, p.zDim)
 
@@ -113,33 +125,49 @@ class Grid:
 
     @property
     def field_keys(self) -> tuple[str, ...]:
+        # XYZ reuses the RLZ slot names: dr/drr are d/dx, d2/dx2 and dl/dll
+        # true d/dy, d2/dy2
         return {
             "R": ("val", "dr", "drr"),
             "RZ": ("val", "dr", "drr", "dz", "dzz"),
             "RL": ("val", "dr", "drr", "dl", "dll"),
             "RLZ": ("val", "dr", "drr", "dl", "dll", "dz", "dzz"),
-        }[self.geometry]
+        }[self._struct]
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
+    def _y_points(self) -> np.ndarray:
+        p = self.params
+        return p.ymin + (p.ymax - p.ymin) * np.arange(self.nl) / self.nl
+
     # ------------------------------------------------------------------
     def coords(self) -> dict[str, torch.Tensor]:
-        """Coordinate tensors broadcastable against ``[*spatial]`` fields."""
+        """Coordinate tensors broadcastable against ``[*spatial]`` fields.
+        XYZ grids give "x"/"y"/"z" and SL/SLZ grids "lat"/"lon"(/"z"), each
+        with "r" (and "l") as aliases, so the options of build_step that
+        read the outer boundary work on them unchanged."""
         r = self._tensor(self.r_mish)
+        g = self.geometry
         out: dict[str, torch.Tensor] = {}
-        if self.geometry == "R":
+        if g == "R":
             out["r"] = r
-        elif self.geometry == "RL":
+        elif g in ("RL", "SL"):
             out["r"] = r[:, None]
             out["l"] = self._tensor(fourier.angles(self.nl))[None, :]
-        elif self.geometry == "RZ":
+        elif g == "RZ":
             out["r"] = r[:, None]
             out["z"] = self._tensor(self.z_mish)[None, :]
+        elif g == "XYZ":
+            out["r"] = out["x"] = r[:, None, None]
+            out["y"] = self._tensor(self._y_points())[None, :, None]
+            out["z"] = self._tensor(self.z_mish)[None, None, :]
         else:
             out["r"] = r[:, None, None]
             out["l"] = self._tensor(fourier.angles(self.nl))[None, :, None]
             out["z"] = self._tensor(self.z_mish)[None, None, :]
+        if g in ("SL", "SLZ"):
+            out["lat"], out["lon"] = out["r"], out["l"]
         return out
 
     def gridpoints(self) -> np.ndarray:
@@ -147,14 +175,14 @@ class Grid:
         flattened field order)."""
         if self.geometry == "R":
             return self.r_mish[:, None]
-        if self.geometry == "RL":
+        if self.geometry in ("RL", "SL"):
             lam = fourier.angles(self.nl)
             rr, ll = np.meshgrid(self.r_mish, lam, indexing="ij")
             return np.stack([rr.ravel(), ll.ravel()], axis=1)
         if self.geometry == "RZ":
             rr, zz = np.meshgrid(self.r_mish, self.z_mish, indexing="ij")
             return np.stack([rr.ravel(), zz.ravel()], axis=1)
-        lam = fourier.angles(self.nl)
+        lam = self._y_points() if self.geometry == "XYZ" else fourier.angles(self.nl)
         rr, ll, zz = np.meshgrid(self.r_mish, lam, self.z_mish, indexing="ij")
         return np.stack([rr.ravel(), ll.ravel(), zz.ravel()], axis=1)
 
@@ -172,7 +200,7 @@ class Grid:
         """The lambda transform first (its ring mask depends on r, so it runs
         while r is physical), then the radial contraction, then the vertical
         analysis: the JAX package's order."""
-        g = self.geometry
+        g = self._struct
         if g == "R":
             return self._mm(radial_subs + ",vr->vb", radial_op, phys)
         if g == "RL":
@@ -185,9 +213,14 @@ class Grid:
 
     def analysis(self, phys: torch.Tensor) -> torch.Tensor:
         """physical [nvars, *spatial] -> spectral [nvars, b_rDim, ...].  On
-        RLZ the whole chain is ``ops.rlz_analysis``: the CUDA kernel for
-        tensors on the card, its plain einsum version on the CPU."""
-        if self.geometry == "RLZ":
+        the RLZ structural class (RLZ, XYZ, SLZ) the whole chain is
+        ``ops.rlz_analysis``: the CUDA kernel for tensors on the card, its
+        plain einsum version on the CPU.  The kernel takes the grid's own
+        DFT, ring mask and radial and vertical operators, so XYZ (a uniform
+        2/3-rule mask) and SLZ (the a cos(lat) ring mask) are the same
+        function at other shapes; the JAX package ran its fused TPU analysis
+        on RLZ only, and this reach is a choice of implementation."""
+        if self._struct == "RLZ":
             if phys.device.type == "cuda":
                 # the kernel reads row-major; a field computed from the
                 # synthesis' einsum outputs may carry their permuted strides
@@ -210,7 +243,7 @@ class Grid:
         ``[nvars, *spatial]`` tensors.  The vertical and azimuthal operators
         run on the compact coefficient block first and the radial expansion
         last, as in the JAX package."""
-        g = self.geometry
+        g = self._struct
         out: dict[str, torch.Tensor] = {}
         if g == "R":
             r3 = self._mm("drb,vb->vdr", self.synth_r, spec)
@@ -273,11 +306,6 @@ def create_grid(
     ``matmul``: "plain" or "auto" run every operator in ``dtype``;
     "compensated" (the JAX package's bf16x3 TPU mode) is not ported."""
     p = params
-    if p.geometry in _NOT_PORTED:
-        raise NotImplementedError(
-            f"geometry {p.geometry!r} is not ported to scythe_tpu_torch yet "
-            f"(ported: {GEOMETRIES})"
-        )
     if p.geometry not in GEOMETRIES:
         raise ValueError(f"Unknown geometry {p.geometry!r}")
     if matmul == "compensated":
@@ -322,26 +350,67 @@ def create_grid(
         synth_r_val=prep(ops.synth[0]),
     )
 
-    # --- azimuthal ------------------------------------------------------
-    if p.geometry in ("RL", "RLZ"):
-        nl = fourier.default_nl(p.num_cells, p.lDim)
+    def lon_ops(nl, axis, deriv_scale=1.0):
+        """The dense real-DFT operators of a periodic axis (the JAX package's
+        _dense_lon_ops): ``deriv_scale`` turns d/dlambda into a coordinate
+        derivative (XYZ: 2 pi / Ly, d/dy) in ld and ld2, never in la."""
         if nl > _DENSE_NL_MAX:
             raise NotImplementedError(
-                f"nl = {nl} > {_DENSE_NL_MAX} needs the factored azimuthal "
-                "DFT, which is not ported to scythe_tpu_torch yet"
+                f"{axis}: nl = {nl} > {_DENSE_NL_MAX} needs the factored DFT "
+                "(basis/fourier_factored.py), not ported to scythe_tpu_torch yet "
+                "(ROADMAP item 8c)"
             )
-        dr = (p.xmax - p.xmin) / p.num_cells
         grid.nl = grid.kDim = nl
-        grid.ring_mask = prep(fourier.ring_coeff_mask(ops.mish, dr, nl, p.l_q))
         la, ls, ld, ld2 = fourier.dft_matrices(nl)
+        if deriv_scale != 1.0:
+            ld = ld * deriv_scale
+            ld2 = ld2 * (deriv_scale * deriv_scale)
         grid.l_analysis = prep(la)
         grid.l_synth = prep(ls)
         grid.l_all = prep(np.stack([ls, ld, ld2]))
 
+    # --- periodic Cartesian y (XYZ box) ---------------------------------
+    if p.geometry == "XYZ":
+        if not p.lDim or p.lDim % 2:
+            raise ValueError("XYZ grids need an explicit even lDim (y points)")
+        if p.ymax <= p.ymin:
+            raise ValueError("XYZ grids need ymax > ymin")
+        nl = p.lDim
+        lon_ops(nl, "XYZ y", deriv_scale=2.0 * np.pi / (p.ymax - p.ymin))
+        # the uniform 2/3-rule dealias mask, every "ring" alike
+        row = (fourier.coeff_wavenumbers(nl) <= max(nl // 3, 1)).astype(np.float64)
+        grid.ring_mask = prep(np.tile(row, (p.rDim, 1)))
+
+    # --- spherical longitude (SL / SLZ shells) --------------------------
+    if p.geometry in ("SL", "SLZ"):
+        if not p.lDim or p.lDim % 2:
+            raise ValueError("SL/SLZ grids need an explicit even lDim (lon points)")
+        if not (p.xmax > p.xmin and abs(p.xmin) <= np.pi / 2 + 1e-9
+                and abs(p.xmax) <= np.pi / 2 + 1e-9):
+            raise ValueError(
+                f"SL/SLZ latitude bounds must be RADIANS within [-pi/2, pi/2], "
+                f"got [{p.xmin}, {p.xmax}] (degrees by mistake?)"
+            )
+        nl = p.lDim
+        lon_ops(nl, "SL/SLZ longitude")
+        # the ring radius a cos(lat) plays the part r plays on the polar
+        # grids: each ring keeps the zonal modes its circumference resolves
+        a_sph = p.sphere_radius
+        dphi = (p.xmax - p.xmin) / p.num_cells
+        grid.ring_mask = prep(fourier.ring_coeff_mask(
+            a_sph * np.cos(ops.mish), a_sph * dphi, nl, p.l_q))
+
+    # --- azimuthal ------------------------------------------------------
+    if p.geometry in ("RL", "RLZ"):
+        nl = fourier.default_nl(p.num_cells, p.lDim)
+        lon_ops(nl, "azimuth")
+        dr = (p.xmax - p.xmin) / p.num_cells
+        grid.ring_mask = prep(fourier.ring_coeff_mask(ops.mish, dr, nl, p.l_q))
+
     # --- vertical -------------------------------------------------------
-    if p.geometry in ("RZ", "RLZ"):
+    if p.geometry in ("RZ", "RLZ", "XYZ", "SLZ"):
         if p.zDim < 4:
-            raise ValueError("zDim must be >= 4 for RZ/RLZ grids")
+            raise ValueError("zDim must be >= 4 for RZ/RLZ/XYZ/SLZ grids")
         anz = []
         for v in range(p.nvars):
             zops = chebyshev.build_ops(p.zDim, p.zmin, p.zmax, p.b_zDim, p.BCB[v], p.BCT[v])

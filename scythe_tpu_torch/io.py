@@ -1,11 +1,13 @@
-"""Grid I/O: CSV interchange (reference-compatible schema), the NaN
-watchdog, and binary checkpoints in the JAX package's ``.npz`` layout.
+"""Grid I/O: CSV interchange (reference-compatible schema), CF NetCDF
+output and input, spectral CSV output, the NaN watchdog, and binary
+checkpoints in the JAX package's ``.npz`` layout.
 
 The counterpart of ``scythe_tpu.io``: the same CSV schema (coordinate
 columns then one column per variable, row order = the grid's flattened
 point order), accelerated by the framework-free native extension
-``scythe_native_io`` when it is importable.  NetCDF and spectral output are
-not ported yet.
+``scythe_native_io`` when it is importable, and the same NetCDF files
+(``scipy.io.netcdf_file``, classic format), so a file written by one package
+reads in the other.
 """
 
 from __future__ import annotations
@@ -48,15 +50,17 @@ _COORD_NAMES = {
     "RL": ["r", "l"],
     "RZ": ["r", "z"],
     "RLZ": ["r", "l", "z"],
+    "XYZ": ["x", "y", "z"],
+    "SL": ["lat", "lon"],
+    "SLZ": ["lat", "lon", "z"],
 }
 
 
 def read_physical_grid(path: str, grid) -> np.ndarray:
-    """IC CSV -> [nvars, *spatial] float64 (ref read_physical_grid)."""
+    """IC CSV (or .nc) -> [nvars, *spatial] float64 (ref
+    read_physical_grid)."""
     if path.endswith(".nc"):
-        raise NotImplementedError(
-            "NetCDF initial conditions are not ported to scythe_tpu_torch yet"
-        )
+        return read_physical_grid_nc(path, grid)
     names, data = _read_csv(path)
     p = grid.params
     npts = grid.num_points
@@ -73,11 +77,10 @@ def read_physical_grid(path: str, grid) -> np.ndarray:
 
 
 def write_output(grid, model, t: float, phys: np.ndarray) -> str:
-    """Write ``physical_out_<t>.csv`` (ref write_output, src/io.jl:3-13)."""
+    """Write ``physical_out_<t>.csv`` (ref write_output, src/io.jl:3-13), or
+    CF NetCDF when options['output_format'] == 'nc'."""
     if model.opts().get("output_format") == "nc":
-        raise NotImplementedError(
-            "options['output_format']='nc' is not ported to scythe_tpu_torch yet"
-        )
+        return write_output_nc(grid, model, t, phys)
     os.makedirs(model.output_dir, exist_ok=True)
     time = str(round(float(t), 2))
     path = os.path.join(model.output_dir, f"physical_out_{time}.csv")
@@ -89,6 +92,93 @@ def write_output(grid, model, t: float, phys: np.ndarray) -> str:
     )
     _write_csv(path, names, cols)
     return path
+
+
+def write_spectral(grid, model, t: float, spec) -> str:
+    """Write ``spectral_out_<t>.csv`` (options['write_spectral']): the
+    flattened coefficient index, then one column per variable."""
+    os.makedirs(model.output_dir, exist_ok=True)
+    time = str(round(float(t), 2))
+    path = os.path.join(model.output_dir, f"spectral_out_{time}.csv")
+    arr = spec.detach().cpu().numpy().astype(np.float64).reshape(grid.nvars, -1)
+    idx = np.arange(arr.shape[1], dtype=np.float64).reshape(-1, 1)
+    cols = np.concatenate([idx] + [arr[v].reshape(-1, 1) for v in range(grid.nvars)],
+                          axis=1)
+    _write_csv(path, ["coeff"] + list(grid.params.vars), cols)
+    return path
+
+
+_CF_COORDS = {
+    "r": ("radius", "m"),
+    "l": ("azimuth", "radian"),
+    "z": ("height", "m"),
+    "x": ("x", "m"),
+    "y": ("y", "m"),
+    "lat": ("latitude", "radian"),
+    "lon": ("longitude", "radian"),
+}
+
+
+def _grid_coords(grid) -> dict[str, np.ndarray]:
+    from .basis import fourier
+
+    names = _COORD_NAMES[grid.geometry]
+    out = {names[0]: np.asarray(grid.r_mish, np.float64)}
+    for key in ("l", "lon"):
+        if key in names:
+            out[key] = fourier.angles(grid.nl)
+    if "y" in names:
+        out["y"] = grid._y_points()
+    if "z" in names:
+        out["z"] = np.asarray(grid.z_mish, np.float64)
+    return out
+
+
+def write_output_nc(grid, model, t: float, phys: np.ndarray) -> str:
+    """``physical_out_<t>.nc``: CF-style NetCDF (classic format, scipy), the
+    coordinate variables with their units, one [r(,l)(,z)] variable per
+    model field, and the run's metadata as global attributes."""
+    from scipy.io import netcdf_file
+
+    os.makedirs(model.output_dir, exist_ok=True)
+    time = str(round(float(t), 2))
+    path = os.path.join(model.output_dir, f"physical_out_{time}.nc")
+    dims = _COORD_NAMES[grid.geometry]
+    coords = _grid_coords(grid)
+    with netcdf_file(path, "w") as f:
+        f.title = f"scythe-tpu {model.equation_set} output"
+        f.equation_set = model.equation_set
+        f.geometry = grid.geometry
+        f.time_seconds = float(t)
+        for d in dims:
+            f.createDimension(d, len(coords[d]))
+            cv = f.createVariable(d, "d", (d,))
+            cv[:] = coords[d]
+            cv.long_name, cv.units = _CF_COORDS[d]
+        for v, name in enumerate(grid.params.vars):
+            var = f.createVariable(name, "d", tuple(dims))
+            var[:] = np.asarray(phys[v], np.float64)
+    return path
+
+
+def read_physical_grid_nc(path: str, grid) -> np.ndarray:
+    """The NetCDF counterpart of ``read_physical_grid`` (ICs or restart)."""
+    from scipy.io import netcdf_file
+
+    p = grid.params
+    out = np.zeros((p.nvars,) + grid.spatial_shape)
+    with netcdf_file(path, "r", mmap=False) as f:
+        for v, name in enumerate(p.vars):
+            if name not in f.variables:
+                raise ValueError(f"NetCDF file missing variable {name!r}")
+            data = np.asarray(f.variables[name][:], np.float64)
+            if data.shape != grid.spatial_shape:
+                raise ValueError(
+                    f"{path}:{name} has shape {data.shape}; grid needs "
+                    f"{grid.spatial_shape}"
+                )
+            out[v] = data
+    return out
 
 
 def save_checkpoint(path: str, state, t_sim: float) -> None:

@@ -7,7 +7,8 @@ steps between outputs inside one ``lax.scan``, here they are a Python loop
 of eager steps; the host touches data only at output boundaries (CSV write
 + NaN watchdog), the reference cadence (semiimplicit.jl:288-293).
 
-Ported options: ``semiimplicit`` (constant ``si_mode`` only), ``si_scale``,
+Every option of the JAX package's build_step and run loop is ported:
+``semiimplicit`` (``si_mode`` 'constant' or 'variable'), ``si_scale``,
 the radial and top sponges (``sponge_width``, ``sponge_tau``,
 ``sponge_top_width``, ``sponge_top_tau``, ``sponge_top_vars``), the
 radiation boundary (``radiation_width``, ``radiation_speed``), the modal
@@ -16,9 +17,9 @@ filter (``modal_filter_tau``, ``modal_filter_order``, ``modal_filter_axes``),
 ``vdiff_exclude``), and the equation-set hooks (``reference_quirks``,
 ``exact_vertical_pgf``, ``stiff_relaxation``, ``condensation``,
 ``condensation_rate_cap``, ``condensation_tau``, ``sedimentation``,
-``smagorinsky``, ``smagorinsky_axes``).  Still raising NotImplementedError
-by name: ``topography_file``, ``checkpoint_interval``, ``write_spectral``,
-``output_format='nc'`` and ``si_mode='variable'``.
+``smagorinsky``, ``smagorinsky_axes``), ``topography_file``,
+``checkpoint_interval``, ``write_spectral`` and ``output_format='nc'``.
+``profile_dir`` on ``integrate_model`` writes a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -44,14 +45,6 @@ from .physics import thermodynamics as td
 
 log = logging.getLogger("scythe_tpu_torch")
 
-# options of the JAX build_step / run loop that are not ported yet: each
-# raises when it is switched on (a value that is not falsy)
-_UNPORTED_OPTIONS = (
-    "topography_file",
-    "checkpoint_interval",
-    "write_spectral",
-)
-
 _NEEDS_CONDENSATION = (
     "BF02_test",
     "rainfall_test",
@@ -59,18 +52,6 @@ _NEEDS_CONDENSATION = (
     "MoistEulerXYZ",
     "MoistEulerSLZ",
 )
-
-
-def _reject_unported(opts: dict) -> None:
-    for name in _UNPORTED_OPTIONS:
-        if opts.get(name):
-            raise NotImplementedError(
-                f"options[{name!r}] is not ported to scythe_tpu_torch yet"
-            )
-    if opts.get("output_format") == "nc":
-        raise NotImplementedError(
-            "options['output_format']='nc' is not ported to scythe_tpu_torch yet"
-        )
 
 
 def build_context(model: ModelParameters, grid: Grid, dtype) -> EqContext:
@@ -127,9 +108,10 @@ def build_modal_filter(grid: Grid, tau: float, order: int, ts: float, dtype,
       cannot move the state off its boundary conditions.  A periodic
       variable is filtered in its n-dim periodic coefficient space by the
       circulant operator and lifted as T F pinv(T).
-    * Where the grid's ring mask depends on r (RL, RLZ) the radial factor is
-      applied ring-masked and factored: synthesis pre-composed with F_v,
-      the mask in (ring, k) space, re-analysis.
+    * Where the grid's ring mask depends on r (RL, RLZ, SL, SLZ) the radial
+      factor is applied ring-masked and factored: synthesis pre-composed
+      with F_v, the mask in (ring, k) space, re-analysis.  XYZ's uniform
+      mask commutes with the x mixing, so there F_v applies directly.
     * Fourier axis: exp(-(ts/tau) (|k|/kmax)^order) per wavenumber;
       Chebyshev axis: exp(-(ts/tau) (n/nmax)^order) per mode.
 
@@ -137,7 +119,7 @@ def build_modal_filter(grid: Grid, tau: float, order: int, ts: float, dtype,
     (options['modal_filter_axes']) selects the filtered directions; without
     "r" the radial factor is skipped.  Returns a function spec -> spec."""
     p = grid.params
-    g = grid.geometry
+    g = grid._struct
     a = ts / tau
 
     def prep(o):
@@ -350,7 +332,12 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
             f"{eqset.geometry} grid, got {grid.geometry}"
         )
     opts = ctx.options
-    _reject_unported(opts)
+    if opts.get("topography_file") and "hs_grad" not in ctx.extras:
+        raise ValueError(
+            "options['topography_file'] is set but ctx.extras['hs_grad'] is "
+            "missing: the context was built without _set_topography "
+            "(initialize() calls it)"
+        )
     p = grid.params
     semiimplicit = bool(opts.get("semiimplicit"))
     needs_condensation = model.equation_set in _NEEDS_CONDENSATION
@@ -576,6 +563,7 @@ def initialize(model: ModelParameters, dtype=None, device: Any = DEFAULT):
     phys0 = sio.read_physical_grid(model.initial_conditions, grid)
     spec0 = grid.analysis(torch.as_tensor(phys0, dtype=dtype, device=grid.device))
     _set_boundary_refs(ctx, grid, spec0)
+    _set_topography(ctx, grid)
     state = ti.initial_state(
         spec0,
         (grid.nvars,) + grid.spatial_shape,
@@ -583,6 +571,32 @@ def initialize(model: ModelParameters, dtype=None, device: Any = DEFAULT):
         imp_rows=imp_history_rows(model),
     )
     return grid, ctx, state
+
+
+def _set_topography(ctx, grid):
+    """Bottom topography for the spherical shallow-water set
+    (``scythe_tpu.model._set_topography``): ``options['topography_file']``
+    names a CSV in the IC schema (coordinate columns, then ``hs``) on this
+    grid's points.  Its spectrally filtered gradient [d/dlat, d/dlon] goes
+    into ctx.extras['hs_grad'] and its filtered value into
+    ctx.extras['hs_filtered']."""
+    topo = ctx.options.get("topography_file")
+    if not topo:
+        return
+    names, data = sio._read_csv(topo)
+    if "hs" not in names:
+        raise ValueError(f"topography file {topo} needs an 'hs' column")
+    if data.shape[0] != grid.num_points:
+        raise ValueError(
+            f"topography file {topo} has {data.shape[0]} rows; grid has "
+            f"{grid.num_points} points"
+        )
+    pad = np.zeros((grid.nvars,) + grid.spatial_shape)
+    pad[0] = data[:, names.index("hs")].reshape(grid.spatial_shape)
+    f = grid.synthesis(grid.analysis(
+        torch.as_tensor(pad, dtype=grid.dtype, device=grid.device)))
+    ctx.extras["hs_grad"] = torch.stack([f["dr"][0], f["dl"][0]])
+    ctx.extras["hs_filtered"] = f["val"][0].clone()
 
 
 def _set_boundary_refs(ctx, grid, spec0):
@@ -609,18 +623,22 @@ def integrate_model(
     dtype=None,
     write_outputs=True,
     resume_from: str | None = None,
+    profile_dir: str | None = None,
     device: Any = DEFAULT,
 ):
     """Public driver (ref integrate_model, src/Scythe.jl:37-62).
 
     Runs ``integration_time / ts`` steps on ``device`` (the card unless the
-    caller asks for the CPU; raises without a card), writing CSV output
-    and running the NaN watchdog every ``output_interval`` (plus t=0 and the
-    final time).  ``resume_from`` restarts from a checkpoint in the JAX
-    package's ``.npz`` layout.  Returns (grid, final physical values
-    [nvars, *spatial] as a numpy array)."""
+    caller asks for the CPU; raises without a card), writing CSV (or, with
+    options['output_format']='nc', NetCDF) output and running the NaN
+    watchdog every ``output_interval`` (plus t=0 and the final time).
+    options['checkpoint_interval'] (seconds) writes full-state checkpoints
+    in the JAX package's ``.npz`` layout beside the output, and
+    ``resume_from`` restarts from one bitwise.  ``profile_dir`` wraps the
+    run in a ``torch.profiler`` trace written there.  Returns (grid, final
+    physical values [nvars, *spatial] as a numpy array)."""
     dtype = dtype or torch.get_default_dtype()
-    with logged_run(model):
+    with logged_run(model, profile_dir):
         t_setup = _time.time()
         grid, ctx, state = initialize(model, dtype, device)
         step = build_step(model, grid, ctx, dtype)
@@ -633,11 +651,16 @@ def integrate_model(
 
 class logged_run:
     """Context manager: the ``scythe_out.log`` file handler in the output
-    directory for the duration of a run."""
+    directory for the duration of a run and, with ``profile_dir``, a
+    ``torch.profiler`` trace of it (the host, and the card where there is
+    one), written to ``profile_dir/trace.json`` in the Chrome trace
+    format."""
 
-    def __init__(self, model: ModelParameters):
+    def __init__(self, model: ModelParameters, profile_dir: str | None = None):
         self.model = model
+        self.profile_dir = profile_dir
         self.handler = None
+        self._prof = None
 
     def __enter__(self):
         os.makedirs(self.model.output_dir, exist_ok=True)
@@ -646,9 +669,21 @@ class logged_run:
         )
         log.addHandler(self.handler)
         log.setLevel(logging.INFO)
+        if self.profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
         return self
 
     def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            os.makedirs(self.profile_dir, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
         log.removeHandler(self.handler)
         self.handler.close()
         return False
@@ -666,8 +701,11 @@ def run_loop(
     resume_from=None,
     t_setup=None,
 ):
-    """The output/watchdog time loop (ref run_model + model_loop,
-    src/semiimplicit.jl:219-293)."""
+    """The output/checkpoint/watchdog time loop (ref run_model + model_loop,
+    src/semiimplicit.jl:219-293).  Checkpoints (options['checkpoint_interval'],
+    seconds) are written at output boundaries whose step count is a multiple
+    of it, named ``checkpoint_<t>.npz`` as the JAX package names them, so
+    either package resumes from the other's."""
     t_setup = t_setup or _time.time()
     t_sim0 = 0.0
     if resume_from:
@@ -688,10 +726,15 @@ def run_loop(
     def fetch_phys(st):
         return grid.synthesis(st.spec)["val"].cpu().numpy()
 
+    ckpt_interval = ctx.options.get("checkpoint_interval", 0.0)
+    ckpt_int = int(round(ckpt_interval / model.ts)) if ckpt_interval else 0
+    write_spec = bool(ctx.options.get("write_spectral"))
     phys = fetch_phys(state)
     if write_outputs and not resume_from:
         sio.check_cfl(grid, phys)
         sio.write_output(grid, model, t_sim0, phys)
+        if write_spec:
+            sio.write_spectral(grid, model, t_sim0, state.spec)
     log.info("Setup in %.2fs; starting integration", _time.time() - t_setup)
 
     t_run = _time.time()
@@ -705,12 +748,21 @@ def run_loop(
         sio.check_cfl(grid, phys)
         if write_outputs:
             sio.write_output(grid, model, t_sim, phys)
+            if write_spec:
+                sio.write_spectral(grid, model, t_sim, state.spec)
+        if ckpt_int and steps_done % ckpt_int == 0:
+            path = os.path.join(model.output_dir, f"checkpoint_{round(t_sim, 2)}.npz")
+            sio.save_checkpoint(path, state, t_sim)
+            log.info("checkpoint: %s", path)
         log.info("ts: %s", t_sim)
     wall = _time.time() - t_run
+    gps = grid.num_points * num_ts / wall if wall > 0 else float("inf")
     log.info(
-        "Done: %d steps in %.3fs (%.1f steps/s, wall clock incl. output)",
+        "Done: %d steps in %.3fs (%.1f steps/s, %.3e grid-point-steps/s, "
+        "wall clock incl. output)",
         num_ts,
         wall,
         num_ts / wall if wall > 0 else float("inf"),
+        gps,
     )
     return grid, phys

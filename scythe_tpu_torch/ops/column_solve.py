@@ -182,11 +182,13 @@ def _plan(ncols: int, nz: int, dtype) -> Plan:
 def compose_column_operator(F, Dz, Hinv, S, Ds, ts_term, pxi_bar) -> torch.Tensor:
     """The chain as one [2nz, 2nz] matrix M, ``[w | xi] = [x* | w*] M^T``.
 
-    With tp = ts' Pxi and P the BC shift (P[j, j-1] = 1 for j >= 2, zero
-    elsewhere), HP = Hinv P:
+    With P the BC shift (P[j, j-1] = 1 for j >= 2, zero elsewhere), HP =
+    Hinv P and HD = ts' HP diag(Pxi) Dz (``pxi_bar`` a scalar or an [nz]
+    profile, which scales the rows of Dz, as the JAX einsum path broadcasts
+    it over the output z axis):
 
-        rows of w:  [ S HP tp Dz,          -S HP      ]
-        rows of xi: [ F - ts' Ds HP tp Dz,  ts' Ds HP ]
+        rows of w:  [ S HD,          -S HP      ]
+        rows of xi: [ F - ts' Ds HD,  ts' Ds HP ]
 
     Computed in the operators' dtype (build_semiimplicit_ops passes
     float64) on their device."""
@@ -196,7 +198,8 @@ def compose_column_operator(F, Dz, Hinv, S, Ds, ts_term, pxi_bar) -> torch.Tenso
     P = torch.zeros_like(F)
     P[j, j - 1] = 1.0
     hp = Hinv @ P
-    hd = (ts_term * pxi_bar) * (hp @ Dz)
+    pxi = torch.as_tensor(pxi_bar, dtype=F.dtype, device=F.device).reshape(-1, 1)
+    hd = ts_term * (hp @ (pxi * Dz))
     w_rows = torch.cat([S @ hd, -(S @ hp)], dim=1)
     xi_rows = torch.cat([F - ts_term * (Ds @ hd), ts_term * (Ds @ hp)], dim=1)
     return torch.cat([w_rows, xi_rows], dim=0)
@@ -250,8 +253,11 @@ def column_operator(m64: torch.Tensor, dtype, device) -> ColumnOperator:
 
 
 def fused_column_solve_plain(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
-    """The chain in plain PyTorch ([ncols, nz] @ operator^T per stage)."""
+    """The chain in plain PyTorch ([ncols, nz] @ operator^T per stage);
+    ``pxi_bar`` a scalar or an [nz] profile over the z axis."""
     xf = xstar @ F.T
+    if not isinstance(pxi_bar, float | int):
+        pxi_bar = torch.as_tensor(pxi_bar, dtype=xstar.dtype, device=xstar.device)
     g = (ts_term * pxi_bar) * (xstar @ Dz.T) - wstar
     g = torch.cat([g.new_zeros(g.shape[0], 2), g[:, 1:-1]], dim=1)
     a = g @ Hinv.T
@@ -352,8 +358,9 @@ def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
     """The TPU function's counterpart: apply the chain to [ncols, nz] column
     batches; returns (w_new, xi_new).  Argument order as the TPU kernel's:
     x* (xi*) first.  ``Hinv`` is the inverse of the BC-row-shuffled
-    Helmholtz matrix (timeintegration.helmholtz_matrix); ``ts_term`` and
-    ``pxi_bar`` are scalars.  The plain chain on the CPU; on a CUDA device
+    Helmholtz matrix (timeintegration.helmholtz_matrix); ``ts_term`` is a
+    scalar, ``pxi_bar`` a scalar or an [nz] profile (the TPU kernel takes a
+    scalar only).  The plain chain on the CPU; on a CUDA device
     the operators are composed in float64 and packed (a few small
     launches), then the kernel runs.  The main path composes once per stage
     instead and calls apply_column_operator."""

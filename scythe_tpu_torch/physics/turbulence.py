@@ -18,17 +18,23 @@ def ring_arc_spacing(grid):
     """Per-ring azimuthal arc spacing [rDim] (static numpy, cached on the
     grid as ``smag_dy``): 2 pi max(|r|, dx) / nl, capped at 4 dx (the
     anisotropy cap of the JAX package: on near-axisymmetric runs the ring
-    arc is a coordinate artifact, not a filter scale).  None on grids
-    without an azimuthal axis."""
+    arc is a coordinate artifact, not a filter scale).  On SL/SLZ grids r and
+    dx are latitudes, taken to metres (a cos(lat), a dphi); on XYZ the
+    uniform y spacing, a scalar.  None on grids without an azimuthal axis."""
     cached = getattr(grid, "smag_dy", "unset")
     if not isinstance(cached, str):
         return cached
     p = grid.params
-    if grid.geometry not in ("RL", "RLZ"):
+    if grid._struct not in ("RL", "RLZ"):
         dy = None
+    elif grid.geometry == "XYZ":
+        dy = (p.ymax - p.ymin) / max(grid.nl, 1)
     else:
         dx = (p.xmax - p.xmin) / max(p.rDim, 1)
         r = np.asarray(grid.r_mish, np.float64)
+        if grid.geometry in ("SL", "SLZ"):
+            r = p.sphere_radius * np.cos(r)
+            dx = p.sphere_radius * dx
         dy = 2.0 * np.pi * np.maximum(np.abs(r), dx) / max(grid.nl, 1)
         dy = np.minimum(dy, 4.0 * dx)
     grid.smag_dy = dy
@@ -37,12 +43,15 @@ def ring_arc_spacing(grid):
 
 def length_scales(grid):
     """(dx, dy, dz) physical spacings: dx the mean radial mish spacing
-    (scalar), dy the per-ring arc spacing ([rDim] or None), dz the local
-    Chebyshev spacing ([nz], floored at 1 mm, or None)."""
+    (scalar; metres of latitude on SL/SLZ), dy the per-ring arc spacing
+    ([rDim], a scalar on XYZ, or None), dz the local Chebyshev spacing
+    ([nz], floored at 1 mm, or None)."""
     p = grid.params
     dx = (p.xmax - p.xmin) / max(p.rDim, 1)
+    if grid.geometry in ("SL", "SLZ"):
+        dx = p.sphere_radius * dx
     dy = ring_arc_spacing(grid)
-    if grid.geometry in ("RZ", "RLZ"):
+    if grid._struct in ("RZ", "RLZ"):
         z = np.asarray(grid.z_mish, np.float64)
         dz = np.empty_like(z)
         dz[:-1] = np.abs(np.diff(z))

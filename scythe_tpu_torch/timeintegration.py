@@ -107,7 +107,7 @@ class SemiImplicitOps(NamedTuple):
     col_deriv: torch.Tensor  # [nz, nz] d/dz of the truncated refit
     synth: torch.Tensor  # [nz, nz] coeff -> value
     dsynth: torch.Tensor  # [nz, nz] coeff -> d/dz
-    pxi_bar: float  # scalar Pxi (a host float)
+    pxi_bar: Any  # scalar Pxi (a host float), or an [nz] float64 profile
     ts: float
     # the column chain composed into one operator (column_solve.ColumnOperator)
     # for step 1 (ts_term = ts/2, hinv_t1) and for AB3 (1.25 ts, hinv)
@@ -119,16 +119,19 @@ def build_semiimplicit_ops(
     nz, zmin, zmax, bdim, pxi_bar, ts, dtype, device: Any
 ) -> SemiImplicitOps:
     """Operators built in float64, composed per stage in float64, then cast
-    to ``dtype`` on ``device`` (the grid's: no default).  Only the
-    constant-coefficient mode (scalar Pxi) exists: the kernel, like the TPU
-    kernel, takes one Pxi, so a per-level profile (si_mode='variable')
-    raises NotImplementedError."""
+    to ``dtype`` on ``device`` (the grid's: no default).  ``pxi_bar`` is the
+    reference column's scalar Pxi, or an [nz] per-level profile
+    (options['si_mode']='variable'): the Helmholtz rows and the Pxi Dz term
+    then take the local coefficient.  Either way each stage is one composed
+    operator, so the kernel computes both modes; the JAX package refuses a
+    profile on its Pallas path and takes its einsum chain for it, where the
+    port takes its kernel by design."""
     if np.ndim(pxi_bar) > 0:
-        raise NotImplementedError(
-            "options['si_mode']='variable' (a per-level Pxi profile) is not "
-            "ported to scythe_tpu_torch yet: the column-solve kernel takes a "
-            "scalar Pxi"
-        )
+        pxi_bar = np.asarray(pxi_bar, np.float64)
+        if pxi_bar.shape != (nz,):
+            raise ValueError(f"a Pxi profile must be [{nz}], got {list(pxi_bar.shape)}")
+    else:
+        pxi_bar = float(pxi_bar)
     length = zmax - zmin
     h1 = helmholtz_matrix(nz, length, pxi_bar, 0.5 * ts)
     h = helmholtz_matrix(nz, length, pxi_bar, 1.25 * ts)
@@ -147,13 +150,13 @@ def build_semiimplicit_ops(
     def stage(ts_term, hinv):
         m = column_solve.compose_column_operator(
             f64["col_filter"], f64["col_deriv"], hinv, f64["synth"], f64["dsynth"],
-            ts_term, float(pxi_bar),
+            ts_term, pxi_bar,
         )
         return column_solve.column_operator(m, dtype, device)
 
     return SemiImplicitOps(
         **{k: v.to(dtype=dtype, device=device) for k, v in f64.items()},
-        pxi_bar=float(pxi_bar),
+        pxi_bar=pxi_bar,
         ts=ts,
         solve_t1=stage(0.5 * ts, f64["hinv_t1"]),
         solve=stage(1.25 * ts, f64["hinv"]),

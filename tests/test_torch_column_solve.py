@@ -186,10 +186,58 @@ def test_wrapper_rejects_mixed_dtypes_and_strided_input():
         column_solve.fused_column_solve(xt, xt, op, op, op, op, op, 0.1, 1.0)
 
 
+def _profile(nz):
+    """A per-level Pxi falling with height, as a sounding's Pxi_prof does."""
+    return 9.0e4 * np.exp(-np.linspace(0.0, 1.2, nz))
+
+
 def test_variable_si_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="si_mode"):
-        tti.build_semiimplicit_ops(16, 0.0, 1.0e4, None, np.full(16, 9.0e4), 0.2,
+    """si_mode='variable' builds: a per-level profile is one more composed
+    operator, a constant profile composes the scalar's operator (1e-13), and a
+    profile of the wrong length is refused."""
+    flat = tti.build_semiimplicit_ops(16, 0.0, 1.0e4, None, np.full(16, 9.0e4), 0.2,
+                                      torch.float64, "cpu")
+    scalar = tti.build_semiimplicit_ops(16, 0.0, 1.0e4, None, 9.0e4, 0.2, torch.float64,
+                                        "cpu")
+    for a, b in ((flat.solve, scalar.solve), (flat.solve_t1, scalar.solve_t1)):
+        assert float((a.M - b.M).abs().max()) <= 1e-13 * float(b.M.abs().max())
+    prof = tti.build_semiimplicit_ops(16, 0.0, 1.0e4, None, _profile(16), 0.2,
+                                      torch.float64, "cpu")
+    assert float((prof.solve.M - scalar.solve.M).abs().max()) > 1e-3
+    with pytest.raises(ValueError, match="profile"):
+        tti.build_semiimplicit_ops(16, 0.0, 1.0e4, None, np.full(15, 9.0e4), 0.2,
                                    torch.float64, "cpu")
+
+
+@pytest.mark.parametrize("t", [1, 2, 5])
+@pytest.mark.parametrize("nz", [16, 32, 48])
+def test_adjustment_with_profile_matches_einsum_path(nz, t):
+    """The variable-coefficient corrector through the composed operator
+    against the JAX einsum path, which broadcasts the profile over the
+    output z axis (1e-10 of max|ref|, as the scalar case)."""
+    oj, ot = _ops(nz, 0.2, _profile(nz))
+    rng = np.random.default_rng(nz + 7 * t)
+    args = [rng.normal(size=(29, nz)) for _ in range(8)]
+    wj, xj = jti.semiimplicit_adjustment(oj, *(jnp.asarray(a) for a in args), jnp.asarray(t))
+    wt, xt = tti.semiimplicit_adjustment(ot, *(torch.from_numpy(a) for a in args), t)
+    assert _rel_err(wt, wj) <= 1e-10 and _rel_err(xt, xj) <= 1e-10
+
+
+@pytest.mark.parametrize("stage", ["t1", "ab"])
+@pytest.mark.parametrize("nz", (13, 24, 32, 48))
+def test_composed_operator_with_profile_matches_chain_f64(nz, stage):
+    ot = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, _profile(nz), 0.15,
+                                    torch.float64, "cpu")
+    ops, ts_term = _stage_ops(ot, stage)
+    x, w = _columns(64, nz, nz + 1)
+    ref = column_solve.fused_column_solve_plain(x, w, *ops, ts_term, ot.pxi_bar)
+    m = column_solve.compose_column_operator(*ops, ts_term, ot.pxi_bar)
+    assert torch.equal(m, (ot.solve_t1 if stage == "t1" else ot.solve).M)
+    out = torch.cat([x, w], dim=1) @ m.T
+    assert _max_rel((out[:, :nz], out[:, nz:]), ref) <= 1e-13
+    # the TPU function's counterpart takes the profile too (plain on the CPU)
+    got = column_solve.fused_column_solve(x, w, *ops, ts_term, torch.from_numpy(ot.pxi_bar))
+    assert _max_rel(got, ref) <= 1e-15
 
 
 # ---- the composed operator, the kernel's plan and its decomposition

@@ -130,6 +130,23 @@ def test_twenty_steps_match(case):
         _assert_per_var(b.T, a.T, 1e-9)
 
 
+@pytest.mark.parametrize("profile", [False, True], ids=["si_mode", "moist_production"])
+def test_twenty_steps_match_with_variable_si(case, profile):
+    """The variable-coefficient solve (a per-level Pxi profile composed into
+    the column operator), alone and inside the production profile: 20
+    steps at 1e-9 of each field's max, and the run differs from the
+    constant-coefficient one."""
+    opts = {"profile": "moist_production"} if profile else {"si_mode": "variable"}
+    runs = {}
+    for pkg, dtype, kw in ((jx, jnp.float64, {}), (tx, torch.float64, {"device": "cpu"})):
+        m = _model(pkg, case, 20, opts, out=f"variable_{profile}_{pkg.__name__}")
+        runs[pkg] = pkg.integrate_model(m, dtype=dtype, write_outputs=False, **kw)[1]
+    _assert_per_var(runs[tx], runs[jx], 1e-9)
+    _, constant = tx.integrate_model(_model(tx, case, 20, {"si_mode": "constant"}),
+                                     dtype=torch.float64, write_outputs=False, device="cpu")
+    assert np.abs(runs[tx] - constant).max() > 0.0
+
+
 def test_resume_from_jax_checkpoint(case):
     mj = _model(jx, case, 8)
     gj, cj, sj = jmodel.initialize(mj, jnp.float64)
@@ -179,23 +196,65 @@ def test_state_round_trip(case):
     "options,named",
     [
         ({"topography_file": "hs.csv"}, "topography_file"),
-        ({"checkpoint_interval": 1.0}, "checkpoint_interval"),
+        ({"checkpoint_interval": 0.5}, "checkpoint_interval"),
         ({"write_spectral": True}, "write_spectral"),
         ({"output_format": "nc"}, "output_format"),
         ({"si_mode": "variable"}, "si_mode"),
-        # the production profile switches on the variable-coefficient solve,
-        # which is not ported (tests/test_torch_options.py runs the profile
-        # with si_mode='constant' against the JAX package)
+        # the production profile: the variable-coefficient solve, diagnostic
+        # condensation, the modal filter and exp stiff relaxation together
         ({"profile": "moist_production"}, "si_mode"),
     ],
     ids=lambda o: o if isinstance(o, str) else next(iter(o)),
 )
 def test_unported_options_raise(case, options, named):
-    m = _model(tx, case, 1, options)
-    grid = tx.create_grid(m.grid_params, torch.float64, device="cpu")
-    ctx = tmodel.build_context(m, grid, torch.float64)
-    with pytest.raises(NotImplementedError, match=named):
-        tmodel.build_step(m, grid, ctx, torch.float64)
+    """The options that once raised build and run here in both packages:
+    two steps through integrate_model agree within 1e-12 of each field's
+    max, and so do the files and context extras the option makes (the
+    topography's filtered gradient, the checkpoint, the spectral and NetCDF
+    outputs)."""
+    key = next(iter(options))
+    opts = dict(options)
+    if key == "topography_file":
+        grid = tx.create_grid(_grid_params(tx), torch.float64, device="cpu")
+        pts = grid.gridpoints()
+        hs = 50.0 * np.exp(-((pts[:, 0] - 5000.0) / 3000.0) ** 2) * (1.0 + np.cos(pts[:, 1]))
+        opts[key] = str(case / "hs.csv")
+        np.savetxt(opts[key], np.concatenate([pts, hs[:, None]], axis=1), delimiter=",",
+                   header="r,l,z,hs", comments="", fmt="%.17g")
+    out, ctxs = {}, {}
+    for pkg, mod, dtype, kw in ((jx, jmodel, jnp.float64, {}),
+                                (tx, tmodel, torch.float64, {"device": "cpu"})):
+        m = _model(pkg, case, 2, opts, out=f"opt_{key}_{pkg.__name__}")
+        _, ctxs[pkg], _ = mod.initialize(m, dtype, **kw)
+        _, out[pkg] = pkg.integrate_model(m, dtype=dtype, **kw)
+    _assert_per_var(out[tx], out[jx], 1e-12)
+    assert sorted(ctxs[tx].extras) == sorted(ctxs[jx].extras)
+    for k, v in ctxs[jx].extras.items():
+        _assert_per_var(ctxs[tx].extras[k][None], np.asarray(v)[None], 1e-12)
+    dirs = {pkg: case / f"opt_{key}_{pkg.__name__}" for pkg in (jx, tx)}
+    files = {pkg: sorted(p.name for p in d.iterdir() if p.suffix != ".log")
+             for pkg, d in dirs.items()}
+    assert files[tx] == files[jx]
+    made = {"topography_file": "hs_grad", "checkpoint_interval": "checkpoint_0.5.npz",
+            "write_spectral": "spectral_out_0.5.csv", "output_format": "physical_out_0.5.nc"}
+    if key in ("checkpoint_interval", "write_spectral", "output_format"):
+        assert made[key] in files[tx], files[tx]
+    elif key == "topography_file":
+        assert "hs_grad" in ctxs[tx].extras
+    gt = tx.create_grid(_grid_params(tx), torch.float64, device="cpu")
+    for name in files[tx]:
+        a, b = (dirs[pkg] / name for pkg in (jx, tx))
+        if name.endswith(".npz"):
+            with np.load(a) as fa, np.load(b) as fb:
+                assert sorted(fa.files) == sorted(fb.files)
+                for k in fa.files:
+                    _assert_per_var(np.atleast_1d(fb[k])[None], np.atleast_1d(fa[k])[None],
+                                    1e-12)
+        elif name.startswith("spectral"):
+            _assert_per_var(jio._read_csv(str(b))[1].T, jio._read_csv(str(a))[1].T, 1e-12)
+        else:
+            _assert_per_var(jio.read_physical_grid(str(b), gt),
+                            jio.read_physical_grid(str(a), gt), 1e-12)
 
 
 @pytest.mark.parametrize(
@@ -225,12 +284,15 @@ def test_unported_grid_switches_raise(kw):
 
 
 def test_unported_geometry_and_matmul_raise():
-    with pytest.raises(NotImplementedError, match="XYZ"):
-        tx.create_grid(tx.GridParameters(geometry="XYZ", num_cells=4, lDim=8,
+    """What the port still refuses: a periodic axis past the dense DFT (the
+    factored DFT is not ported), the bf16x3 matmul mode, an unknown
+    equation set."""
+    with pytest.raises(NotImplementedError, match="factored DFT"):
+        tx.create_grid(tx.GridParameters(geometry="XYZ", num_cells=4, lDim=4096,
                                          ymax=1.0, zDim=8), device="cpu")
     with pytest.raises(NotImplementedError, match="compensated"):
         tx.create_grid(_grid_params(tx), matmul="compensated", device="cpu")
-    with pytest.raises(KeyError, match="MoistEulerRLZ"):
+    with pytest.raises(KeyError, match="MoistEulerXYZ"):
         from scythe_tpu_torch.equations.common import get_equation_set
 
-        get_equation_set("MoistEulerXYZ")  # waits for its geometry
+        get_equation_set("MoistEulerXYZZ")  # the known sets are listed

@@ -1,8 +1,9 @@
 """scythe_tpu_torch imports and runs with jax (and the JAX package) blocked:
 a fresh interpreter with sys.modules['jax'] = None imports the package (its
-kernels' modules and both examples included), runs 3 steps of the moist
-RLZ core and of the flagship two-way slab model on the CPU, and registers
-every R / RL / RZ / RLZ equation set, importing no triton."""
+kernels' modules and every example included), runs 3 steps of the moist
+RLZ core, of the flagship two-way slab model and of Williamson case 2 on the
+SL sphere on the CPU, writes NetCDF output, and registers all 21 equation
+sets, importing no triton."""
 
 import os
 import subprocess
@@ -26,7 +27,10 @@ SCRIPT = textwrap.dedent(
     import scythe_tpu_torch as tx
     from scythe_tpu_torch.ops import column_solve, elementwise_probe, rlz_analysis
     from scythe_tpu_torch.examples import tc_intensification_rlz  # noqa: F401
+    from scythe_tpu_torch.examples import convective_shower_xyz  # noqa: F401
+    from scythe_tpu_torch.examples import williamson_sphere as wm
     from scythe_tpu_torch.examples import cha_bell_initialization as cb
+    from scythe_tpu_torch.equations import sphere  # noqa: F401
     from scythe_tpu_torch.physics import turbulence  # noqa: F401
     from scythe_tpu_torch import diagnostics  # noqa: F401
     from scythe_tpu_torch.equations.common import REGISTRY, get_equation_set
@@ -72,7 +76,13 @@ SCRIPT = textwrap.dedent(
     fout = tmodel.make_scan(fstep, 3)(cb.vortex_state(fg, torch.float64))
     assert torch.isfinite(fout.spec).all() and fout.t == 4
     get_equation_set("Twoway_ShallowWater_Slab")
-    assert len(REGISTRY) == 17, sorted(REGISTRY)
+    assert len(REGISTRY) == 21, sorted(REGISTRY)
+    # Williamson case 2 on the SL sphere, 3 steps with NetCDF output
+    w2 = wm.williamson2_model(os.path.join(tmp, "w2")).with_(
+        integration_time=900.0, output_interval=900.0, options={"output_format": "nc"})
+    _, wphys = tx.integrate_model(w2, dtype=torch.float64, device="cpu")
+    assert np.isfinite(wphys).all() and wphys.shape == (3, 96, 96)
+    assert "physical_out_900.0.nc" in os.listdir(os.path.join(tmp, "w2"))
     assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NOJAX_OK", sorted(os.listdir(os.path.join(tmp, "out"))))

@@ -112,9 +112,10 @@ def _ceil(a, b):
     return -(-a // b)
 
 
-PLAN_NZ = (1, 13, 24, 48, 60, 128)
-PLAN_NL = (1, 4, 12, 64, 128, 1024, 2048)
-PLAN_VRB = ((3, 21, 10), (9, 144, 51), (9, 300, 103), (8, 192, 67), (1, 600, 203))
+PLAN_NZ = (1, 13, 24, 32, 48, 60, 128)
+PLAN_NL = (1, 4, 12, 16, 64, 96, 128, 1024, 2048)
+PLAN_VRB = ((3, 21, 10), (9, 36, 15), (9, 72, 27), (9, 144, 51), (9, 300, 103),
+            (8, 192, 67), (1, 600, 203))
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
@@ -208,10 +209,15 @@ def _emulate(phys, la, mask, an, az, p):
     return out, hits
 
 
-# chip_smoke.py's analysis shapes (nvars, cells, nl, nz) and a ragged one
+# chip_smoke.py's analysis shapes (nvars, cells, nl, nz) and a ragged one;
+# the XYZ shower, the SLZ test grid and the JW06 grid run the same function
+# on their own operators, at these shapes
 EMULATED = {
     "moist3d": (9, 48, 64, 48),
     "tc": (9, 100, 4, 24),
+    "shower": (9, 48, 16, 32),
+    "slz_test": (9, 12, 32, 24),
+    "jw06": (9, 24, 96, 24),
     "transform": (8, 64, 128, 60),
     "pallas_test_a": (4, 16, 64, 20),
     "pallas_test_b": (2, 12, 32, 16),

@@ -36,12 +36,6 @@ from scythe_tpu_torch.examples import cha_bell_initialization as cb
 torch.set_num_threads(2)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "twoway_slab_50steps_f64.npz")
-FIELD_KEYS = {
-    "R": ("val", "dr", "drr"),
-    "RZ": ("val", "dr", "drr", "dz", "dzz"),
-    "RL": ("val", "dr", "drr", "dl", "dll"),
-    "RLZ": ("val", "dr", "drr", "dl", "dll", "dz", "dzz"),
-}
 
 
 @dataclass
@@ -126,7 +120,7 @@ def tendency_pair(case: Case, tmp, seed=0):
                       else case.val_scale for n in names])
     scale = scale.reshape((-1,) + (1,) * len(gt.spatial_shape))
     fields = {}
-    for k in FIELD_KEYS[gt.geometry]:
+    for k in gt.field_keys:
         a = rng.normal(size=shape) * scale * (1.0 if k == "val" else case.deriv_scale)
         if k == "val":
             for n in case.abs_vars:

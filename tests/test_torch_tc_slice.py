@@ -26,7 +26,9 @@ from scythe_tpu.physics import turbulence as jtb
 
 import scythe_tpu_torch as tx
 from scythe_tpu_torch import convert
+from scythe_tpu_torch import io as tio
 from scythe_tpu_torch import model as tmodel
+from scythe_tpu_torch import timeintegration as tti
 from scythe_tpu_torch.examples import tc_intensification_rlz as tct
 from scythe_tpu_torch.ops import column_solve, rlz_analysis
 from scythe_tpu_torch.physics import turbulence as ttb
@@ -252,15 +254,43 @@ def test_sponge_matches_jax(case):
 @pytest.mark.parametrize(
     "options,named",
     [({"topography_file": "hs.csv"}, "topography_file"),
-     ({"checkpoint_interval": 60.0}, "checkpoint_interval"),
+     ({"checkpoint_interval": 4.0}, "checkpoint_interval"),
      ({"si_mode": "variable"}, "si_mode")],
     ids=["topography_file", "checkpoint_interval", "si_mode"],
 )
 def test_options_beside_the_bundle_still_raise(case, options, named):
-    mt = case["mt"].with_(options={**case["mt"].opts(), **options})
-    g, c, _ = tmodel.initialize(mt, torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match=named):
-        tmodel.build_step(mt, g, c, torch.float64)
+    """Each option on top of the bundle builds in both packages, and one
+    step through integrate_model agrees within 1e-12 of each field's max, as
+    do the topography's extras and the checkpoint the step writes."""
+    opts = dict(options)
+    gt = tx.create_grid(case["mt"].grid_params, torch.float64, device="cpu")
+    if named == "topography_file":
+        pts = gt.gridpoints()
+        opts[named] = str(case["tmp"] / "hs.csv")
+        hs = 30.0 * np.exp(-((pts[:, 0] - 1.0e5) / 5.0e4) ** 2) * (1.0 + np.sin(pts[:, 1]))
+        np.savetxt(opts[named], np.concatenate([pts, hs[:, None]], axis=1), delimiter=",",
+                   header="r,l,z,hs", comments="", fmt="%.17g")
+    out, ctxs, dirs = {}, {}, {}
+    for pkg, mod, dtype, kw, key in ((jx, jmodel, jnp.float64, {}, "mj"),
+                                     (tx, tmodel, torch.float64, {"device": "cpu"}, "mt")):
+        dirs[pkg] = str(case["tmp"] / f"{named}_{pkg.__name__}")
+        m = case[key].with_(options={**case[key].opts(), **opts}, integration_time=4.0,
+                            output_interval=4.0, output_dir=dirs[pkg])
+        _, ctxs[pkg], _ = mod.initialize(m, dtype, **kw)
+        _, out[pkg] = pkg.integrate_model(m, dtype=dtype, **kw)
+    _assert_per_var(out[tx], out[jx], 1e-12)
+    assert sorted(ctxs[tx].extras) == sorted(ctxs[jx].extras)
+    for k, v in ctxs[jx].extras.items():
+        _assert_per_var(ctxs[tx].extras[k][None], np.asarray(v)[None], 1e-12)
+    assert ("hs_grad" in ctxs[tx].extras) == (named == "topography_file")
+    ckpts = [sorted(f for f in os.listdir(dirs[pkg]) if f.endswith(".npz")) for pkg in (jx, tx)]
+    assert ckpts[0] == ckpts[1] == (["checkpoint_4.0.npz"] if named == "checkpoint_interval"
+                                    else [])
+    for name in ckpts[1]:
+        with np.load(os.path.join(dirs[jx], name)) as a, \
+                np.load(os.path.join(dirs[tx], name)) as b:
+            for k in a.files:
+                _assert_per_var(np.atleast_1d(b[k])[None], np.atleast_1d(a[k])[None], 1e-12)
 
 
 @pytest.mark.parametrize(
@@ -286,6 +316,26 @@ def test_options_beside_the_bundle_run(case, options):
     ref, got = finals
     for v in range(ref.shape[0]):
         assert np.abs(got[v] - ref[v]).max() <= 1e-9 * np.abs(ref[v]).max(), v
+
+
+def test_profile_runs_tc_rlz(tmp_path):
+    """tests/test_profile.py's gate on the port: moist_production (with its
+    variable-coefficient solve) integrates the TC configuration at 12 cells
+    300 steps to a finite state with the vortex intact."""
+    model = tct.build_model(str(tmp_path), num_cells=12, ts=2.0, t_end=600.0, fluxes=True)
+    model = model.with_(options={**model.opts(), "profile": "moist_production"})
+    assert model.opts()["si_mode"] == "variable"
+    grid = tx.create_grid(model.grid_params, torch.float64, device="cpu")
+    ctx = tmodel.build_context(model, grid, torch.float64)
+    tct.write_ics(model, grid, ctx.ref_state)
+    phys0 = tio.read_physical_grid(model.initial_conditions, grid)
+    spec0 = grid.analysis(torch.from_numpy(phys0))
+    ctx.extras["sponge_ref"] = grid.synthesis(spec0)["val"]
+    state = tti.initial_state(spec0, (grid.nvars,) + grid.spatial_shape, torch.float64)
+    out = tmodel.make_scan(tmodel.build_step(model, grid, ctx, torch.float64), 300)(state)
+    phys = grid.synthesis(out.spec)["val"].numpy()
+    assert np.isfinite(phys).all()
+    assert phys[4].max() > 8.0
 
 
 def test_tc_mature_model_is_the_named_configuration(tmp_path):
