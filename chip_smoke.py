@@ -2,7 +2,7 @@
 """On-card smoke test of the PyTorch port (scythe_tpu_torch) on one NVIDIA
 Hopper GPU.
 
-    python3 chip_smoke.py   # from the root of a checkout; one card
+    python3 chip_smoke.py [--only GROUPS]   # from the root of a checkout; one card
 
 Phases, each printing PASS, its wall time and its numbers on a line:
 
@@ -25,7 +25,8 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    shape; then timed at 9216 x 48 and 1200 x 24 f32 and 9216 x 48 f64 in
    turns (plain, kernel, kernel, plain, library), each as device time and
    back to back, beside its bound and each one's error, and the profile
-   operator and both shower operators the same way; the library call is one
+   operator, both shower operators and JW06's (13,824 x 24) the same way;
+   the library call is one
    torch.matmul of [x* | w*] by M^T, which the port never calls;
 4. RLZ analysis against its plain version on the card: moist3d
    [9, 144, 64, 48], the TC grid [9, 300, 4, 24], the RLZ transform bench
@@ -33,7 +34,8 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    large-nl shape [2, 24, 1024, 16] (l streamed through shared memory) and a
    ragged one [3, 21, 12, 13] (nz 13: x copied element by element), and on
    their own geometries the XYZ shower [9, 144, 16, 32], the SLZ test grid
-   [9, 36, 32, 24] and the JW06 grid [9, 72, 96, 24] (timed too); f64
+   [9, 36, 32, 24] and the JW06 grids [9, 72, 96, 24] and, at the production
+   recipe, [9, 144, 96, 24] (both timed too); f64
    kernel vs f64 plain (1e-12 of max|ref|), f32 kernel vs f64 plain (1e-5,
    and at most 4x the f32 plain chain's own error), two calls bitwise equal
    in each dtype, the plan and its block count printed; then the f32 kernel
@@ -112,8 +114,45 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    against the analytic state below 5e-4; no hand-written kernel lies on
    this RL-structured path, and the counts say 0.
 
-No phase catches its own failure: any failed check raises and the script
-exits non-zero.  Without a CUDA device it exits 2 and prints no result.
+19-21. JW06 at its production recipe (scythe_tpu_torch/examples/
+   jw06_baroclinic_slz.py production_model: MoistEulerSLZ, 48 cells x 96 x
+   24, ts 7.5 s, l_q 0, a 12 km top sponge, del^4, horizontal Smagorinsky,
+   incremental analysis): balance_zonal_state on the card in f64 against
+   the CPU's at 12 cells x 20 levels (1e-9), then at full width on the card
+   (timed; the residual falls below 0.02 of its first value), 480 f32 steps
+   from the balanced state with the wind bump: the column solve once a step
+   at 13,824 x 24, the analysis twice (the del^4 refit and the closing
+   analysis) at [9, 144, 96, 24], steps/s, launches a step, the example's
+   diagnostics inside bands around a CPU f64 run of the same steps
+   (tools/torch_jw06_reference.py); f32 against f64 on the card after 20
+   steps;
+22-23. ensembles through torch.func.vmap: the flagship at full width, 16
+   members scaled 1 + i/100 (bench.py's ensemble_bench), member-steps/s
+   beside one member's steps/s by the slope of 20 and 120 steps, kernel
+   launches a step of each, f64 members against their single runs (1e-12);
+   the convective shower, 4 members through integrate_ensemble, 20 steps:
+   one column-solve launch a step at 9,216 x 32 and one analysis at
+   [36, 144, 16, 32], members against their single runs (f64 1e-12, f32
+   SHOWER_MEMBER_F32_BOUND);
+24. each kernel's backward and jvp at 9216 x 48 and 13,824 x 24 (column
+   solve) and [9, 144, 64, 48] and [9, 144, 96, 24] (analysis) against
+   torch.autograd and torch.func.jvp of its plain version (f64 1e-12, f32
+   1e-5 and <= 4x the plain f32's error), timed in turns beside the plain
+   version, the library call (the column solve's backward: one matmul by M)
+   and the bound;
+25-26. make_simulator on the SLZ test grid, 20 semi-implicit f64 steps with
+   rain seeded everywhere: the gradient of a weighted sum of the final
+   fields with respect to phys0 and K on the card against the CPU (1e-9) and
+   K's against a central difference, with the launches of the forward, the
+   backward (M^T) and the analysis counted; fit_parameters on
+   calibrate_drag's case for 3 Adam iterations on the card against the CPU
+   (1e-9), the loss falling.
+
+``--only`` runs some phase groups alone (kernels: 3-5; paths: 6-18; jw06:
+19-21; ensembles: 22-23; gradients: 24-26); only a run of all prints the
+kernels line and the closing line.  No phase catches its own failure: any
+failed check raises and the script exits non-zero.  Without a CUDA device
+it exits 2 and prints no result.
 The last lines of standard output are the card's name and power limit, a
 JSON object describing the kernels (each with its bound: the larger of its
 bytes over 3.35 TB/s and its operations over the H100 SXM's peak for them:
@@ -170,6 +209,31 @@ PEAK_FLOP_PER_S = {"f32 products": 495e12 / 3, "f64 products": 67e12,
                    "f32 elementwise": 67e12}
 # what the library's matrix-product kernels (behind torch.einsum) are named
 GEMM_KERNEL_WORDS = ("gemm", "gemv", "cutlass", "xmma", "splitk")
+# JW06 at its production recipe (scythe_tpu_torch/examples/
+# jw06_baroclinic_slz.py production_model): steps of 7.5 s run in f32 from the
+# state balanced on the card, and the bands its readings sit in, around the
+# readings of a CPU f64 run of the same steps (tools/torch_jw06_reference.py;
+# PERF.md)
+JW06_STEPS = 480
+# (CPU f64: u_max 35.23684, |v| max 0.30388, ps 956.78128 to 1009.82857 hPa,
+# eddy ps min -0.74220 hPa, |w| max 0.0070140 m/s)
+JW06_BANDS = {"u_max": (35.20, 35.27), "v_absmax": (0.300, 0.308),
+              "ps_min": (956.75, 956.81), "ps_max": (1009.80, 1009.86),
+              "ps_eddy_min": (-0.750, -0.735), "w_absmax": (0.0068, 0.0072)}
+# f32 against f64 after 20 JW06 steps: 1e-4 of each field's max unless named;
+# the named fields start at (or near) zero, so f32's round-off of the base
+# state is most of their 20-step max; their bounds are about 3x the same
+# comparison on the CPU (tools/torch_jw06_reference.py; PERF.md)
+# (CPU: mu 6.2e-3, v 1.5e-3, w 3.4e-2, mu_c 9.5e-3, qss 1.3e-2)
+JW06_F32_BOUND = {"mu": 0.02, "v": 5e-3, "w": 0.1, "mu_c": 0.03, "qss": 0.04}
+# the ensembles: the flagship at full width (bench.py's ensemble_bench: 16
+# members scaled 1 + i/100) and the convective shower, 4 members
+FLAGSHIP_MEMBERS = 16
+SHOWER_MEMBERS = 4
+# f32 members against their own f32 single runs after 20 shower steps: the
+# batched products sum in another order, and the convection grows the
+# difference; measured 1.26e-3 of a field's max on one H100, so 5e-3
+SHOWER_MEMBER_F32_BOUND = 5e-3
 CS_NZ = (13, 24, 40, 48, 100, 128)
 CS_NCOLS = (37, 1200, 9216)
 # (label, ncols, nz, reference state, per-level Pxi): the variable-coefficient
@@ -183,7 +247,8 @@ CS_TIMED = (("9216x48 f32", 9216, 48, "moist3d", False, "float32"),
             ("9216x48 f64", 9216, 48, "moist3d", False, "float64"),
             ("9216x48 f32 profile", 9216, 48, "moist3d", True, "float32"),
             ("2304x32 f32", 2304, 32, "shower", False, "float32"),
-            ("2304x32 f32 profile", 2304, 32, "shower", True, "float32"))
+            ("2304x32 f32 profile", 2304, 32, "shower", True, "float32"),
+            ("13824x24 f32", 13824, 24, "jw06", False, "float32"))
 
 
 def say(phase, t0, msg):
@@ -577,8 +642,8 @@ def check_stage(torch, cs, o64, o32, x, w, stage, pxi):
 
 
 def phase_column_solve(torch, tti, cs, columns):
-    """Phase 3; ``columns`` maps "moist3d" and "shower" to (zmax, ts, Pxi_bar,
-    Pxi_prof) of their reference states.  Returns ({"kernel" | "library":
+    """Phase 3; ``columns`` maps "moist3d", "shower" and "jw06" to (zmax, ts,
+    Pxi_bar, Pxi_prof) of their reference states.  Returns ({"kernel" | "library":
     max_abs_err at 9216 x 48 f32, AB3 stage}, {label: (ms, plain_ms,
     library_ms, bound_ms, bound_by)}) with device times."""
     t0 = time.perf_counter()
@@ -687,7 +752,8 @@ def analysis_params(tx, name):
     if geometry == "SLZ":
         return tx.GridParameters(
             geometry="SLZ", xmin=-np.pi / 2, xmax=np.pi / 2, num_cells=cells, lDim=ldim,
-            sphere_radius=6.37122e6, zmin=0.0, zmax=3.0e4 if name == "jw06" else 1.5e4,
+            sphere_radius=6.37122e6,
+            zmin=0.0, zmax=3.0e4 if name.startswith("jw06") else 1.5e4,
             zDim=nz, BCB=tx.ZBC.R1T0, BCT=tx.ZBC.R1T0, vars=names)
     return tx.GridParameters(
         geometry="RLZ", xmin=0.0, xmax=3.0e5, num_cells=cells, lDim=ldim,
@@ -714,8 +780,10 @@ ANALYSIS_SHAPES = {
     "shower": (9, 48, 16, 32),
     "slz_test": (9, 12, 32, 24),
     "jw06": (9, 24, 96, 24),
+    "jw06_production": (9, 48, 96, 24),
 }
-ANALYSIS_GEOMETRY = {"shower": "XYZ", "slz_test": "SLZ", "jw06": "SLZ"}
+ANALYSIS_GEOMETRY = {"shower": "XYZ", "slz_test": "SLZ", "jw06": "SLZ",
+                     "jw06_production": "SLZ"}
 
 
 def phase_analysis(tx, torch, ra):
@@ -760,7 +828,7 @@ def phase_analysis(tx, torch, ra):
     for name, dtype in (("moist3d", torch.float32), ("transform", torch.float32),
                         ("tc", torch.float32), ("moist3d_f64", torch.float64),
                         ("shower", torch.float32), ("slz_test", torch.float32),
-                        ("jw06", torch.float32)):
+                        ("jw06", torch.float32), ("jw06_production", torch.float32)):
         g, ops = analysis_grid(tx, torch, name.removesuffix("_f64"), dtype)
         nv = ANALYSIS_SHAPES[name.removesuffix("_f64")][0]
         x = torch.from_numpy(rng.normal(size=(nv,) + g.spatial_shape)).to("cuda", dtype)
@@ -864,7 +932,507 @@ def profile_steps(torch, state, step, card, label, path, n=10):
             gemm_us / n)
 
 
-def main():
+def grad_keys(times, label, prefix):
+    """The kernels line's keys of a backward and jvp timing of phase 24."""
+    return {f"{prefix}{rule}_{k}": times[label][rule][i]
+            for rule in ("backward", "jvp")
+            for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"))}
+
+
+def jw06_case(tx, tmodel, tw, torch, base, n_steps, balance_device, cells=48, zdim=24):
+    """JW06 at its production recipe cut to ``n_steps``: (model, float64 CPU
+    grid and context, balanced initial fields [9, *spatial] float64, the
+    balance history, seconds of the balance solve on ``balance_device``)."""
+    model = tw.production_model(base, t_end=n_steps * 7.5, num_cells=cells, zdim=zdim)
+    g64 = tx.create_grid(model.grid_params, torch.float64, device="cpu")
+    c64 = tmodel.build_context(model, g64, torch.float64)
+    t0 = time.perf_counter()
+    delta, history = tw.balanced_delta(model, g64, c64, device=balance_device)
+    if balance_device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    phys0 = tw.initial_fields(g64, c64.ref_state, perturb=True) + delta
+    return model, g64, c64, phys0, history, seconds
+
+
+def jw06_readings(tw, g64, c64, phys):
+    """The JW06 example's diagnostics of final fields [9, *spatial] (u max,
+    |v| max, storm-track ps min and max, eddy ps min, in m/s and hPa), and
+    |w| max."""
+    keys = ("u_max", "v_absmax", "ps_min", "ps_max", "ps_eddy_min")
+    out = dict(zip(keys, tw.diagnostics(g64, c64.ref_state, np.asarray(phys, np.float64))))
+    out["w_absmax"] = float(np.abs(phys[5]).max())
+    return out
+
+
+def run_steps(torch, tmodel, step, state, n):
+    """(state after ``n`` steps, ms a step by CUDA events)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state = tmodel.make_scan(step, n)(state)
+    end.record()
+    torch.cuda.synchronize()
+    return state, start.elapsed_time(end) / n
+
+
+def launches_by_kernel(torch, fn):
+    """({kernel name: launches}, device busy us) of one call of ``fn`` under
+    torch.profiler (device rows only)."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    return ({e.key: e.count for e in kernels},
+            sum(e.self_device_time_total for e in kernels))
+
+
+def count_launches(torch, fn):
+    """(kernel launches, device busy us) of one call of ``fn``."""
+    by_name, busy = launches_by_kernel(torch, fn)
+    return sum(by_name.values()), busy
+
+
+def launches_per_step(torch, run, n_short, n_long, tries=3):
+    """{kernel name: launches a step} of ``run(n)`` from the difference of the
+    two lengths, which cancels a run's set-up; per name the least of
+    ``tries`` readings, since the profiler's count of a name varies by a few
+    between like runs and a launch is never missing from a run that made it."""
+    best = {}
+    for _ in range(tries):
+        short, _ = launches_by_kernel(torch, lambda: run(n_short))
+        long_, _ = launches_by_kernel(torch, lambda: run(n_long))
+        for k in set(short) | set(long_):
+            d = (long_.get(k, 0) - short.get(k, 0)) / (n_long - n_short)
+            best[k] = min(best.get(k, d), d)
+    return best
+
+
+def phase_jw06(tx, tmodel, tw, torch, cs, ra, tmp, card, out_dir):
+    """Phases 19-21: JW06 at its production recipe on the card."""
+    # ---- 19: the balance on the card against the CPU's, at a reduced size
+    t0 = time.perf_counter()
+    small = {}
+    for dev in ("cuda", "cpu"):
+        model_s, _, _, phys_s, hist_s, secs = jw06_case(
+            tx, tmodel, tw, torch, os.path.join(tmp, f"jw06_small_{dev}"), 20, dev, cells=12,
+            zdim=20)
+        small[dev] = (phys_s, hist_s, secs)
+    (p_gpu, h_gpu, s_gpu), (p_cpu, h_cpu, _) = small["cuda"], small["cpu"]
+    rel_bal = float(np.abs(p_gpu - p_cpu).max() / np.abs(p_cpu).max())
+    assert len(h_gpu) == len(h_cpu), (h_gpu, h_cpu)
+    rel_hist = max(abs(a - b) for a, b in zip(h_gpu, h_cpu)) / h_cpu[0]
+    assert rel_bal <= 1e-9 and rel_hist <= 1e-9, (
+        rel_bal, h_gpu, h_cpu)
+    say("jw06-balance-vs-cpu", t0,
+        f"balance_zonal_state of the JW06 production options at 12 cells x 20 levels "
+        f"(nl_solve 4) in f64: on cuda {s_gpu:.2f} s, history {h_gpu}; the balanced state "
+        f"against the cpu's rel err {rel_bal:.3e}, history {rel_hist:.3e} (tol 1e-9)")
+
+    # ---- 20: the production grid, balanced on the card, JW06_STEPS f32 steps
+    t0 = time.perf_counter()
+    model, g64, c64, phys0, history, bal_s = jw06_case(
+        tx, tmodel, tw, torch, os.path.join(tmp, "jw06"), JW06_STEPS, "cuda")
+    assert history[-1] < 0.02 * history[0], history
+    print(f"  JW06 balance on cuda f64 at 48 cells x 24 levels: {bal_s:.2f} s, "
+          f"max|residual| {' -> '.join(f'{h:.3e}' for h in history)}", flush=True)
+    grid, ctx, state, step = tw.prepare_run(model, phys0, torch.float32, "cuda")
+    assert (grid.params.rDim, grid.nl, grid.params.zDim) == (144, 96, 24)
+    cs.launches = ra.launches = 0
+    state, ms_step = run_steps(torch, tmodel, step, state, JW06_STEPS)
+    launches = (cs.launches, ra.launches)
+    # the analysis twice a step: the del^4 term refits its first Laplacian
+    # through the analysis (equations/sphere.py), then the closing analysis
+    assert launches == (JW06_STEPS, 2 * JW06_STEPS), launches
+    phys = grid.synthesis(state.spec)["val"].cpu().numpy()
+    assert phys.shape == (9, 144, 96, 24) and np.isfinite(phys).all()
+    r = jw06_readings(tw, g64, c64, phys)
+    for k, (lo, hi) in JW06_BANDS.items():
+        assert lo < r[k] < hi, (k, r, JW06_BANDS)
+    n_k, busy = count_launches(torch, lambda: tmodel.make_scan(step, 10)(state))
+    say("jw06-production-path", t0,
+        f"MoistEulerSLZ {list(phys.shape)} f32 on cuda from the state balanced on the card, "
+        f"{JW06_STEPS} steps of 7.5 s: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} ms/step "
+        f"by CUDA events) on {card}; column-solve launches {launches[0]} at "
+        f"{144 * 96} x 24 (one a step), analysis launches {launches[1]} at [9, 144, 96, 24] "
+        f"(two a step: the del^4 refit and the closing analysis); {n_k / 10:.0f} kernel "
+        f"launches/step, device busy {busy / 10:.1f} us/step "
+        f"(torch.profiler, 10 steps); readings {json.dumps(r)} (bands {JW06_BANDS}); "
+        f"balance {bal_s:.2f} s")
+    jw = {"steps_per_s": 1000.0 / ms_step, "launches": launches, "balance_s": bal_s,
+          "launches_per_step": n_k / 10, "busy_us": busy / 10, "history": history}
+    del state, step
+
+    # ---- 21: f32 against f64 on the card after 20 steps
+    t0 = time.perf_counter()
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        g, _, st, sp = tw.prepare_run(model, phys0, dtype, "cuda")
+        runs[dtype] = g.synthesis(tmodel.make_scan(sp, 20)(st).spec)["val"].cpu().numpy()
+    rel = per_field_rel(runs[torch.float32], runs[torch.float64])
+    checked = [v for v in range(9) if np.abs(runs[torch.float64][v]).max() > 0.0]
+    bounds = [JW06_F32_BOUND.get(MOIST3D_VARS[v], 1e-4) for v in range(9)]
+    print(f"  JW06 20 steps cuda f32 vs f64 rel err {fmt_rel(rel)}", flush=True)
+    assert all(rel[v] <= bounds[v] for v in checked), (rel, bounds)
+    say("jw06-parity-f32", t0,
+        f"cuda f32 vs cuda f64, 20 steps from the balanced state, rel err per field "
+        f"{fmt_rel(rel)} (tol {JW06_F32_BOUND} else 1e-4, on "
+        f"{[MOIST3D_VARS[v] for v in checked]})")
+    return jw
+
+
+def member_runner(tx, torch, tmodel, tti, model, dtype, device, n_members):
+    """run(ics, n) -> final spectral states: ``n`` steps of every member, one
+    batched run under torch.func.vmap (or a plain run for one member), on a
+    step built once; also returns the grid."""
+    grid = tx.create_grid(model.grid_params, dtype, device=device)
+    ctx = tmodel.build_context(model, grid, dtype)
+    step = tmodel.build_step(model, grid, ctx, dtype)
+    imp_rows = tmodel.imp_history_rows(model)
+
+    def member(n):
+        def fn(phys0):
+            state = tti.initial_state(grid.analysis(phys0), phys0.shape, dtype,
+                                      imp_rows=imp_rows)
+            return tmodel.make_scan(step, n)(state).spec
+        return fn
+
+    def run(ics, n):
+        with torch.no_grad():
+            if n_members == 1:
+                return member(n)(ics[0])[None]
+            return torch.func.vmap(member(n))(ics)
+
+    return grid, run
+
+
+def slope_rate(torch, run, ics, n_short, n_long):
+    """ms a step of ``run`` from the two lengths (host clock after a
+    synchronize, best of two), which cancels the set-up of a run."""
+    best = {}
+    for n in (n_short, n_long, n_short, n_long):
+        t0 = time.perf_counter()
+        run(ics, n)
+        torch.cuda.synchronize()
+        best[n] = min(best.get(n, np.inf), time.perf_counter() - t0)
+    return 1000.0 * (best[n_long] - best[n_short]) / (n_long - n_short)
+
+
+def phase_ensembles(tx, tmodel, tti, torch, cs, ra, cb, sh, sio, tmp, card):
+    """Phases 22-23: the flagship and the shower as ensembles on the card."""
+    # ---- 22: the flagship at full width, 16 members
+    t0 = time.perf_counter()
+    fm = cb.flagship_model(100, 256)
+    g = tx.create_grid(fm.grid_params, torch.float32, device="cuda")
+    base = cb.vortex_phys(g)
+    ics64 = np.stack([base * (1.0 + i / 100.0) for i in range(FLAGSHIP_MEMBERS)])
+    rates, by_name = {}, {}
+    for label, n_m in (("ensemble", FLAGSHIP_MEMBERS), ("single", 1)):
+        grid, run = member_runner(tx, torch, tmodel, tti, fm, torch.float32, "cuda", n_m)
+        ics = torch.as_tensor(ics64[:n_m], dtype=torch.float32, device="cuda")
+        run(ics, 2)  # warm-up
+        ms = slope_rate(torch, run, ics, 20, 120)
+        by_name[label] = launches_per_step(torch, lambda n: run(ics, n), 5, 25)
+        out = run(ics, 20)
+        assert torch.isfinite(out).all()
+        rates[label] = {"ms_step": ms, "member_steps_per_s": n_m * 1000.0 / ms,
+                        "launches_per_step": sum(by_name[label].values())}
+    ens, one = rates["ensemble"], rates["single"]
+    # a step of the batch takes the single step's launches, not one more for
+    # each added member: an op that vmap ran member by member would add at
+    # least FLAGSHIP_MEMBERS - 1 a step, a loop over members 15x the lot
+    diff = {}  # batched minus alone, by kernel name cut to 60 characters
+    for k in set(by_name["ensemble"]) | set(by_name["single"]):
+        d = by_name["ensemble"].get(k, 0.0) - by_name["single"].get(k, 0.0)
+        if d:
+            diff[k[:60]] = round(diff.get(k[:60], 0.0) + d, 2)
+    rates["launch_diff_by_kernel"] = diff
+    assert ens["launches_per_step"] < one["launches_per_step"] + FLAGSHIP_MEMBERS - 1, rates
+    # f64: each member against its own single run, 20 steps
+    f20 = fm.with_(integration_time=60.0, output_interval=60.0)
+    cs.launches = ra.launches = 0
+    _, out64 = tmodel.integrate_ensemble(f20, ics64, dtype=torch.float64, device="cuda")
+    fl_launches = (cs.launches, ra.launches)
+    assert fl_launches == (0, 0), fl_launches
+    grid64, run1 = member_runner(tx, torch, tmodel, tti, f20, torch.float64, "cuda", 1)
+    rel = 0.0
+    for i in range(FLAGSHIP_MEMBERS):
+        one_i = grid64.synthesis(run1(torch.as_tensor(ics64[i:i + 1], device="cuda"), 20)[0])
+        ref = one_i["val"].cpu().numpy()
+        rel = max(rel, float(np.abs(out64[i] - ref).max() / np.abs(ref).max()))
+    assert rel <= 1e-12, rel
+    say("flagship-ensemble", t0,
+        f"{FLAGSHIP_MEMBERS} members of the flagship [6, 300, 256] (scaled 1 + i/100) f32 on "
+        f"cuda under torch.func.vmap, by the slope of 20 and 120 steps: "
+        f"{ens['member_steps_per_s']:.2f} member-steps/s ({ens['ms_step']:.4f} ms a batched "
+        f"step), one member alone {one['member_steps_per_s']:.2f} steps/s "
+        f"({one['ms_step']:.4f} ms); kernel launches a step {ens['launches_per_step']:.1f} "
+        f"batched vs {one['launches_per_step']:.1f} alone (torch.profiler, 25 - 5 steps, "
+        f"per kernel the least of 3; batched minus alone a step by kernel "
+        f"{json.dumps(diff, sort_keys=True)}); "
+        f"hand-written kernel launches {fl_launches} (none lies on this path); f64 members "
+        f"vs their single runs after 20 steps max rel err {rel:.3e} (tol 1e-12) on {card}")
+
+    # ---- 23: the convective shower, 4 members: both kernels once a step
+    t0 = time.perf_counter()
+    sm = sh.shower_model(os.path.join(tmp, "shower_ensemble"), t_end=20 * 0.25)
+    gcpu = tx.create_grid(sm.grid_params, torch.float64, device="cpu")
+    phys0 = sio.read_physical_grid(sm.initial_conditions, gcpu)
+    ics64 = np.stack([phys0 * (1.0 + i / 100.0) for i in range(SHOWER_MEMBERS)])
+    outs, launches = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        cs.launches = ra.launches = 0
+        _, outs[dtype] = tmodel.integrate_ensemble(sm, ics64, dtype=dtype, device="cuda")
+        launches[dtype] = (cs.launches, ra.launches)
+        assert launches[dtype] == (20, 21), launches
+    rel = {}
+    for dtype in (torch.float32, torch.float64):
+        grid1, run1 = member_runner(tx, torch, tmodel, tti, sm, dtype, "cuda", 1)
+        worst = np.zeros(9)
+        for i in range(SHOWER_MEMBERS):
+            spec = run1(torch.as_tensor(ics64[i:i + 1], dtype=dtype, device="cuda"), 20)[0]
+            ref = grid1.synthesis(spec)["val"].cpu().numpy()
+            worst = np.maximum(worst, per_field_rel(outs[dtype][i], ref.astype(np.float64)))
+        rel[dtype] = worst
+        print(f"  shower members vs single runs {dtype}: {fmt_rel(worst)}", flush=True)
+    assert np.isfinite(outs[torch.float32]).all()
+    assert rel[torch.float64].max() <= 1e-12, rel
+    assert rel[torch.float32].max() <= SHOWER_MEMBER_F32_BOUND, rel
+    say("shower-ensemble", t0,
+        f"{SHOWER_MEMBERS} members of the convective shower [9, 144, 16, 32] on cuda through "
+        f"integrate_ensemble, 20 steps: column-solve launches {launches[torch.float32][0]} "
+        f"at {SHOWER_MEMBERS * 2304} x 32, analysis launches {launches[torch.float32][1]} at "
+        f"[{SHOWER_MEMBERS * 9}, 144, 16, 32] (one a step for all members, and the initial "
+        f"analysis); members vs their single runs, max rel err per field: f64 "
+        f"{rel[torch.float64].max():.3e} (tol 1e-12), f32 {fmt_rel(rel[torch.float32])} "
+        f"(tol {SHOWER_MEMBER_F32_BOUND})")
+    return {"flagship": rates, "flagship_launches": fl_launches,
+            "shower_launches": launches[torch.float32]}
+
+
+def phase_kernel_gradients(tx, tti, torch, cs, ra, columns):
+    """Phase 24: each kernel's backward and jvp on the card against autograd
+    and torch.func.jvp of its plain version, and timed in turns."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    lines, times = [], {}
+    jvp = torch.func.jvp
+    for label, ncols, nz, src in (("9216x48", 9216, 48, "moist3d"),
+                                  ("13824x24", 13824, 24, "jw06")):
+        zmax, ts, bar, _ = columns[src]
+        ops = {dt: tti.build_semiimplicit_ops(nz, 0.0, zmax, None, bar, ts, dt, "cuda").solve
+               for dt in (torch.float32, torch.float64)}
+        x, w, gw, gx, xt, wt = (torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+                                for _ in range(6))
+        m64 = ops[torch.float64].M
+        gcat = torch.cat([gw, gx], dim=1)
+        ref_grad = gcat @ m64  # [x* | w*] cotangents of the f64 plain map
+        ref_jvp = torch.cat([xt, wt], dim=1) @ m64.T
+        errs = {}
+        for dt, op in ops.items():
+            xs, ws = (t.to(dt).requires_grad_(True) for t in (x, w))
+            cot = tuple(t.to(dt) for t in (gw, gx))
+            out = cs.apply_column_operator(xs, ws, op)
+            assert type(out[0].grad_fn).__name__ == "ColumnSolveFnBackward"
+            got = torch.cat(torch.autograd.grad(out, (xs, ws), cot), dim=1)
+            plain = torch.cat(torch.autograd.grad(
+                cs.apply_column_operator_plain(xs, ws, op.M), (xs, ws), cot), dim=1)
+            _, tang = jvp(lambda a, b: cs.apply_column_operator(a, b, op),
+                          (x.to(dt), w.to(dt)), (xt.to(dt), wt.to(dt)))
+            _, tang_p = jvp(lambda a, b: cs.apply_column_operator_plain(a, b, op.M),
+                            (x.to(dt), w.to(dt)), (xt.to(dt), wt.to(dt)))
+            scale_b, scale_j = float(ref_grad.abs().max()), float(ref_jvp.abs().max())
+            errs[dt] = {
+                "backward": float((got.double() - ref_grad).abs().max()) / scale_b,
+                "backward_plain": float((plain.double() - ref_grad).abs().max()) / scale_b,
+                "jvp": float((torch.cat(tang, 1).double() - ref_jvp).abs().max()) / scale_j,
+                "jvp_plain": float((torch.cat(tang_p, 1).double() - ref_jvp).abs().max())
+                / scale_j,
+            }
+        e64, e32 = errs[torch.float64], errs[torch.float32]
+        assert e64["backward"] <= 1e-12 and e64["jvp"] <= 1e-12, (label, e64)
+        for k in ("backward", "jvp"):
+            assert e32[k] <= 1e-5 and e32[k] <= 4.0 * e32[k + "_plain"], (label, k, e32)
+        # timed in turns, f32: the backward launch (M^T) against autograd of the
+        # plain map and the library call g [M]; the jvp (primal and tangent)
+        op = ops[torch.float32]
+        x32, w32, gw32, gx32, xt32, wt32 = (t.float() for t in (x, w, gw, gx, xt, wt))
+        xs = x32.clone().requires_grad_(True)
+        ws = w32.clone().requires_grad_(True)
+        plain_out = cs.apply_column_operator_plain(xs, ws, op.M)
+        g32 = gcat.float()
+        k_b = lambda: cs.ColumnSolveFn.apply(gw32, gx32, op.M.T, op.packed_T, op.M,  # noqa: E731
+                                             op.packed, True)
+        p_b = lambda: torch.autograd.grad(plain_out, (xs, ws), (gw32, gx32),  # noqa: E731
+                                          retain_graph=True)
+        l_b = lambda: torch.matmul(g32, op.M)  # noqa: E731
+        k_j = lambda: jvp(lambda a, b: cs.apply_column_operator(a, b, op),  # noqa: E731
+                          (x32, w32), (xt32, wt32))
+        p_j = lambda: jvp(lambda a, b: cs.apply_column_operator_plain(a, b, op.M),  # noqa: E731
+                          (x32, w32), (xt32, wt32))
+        kb, pb, lb = in_turns(p_b, k_b, 100, timer=queued_time_ms, library=l_b)
+        kj, pj = in_turns(p_j, k_j, 100, timer=queued_time_ms)
+        bound_b = column_solve_bound(ncols, nz, "float32")
+        bound_j = column_solve_bound(2 * ncols, nz, "float32")
+        times[f"column_solve {label}"] = {
+            "backward": (min(kb), min(pb), min(lb)) + bound_b,
+            "jvp": (min(kj), min(pj), None) + bound_j}
+        lines.append(
+            f"column solve {label}: backward rel err f64 {e64['backward']:.2e}, f32 "
+            f"{e32['backward']:.2e} (plain f32 {e32['backward_plain']:.2e}); jvp f64 "
+            f"{e64['jvp']:.2e}, f32 {e32['jvp']:.2e} (plain f32 {e32['jvp_plain']:.2e}); "
+            f"device ms backward kernel {min(kb):.5f} vs autograd of the plain map "
+            f"{min(pb):.5f} vs library {min(lb):.5f} (bound {bound_b[0]:.5f} {bound_b[1]}); "
+            f"jvp kernel {min(kj):.5f} vs plain {min(pj):.5f} (bound {bound_j[0]:.5f})")
+
+    for name in ("moist3d", "jw06_production"):
+        nv = ANALYSIS_SHAPES[name][0]
+        g64, ops64 = analysis_grid(tx, torch, name, torch.float64)
+        _, ops32 = analysis_grid(tx, torch, name, torch.float32)
+        B = g64.params.b_rDim
+        x = torch.from_numpy(rng.normal(size=(nv,) + g64.spatial_shape)).cuda()
+        xt = torch.from_numpy(rng.normal(size=tuple(x.shape))).cuda()
+        gs = torch.from_numpy(rng.normal(size=(nv, B) + g64.spatial_shape[1:])).cuda()
+        xr = x.clone().requires_grad_(True)
+        ref_grad = torch.autograd.grad(ra.rlz_analysis_plain(xr, *ops64), xr, gs)[0]
+        ref_jvp = ra.rlz_analysis_plain(xt, *ops64)
+        errs = {}
+        for dt, ops in ((torch.float64, ops64), (torch.float32, ops32)):
+            xs = x.to(dt).requires_grad_(True)
+            out = ra.rlz_analysis(xs, *ops)
+            assert type(out.grad_fn).__name__ == "RLZAnalysisFnBackward"
+            got = torch.autograd.grad(out, xs, gs.to(dt))[0]
+            plain = torch.autograd.grad(ra.rlz_analysis_plain(xs, *ops), xs, gs.to(dt))[0]
+            _, tang = jvp(lambda p: ra.rlz_analysis(p, *ops), (x.to(dt),), (xt.to(dt),))
+            _, tang_p = jvp(lambda p: ra.rlz_analysis_plain(p, *ops), (x.to(dt),),
+                            (xt.to(dt),))
+            sb, sj = float(ref_grad.abs().max()), float(ref_jvp.abs().max())
+            errs[dt] = {"backward": float((got.double() - ref_grad).abs().max()) / sb,
+                        "backward_plain": float((plain.double() - ref_grad).abs().max()) / sb,
+                        "jvp": float((tang.double() - ref_jvp).abs().max()) / sj,
+                        "jvp_plain": float((tang_p.double() - ref_jvp).abs().max()) / sj}
+        e64, e32 = errs[torch.float64], errs[torch.float32]
+        assert e64["backward"] <= 1e-12 and e64["jvp"] <= 1e-12, (name, e64)
+        for k in ("backward", "jvp"):
+            assert e32[k] <= 1e-5 and e32[k] <= 4.0 * e32[k + "_plain"], (name, k, e32)
+        x32, xt32, g32 = x.float(), xt.float(), gs.float()
+        xs = x32.clone().requires_grad_(True)
+        plain_out = ra.rlz_analysis_plain(xs, *ops32)
+        k_b = lambda: ra.rlz_analysis_transposed(g32, *ops32)  # noqa: E731
+        p_b = lambda: torch.autograd.grad(plain_out, xs, g32, retain_graph=True)  # noqa: E731
+        k_j = lambda: jvp(lambda p: ra.rlz_analysis(p, *ops32), (x32,), (xt32,))  # noqa: E731
+        p_j = lambda: jvp(lambda p: ra.rlz_analysis_plain(p, *ops32), (x32,),  # noqa: E731
+                          (xt32,))
+        kb, pb = in_turns(p_b, k_b, 100, timer=queued_time_ms)
+        kj, pj = in_turns(p_j, k_j, 100, timer=queued_time_ms)
+        shape = tuple(x.shape)
+        bound_b = analysis_bound(shape, B)
+        bound_j = analysis_bound((2 * shape[0],) + shape[1:], B)
+        times[f"rlz_analysis {name}"] = {"backward": (min(kb), min(pb), None) + bound_b,
+                                         "jvp": (min(kj), min(pj), None) + bound_j}
+        lines.append(
+            f"analysis {name} {list(shape)}: backward (the transposed einsum chain) rel err "
+            f"f64 {e64['backward']:.2e}, f32 {e32['backward']:.2e} (plain f32 "
+            f"{e32['backward_plain']:.2e}); jvp f64 {e64['jvp']:.2e}, f32 {e32['jvp']:.2e} "
+            f"(plain f32 {e32['jvp_plain']:.2e}); device ms backward {min(kb):.5f} vs "
+            f"autograd of the plain chain {min(pb):.5f} (bound {bound_b[0]:.5f} "
+            f"{bound_b[1]}); jvp kernel {min(kj):.5f} vs plain {min(pj):.5f} (bound "
+            f"{bound_j[0]:.5f})")
+    for ln in lines:
+        print("  " + ln, flush=True)
+    say("kernel-backward-and-jvp", t0,
+        "against torch.autograd and torch.func.jvp of the plain versions (f64 1e-12, f32 "
+        "1e-5 and <= 4x the plain f32's error); 100 calls a run, min device ms: "
+        + "; ".join(f"{k} backward {v['backward'][0]:.5f}, jvp {v['jvp'][0]:.5f}"
+                    for k, v in times.items()))
+    return times
+
+
+def phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint):
+    """Phases 25-26: a whole gradient through both kernels on the card, and
+    fit_parameters on the card, each against the CPU."""
+    # ---- 25: make_simulator on the SLZ test grid, 20 semi-implicit steps
+    t0 = time.perf_counter()
+    zm = slz_test_model(tx, tmp, 20, thermal=True)
+    gcpu = tx.create_grid(zm.grid_params, torch.float64, device="cpu")
+    phys0 = sio.read_physical_grid(zm.initial_conditions, gcpu)
+    # rain everywhere: at exactly zero rain the warm-rain terms (q_r**0.875,
+    # rho_r**0.1364) have no derivative, in both packages alike
+    phys0[7] = 1.0e-5
+    wts = np.random.default_rng(9).normal(size=phys0.shape)
+    grads, launches = {}, None
+    for dev in ("cuda", "cpu"):
+        sim, _, _ = tx.make_simulator(zm, torch.float64, device=dev)
+        w_t = torch.as_tensor(wts, device=dev)
+        p0 = torch.as_tensor(phys0, device=dev).requires_grad_(True)
+        K = torch.tensor(100.0, dtype=torch.float64, device=dev, requires_grad=True)
+        cs.launches = cs.backward_launches = ra.launches = 0
+        loss = torch.sum(w_t * sim({"K": K}, p0))
+        gp0, gK = torch.autograd.grad(loss, (p0, K))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = (cs.launches, cs.backward_launches, ra.launches)
+            with torch.no_grad():
+                lo, hi = (float(torch.sum(w_t * sim({"K": 100.0 + e}, p0)))
+                          for e in (-1e-2, 1e-2))
+            fd = (hi - lo) / 2e-2
+        grads[dev] = (gp0.cpu().numpy(), float(gK))
+    (gp_g, gK_g), (gp_c, gK_c) = grads["cuda"], grads["cpu"]
+    rel_p = float(np.abs(gp_g - gp_c).max() / np.abs(gp_c).max())
+    rel_K = abs(gK_g - gK_c) / abs(gK_c)
+    rel_fd = abs(gK_g - fd) / abs(fd)
+    assert np.isfinite(gp_g).all() and rel_p <= 1e-9 and rel_K <= 1e-9, (rel_p, rel_K)
+    assert rel_fd <= 1e-6, (gK_g, fd)
+    # forward 20 + the remat's 20 again; 20 backward launches (M^T); the
+    # analysis once more for phys0; its backward is the einsum chain
+    assert launches == (40, 20, 41), launches
+    say("slz-gradient", t0,
+        f"make_simulator on the SLZ test grid (MoistEulerSLZ [9, 36, 32, 24], semi-implicit), "
+        f"20 f64 steps, d(sum w * phys_20)/d(phys0, K) on cuda against the cpu: rel err "
+        f"phys0 {rel_p:.3e}, K {rel_K:.3e} (tol 1e-9); K against a central difference "
+        f"(+-0.01) {rel_fd:.3e} (tol 1e-6); launches (column solve forward, backward, analysis) "
+        f"{launches}")
+
+    # ---- 26: fit_parameters on the card, calibrate_drag's case
+    t0 = time.perf_counter()
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        sim, grid, _ = tx.make_simulator(cd.drag_model(out_dir=os.path.join(tmp, "drag")),
+                                         torch.float64, device=dev)
+        p0 = cd.rankine_phys(grid)
+        with torch.no_grad():
+            obs = sim({"Cd": cd.CD_TRUE}, p0)[1:3]
+        fits[dev] = adjoint.fit_parameters(sim, {"Cd": cd.CD_INIT}, p0, obs, steps=3,
+                                              learning_rate=0.08, obs_slice=np.s_[1:3])
+    (f_g, h_g), (f_c, h_c) = fits["cuda"], fits["cpu"]
+    rel_h = max(abs(a - b) / abs(b) for a, b in zip(h_g, h_c))
+    rel_cd = abs(f_g["Cd"] - f_c["Cd"]) / f_c["Cd"]
+    assert h_g[-1] < h_g[0] and rel_h <= 1e-9 and rel_cd <= 1e-9, (h_g, h_c, f_g, f_c)
+    say("fit-parameters", t0,
+        f"fit_parameters on calibrate_drag's case (Williams2013_slabTCBL, 100 cells, 720 "
+        f"steps) f64, 3 Adam iterations on cuda: losses {h_g}, Cd {f_g['Cd']:.6e}; against "
+        f"the cpu rel err losses {rel_h:.3e}, Cd {rel_cd:.3e} (tol 1e-9)")
+    return {"launches": launches}
+
+
+GROUPS = ("kernels", "paths", "jw06", "ensembles", "gradients")
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="on-card smoke test of scythe_tpu_torch")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help=f"comma-separated phase groups to run, of {GROUPS} (all by "
+                    "default; the kernels line and the closing line come only from a "
+                    "run of all)")
+    groups = set(ap.parse_args(argv).only.split(","))
+    if not groups <= set(GROUPS):
+        ap.error(f"--only takes {GROUPS}")
     t0 = time.perf_counter()
     # the port must need neither jax nor the JAX package: importing fails
     sys.modules["jax"] = None
@@ -879,8 +1447,12 @@ def main():
     import scythe_tpu_torch as tx
     from scythe_tpu_torch import model as tmodel
     from scythe_tpu_torch import timeintegration as tti
+    from scythe_tpu_torch import adjoint
+    from scythe_tpu_torch import io as sio
+    from scythe_tpu_torch.examples import calibrate_drag as cd
     from scythe_tpu_torch.examples import cha_bell_initialization as cb
     from scythe_tpu_torch.examples import convective_shower_xyz as sh
+    from scythe_tpu_torch.examples import jw06_baroclinic_slz as jwx
     from scythe_tpu_torch.examples import williamson_sphere as wm
     from scythe_tpu_torch.examples.tc_intensification_rlz import tc_mature_model
     from scythe_tpu_torch.ops import _build
@@ -919,352 +1491,368 @@ def main():
         model = moist3d(tx, tmp, n_steps=120, out_every=60)
         columns = {}
         for name, m in (("moist3d", model),
-                        ("shower", shower(tx, sh, os.path.join(tmp, "shower"), 240))):
+                        ("shower", shower(tx, sh, os.path.join(tmp, "shower"), 240)),
+                        ("jw06", jwx.production_model(os.path.join(tmp, "jw06_column"),
+                                                      t_end=7.5))):
             rs = tmodel.build_context(
                 m, tx.create_grid(m.grid_params, torch.float64, device="cpu"), torch.float64,
             ).ref_state
             columns[name] = (m.grid_params.zmax, m.ts, float(rs.Pxi_bar),
                              rs.Pxi_prof.numpy().astype(np.float64))
-        cs_err, cs_times = phase_column_solve(torch, tti, cs, columns)
-        ra_err, ra_times = phase_analysis(tx, torch, ra)
-        ep_err, ep_ms, ep_plain_ms, ep_launches = phase_probe(torch, ep)
+        if "kernels" in groups:
+            cs_err, cs_times = phase_column_solve(torch, tti, cs, columns)
+            ra_err, ra_times = phase_analysis(tx, torch, ra)
+            ep_err, ep_ms, ep_plain_ms, ep_launches = phase_probe(torch, ep)
 
-        # ---- phase 6: moist3d, the counts reset just before it
-        t0 = time.perf_counter()
-        cs.launches = ra.launches = 0
-        grid, phys = tx.integrate_model(model, dtype=torch.float32, device="cuda")
-        m3d_launches = (cs.launches, ra.launches)
-        assert m3d_launches == (model.num_ts, model.num_ts + 1) == (120, 121), m3d_launches
-        assert phys.shape == (9, 144, 64, 48) and np.isfinite(phys).all()
-        wmax = float(phys[MOIST3D_VARS.index("w")].max())
-        assert wmax > 0.01, wmax
-        outs = sorted(f for f in os.listdir(model.output_dir) if f.startswith("physical_out_"))
-        assert len(outs) == 3, outs
-        say("moist3d-path", t0,
-            f"integrate_model moist3d f32 on cuda, 120 steps: column-solve launches "
-            f"{m3d_launches[0]}, analysis launches {m3d_launches[1]}, all fields finite, "
-            f"w.max {wmax:.4f} m/s, outputs {outs}")
-        t0 = time.perf_counter()
-        ms_step, host_sps, state, step = time_steps(torch, tmodel, model, 100)
-        say("moist3d-steps-per-second", t0,
-            f"100 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
-            f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
-        t0 = time.perf_counter()
-        busy, wall, nk, solve, _ = profile_steps(torch, state, step, card, "moist3d",
-                                                 os.path.join(out_dir, "moist3d_profile.txt"))
-        say("moist3d-profile", t0,
-            f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
-            f"(profiled), {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step; "
-            f"table in chiprun_out/moist3d_profile.txt")
-        del state, step, grid
-
-        # ---- phase 7: the mature-TC path, the counts reset just before it
-        t0 = time.perf_counter()
-        tc = tc_mature_model(os.path.join(tmp, "tc_mature"), t_end=1800.0,
-                             output_interval=900.0)
-        cs.launches = ra.launches = 0
-        grid, phys = tx.integrate_model(tc, dtype=torch.float32, device="cuda")
-        tc_launches = (cs.launches, ra.launches)
-        assert tc_launches == (tc.num_ts, tc.num_ts + 1) == (900, 901), tc_launches
-        assert phys.shape == (9, 300, 4, 24) and np.isfinite(phys).all()
-        qc = float(td.ahyp(torch.from_numpy(phys[6]).double()).max())
-        qr = float(td.ahyp(torch.from_numpy(phys[7]).double()).max())
-        vmax = float(phys[4].max())
-        assert qc > TC_QC_MIN, qc
-        assert 12.0 < vmax < 20.0, vmax
-        outs = sorted(f for f in os.listdir(tc.output_dir) if f.startswith("physical_out_"))
-        assert len(outs) == 3, outs
-        say("tc-mature-path", t0,
-            f"integrate_model tc_mature_model f32 on cuda, 900 steps (30 min): "
-            f"column-solve launches {tc_launches[0]}, analysis launches "
-            f"{tc_launches[1]}, all fields finite, v.max {vmax:.4f} m/s, q_c max "
-            f"{qc:.4e} (> {TC_QC_MIN}), q_r max {qr:.4e}, w.max "
-            f"{float(phys[5].max()):.4f} m/s, outputs {outs}")
-        t0 = time.perf_counter()
-        ms_step, host_sps, state, step = time_steps(torch, tmodel, tc, 200)
-        say("tc-steps-per-second", t0,
-            f"200 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
-            f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
-        tc_sps = 1000.0 / ms_step
-        t0 = time.perf_counter()
-        busy, wall, nk, solve, _ = profile_steps(
-            torch, state, step, card, "tc_mature",
-            os.path.join(out_dir, "tc_mature_profile.txt"))
-        say("tc-profile", t0,
-            f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
-            f"(profiled), {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step; "
-            f"table in chiprun_out/tc_mature_profile.txt")
-        del state, step, grid
-
-        # ---- phase 8: parity on the card
-        t0 = time.perf_counter()
-        sm = small(tx, tmp, 20)
-        _, p_gpu = tx.integrate_model(sm, dtype=torch.float64, device="cuda",
-                                      write_outputs=False)
-        _, p_cpu = tx.integrate_model(sm, dtype=torch.float64, device="cpu",
-                                      write_outputs=False)
-        rel_small = per_field_rel(p_gpu, p_cpu)
-        assert max(rel_small) <= 1e-9, rel_small
-        tc16 = tc_mature_model(os.path.join(tmp, "tc16"), t_end=200.0,
-                               output_interval=200.0, num_cells=16, ts=4.0)
-        _, p_gpu = tx.integrate_model(tc16, dtype=torch.float64, device="cuda",
-                                      write_outputs=False)
-        _, p_cpu = tx.integrate_model(tc16, dtype=torch.float64, device="cpu",
-                                      write_outputs=False)
-        rel_tc16 = per_field_rel(p_gpu, p_cpu)
-        assert max(rel_tc16) <= 1e-9, rel_tc16
-        say("parity-f64", t0,
-            f"cuda f64 (kernels) vs cpu f64 (plain), rel err per field (tol 1e-9): small "
-            f"20 steps {fmt_rel(rel_small)}; TC bundle 16 cells 50 steps {fmt_rel(rel_tc16)}")
-
-        t0 = time.perf_counter()
-        m20 = moist3d(tx, tmp, n_steps=20, out_every=20, name="moist3d_20")
-        _, p32 = tx.integrate_model(m20, dtype=torch.float32, device="cuda",
-                                    write_outputs=False)
-        _, p64 = tx.integrate_model(m20, dtype=torch.float64, device="cuda",
-                                    write_outputs=False)
-        rel_m3d = per_field_rel(p32, p64)
-        checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
-        assert all(rel_m3d[v] <= 1e-4 for v in checked), rel_m3d
-        tc20 = tc_mature_model(os.path.join(tmp, "tc20"), t_end=40.0, output_interval=40.0)
-        _, p32 = tx.integrate_model(tc20, dtype=torch.float32, device="cuda",
-                                    write_outputs=False)
-        _, p64 = tx.integrate_model(tc20, dtype=torch.float64, device="cuda",
-                                    write_outputs=False)
-        rel_tc = per_field_rel(p32, p64)
-        tc_checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
-        bounds = [TC_F32_BOUND.get(MOIST3D_VARS[v], 1e-4) for v in range(9)]
-        print(f"  TC 20 steps cuda f32 vs f64 rel err {fmt_rel(rel_tc)}", flush=True)
-        assert all(rel_tc[v] <= bounds[v] for v in tc_checked), rel_tc
-        say("parity-f32", t0,
-            f"cuda f32 vs cuda f64, 20 steps, rel err per field: moist3d {fmt_rel(rel_m3d)} "
-            f"(tol 1e-4 on {[MOIST3D_VARS[v] for v in checked]}); TC full width "
-            f"{fmt_rel(rel_tc)} (tol {TC_F32_BOUND} else 1e-4, on "
-            f"{[MOIST3D_VARS[v] for v in tc_checked]})")
-
-        # ---- phase 9: the flagship two-layer path; no hand-written kernel
-        # lies on it, and the counts, reset just before it, say so
-        t0 = time.perf_counter()
-        cs.launches = ra.launches = ep.launches = 0
-        tw, grid, phys = flagship_workflow(tx, cb, os.path.join(tmp, "flagship"),
-                                           torch.float32, "cuda")
-        fl_launches = (cs.launches, ra.launches, ep.launches)
-        assert fl_launches == (0, 0, 0), fl_launches
-        assert (grid.params.rDim, grid.params.b_rDim, grid.nl) == (300, 103, 256)
-        assert phys.shape == (6, 300, 256) and np.isfinite(phys).all()
-        fl = flagship_readings(grid, phys)
-        assert FLAGSHIP_VG_BAND[0] < fl["vg_max"] < FLAGSHIP_VG_BAND[1], fl
-        assert (FLAGSHIP_WAVE2_BAND[0] < fl["vg_wave2_at_50km"]
-                < FLAGSHIP_WAVE2_BAND[1]), fl
-        assert fl["vg_largest_wave_at_45km"] == 2, fl
-        assert fl["vg_odd_waves_at_50km"] < 1e-3 * fl["vg_wave2_at_50km"], fl
-        assert fl["wb_max"] > 0.0 and fl["wb_min"] < 0.0, fl
-        spin_outs, outs = (
-            sorted(f for f in os.listdir(m.output_dir) if f.startswith("physical_out_"))
-            for m in (cb.spinup_model(os.path.join(tmp, "flagship")), tw))
-        assert spin_outs == ["physical_out_0.0.csv", "physical_out_600.0.csv"], spin_outs
-        assert outs == ["physical_out_0.0.csv", "physical_out_1200.0.csv",
-                        "physical_out_600.0.csv"], outs
-        with open(os.path.join(tw.output_dir, outs[1])) as f:
-            assert sum(1 for _ in f) == 1 + 300 * 256
-        say("flagship-path", t0,
-            f"cha_bell_initialization workflow f32 on cuda through integrate_model: "
-            f"Rankine ICs, Oneway_ShallowWater_Slab spinup 200 steps, add_wave2, "
-            f"Twoway_ShallowWater_Slab {tw.num_ts} steps on {list(phys.shape)}; hand-written "
-            f"kernel launches {fl_launches} (none lies on this path); all fields finite; "
-            f"{json.dumps(fl)} (vg.max band {FLAGSHIP_VG_BAND}, wave-2 band "
-            f"{FLAGSHIP_WAVE2_BAND}); outputs {outs}")
-
-        # ---- phase 10: flagship steps/s and profile
-        t0 = time.perf_counter()
-        ms_step, host_sps, state, step = time_steps(torch, tmodel, tw, 200)
-        fl_sps = 1000.0 / ms_step
-        say("flagship-steps-per-second", t0,
-            f"200 two-way steps after 10 warm-up: {fl_sps:.2f} steps/s ({ms_step:.4f} "
-            f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
-        t0 = time.perf_counter()
-        busy, wall, nk, _, gemm = profile_steps(
-            torch, state, step, card, "flagship two-way",
-            os.path.join(out_dir, "flagship_profile.txt"))
-        assert busy > 0.0 and gemm > 0.0, (busy, gemm)
-        say("flagship-profile", t0,
-            f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
-            f"(profiled), {nk:.0f} kernel launches/step, matrix products (einsum) "
-            f"{gemm:.1f} us/step = {100.0 * gemm / busy:.1f}% of busy, other kernels "
-            f"(elementwise, copies) {busy - gemm:.1f} us/step; table in "
-            f"chiprun_out/flagship_profile.txt")
-        del state, step
-
-        # ---- phase 11: the golden trajectory on the card
-        t0 = time.perf_counter()
-        gm = cb.flagship_model(32, 32)
-        golden = np.load(os.path.join(ROOT, "tests", "golden",
-                                      "twoway_slab_50steps_f64.npz"))["phys"]
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            g = tx.create_grid(gm.grid_params, torch.float64, device=dev)
-            gstep = tmodel.build_step(gm, g, tmodel.build_context(gm, g, torch.float64),
-                                      torch.float64)
-            out = tmodel.make_scan(gstep, 50)(cb.vortex_state(g, torch.float64))
-            assert out.spec.device.type == dev
-            runs[dev] = g.synthesis(out.spec)["val"].cpu().numpy()
-        rel_golden = per_field_rel(runs["cuda"], golden)
-        rel_cpu = per_field_rel(runs["cuda"], runs["cpu"])
-        assert max(rel_golden) <= 1e-9 and max(rel_cpu) <= 1e-9, (rel_golden, rel_cpu)
-        say("flagship-golden", t0,
-            f"flagship_model(32, 32) 50 f64 steps on cuda, rel err per field (tol 1e-9): "
-            f"vs tests/golden/twoway_slab_50steps_f64.npz "
-            f"{fmt_rel(rel_golden, FLAGSHIP_VARS)}; vs the same run on the cpu "
-            f"{fmt_rel(rel_cpu, FLAGSHIP_VARS)}")
-
-        # ---- phase 12: flagship f32 against f64 on the card, 50 steps
-        t0 = time.perf_counter()
-        tw50 = tw.with_(integration_time=150.0, output_interval=150.0)
-        _, p32 = tx.integrate_model(tw50, dtype=torch.float32, device="cuda",
-                                    write_outputs=False)
-        _, p64 = tx.integrate_model(tw50, dtype=torch.float64, device="cuda",
-                                    write_outputs=False)
-        rel_fl = per_field_rel(p32, p64)
-        fl_bounds = [FLAGSHIP_F32_BOUND.get(n, 1e-4) for n in FLAGSHIP_VARS]
-        print(f"  flagship 50 steps cuda f32 vs f64 rel err {fmt_rel(rel_fl, FLAGSHIP_VARS)}",
-              flush=True)
-        assert all(np.abs(p64[v]).max() > 0.0 for v in range(6))
-        assert all(r <= b for r, b in zip(rel_fl, fl_bounds)), (rel_fl, fl_bounds)
-        say("flagship-parity-f32", t0,
-            f"cuda f32 vs cuda f64, 50 two-way steps from the wave-2 ICs at full width, "
-            f"rel err per field {fmt_rel(rel_fl, FLAGSHIP_VARS)} (tol {FLAGSHIP_F32_BOUND} "
-            f"else 1e-4)")
-
-        # ---- phase 13: the height-resolved BL, an RLZ set: its closing
-        # analysis is the CUDA kernel; the counts reset just before it
-        t0 = time.perf_counter()
-        hm = hrbl_model(tx, tmp, 100)
-        cs.launches = ra.launches = 0
-        _, p_gpu = tx.integrate_model(hm, dtype=torch.float64, device="cuda",
-                                      write_outputs=False)
-        hrbl_launches = (cs.launches, ra.launches)
-        assert hrbl_launches == (0, hm.num_ts + 1) == (0, 101), hrbl_launches
-        _, p_cpu = tx.integrate_model(hm, dtype=torch.float64, device="cpu",
-                                      write_outputs=False)
-        assert ra.launches == 101  # the CPU run launched nothing
-        rel_hrbl = per_field_rel(p_gpu, p_cpu)
-        assert np.isfinite(p_gpu).all() and max(rel_hrbl) <= 1e-9, rel_hrbl
-        assert p_gpu[3].min() < 0.0 and np.abs(p_gpu[5]).max() > 0.0  # inflow, wb written
-        say("height-resolved-bl-path", t0,
-            f"Oneway_ShallowWater_HeightResolvedBL {list(p_gpu.shape)} 100 f64 steps on "
-            f"cuda: column-solve launches {hrbl_launches[0]}, analysis launches "
-            f"{hrbl_launches[1]}; vs cpu f64 rel err per field (tol 1e-9) "
-            f"{fmt_rel(rel_hrbl, FLAGSHIP_VARS)}; ub.min {float(p_gpu[3].min()):.4f} m/s")
-
-        # ---- phases 14-15: the convective shower at full width, with the
-        # example's options and under moist_production; the counts reset
-        # just before each run
-        shower_runs = {}
-        for label, profile in (("shower", None), ("shower_production", "moist_production")):
+        if "paths" in groups:
+            # ---- phase 6: moist3d, the counts reset just before it
             t0 = time.perf_counter()
-            sm = shower(tx, sh, os.path.join(tmp, label), 240, profile)
             cs.launches = ra.launches = 0
-            grid, phys = tx.integrate_model(sm, dtype=torch.float32, device="cuda")
-            launches = (cs.launches, ra.launches)
-            assert launches == (sm.num_ts, sm.num_ts + 1) == (240, 241), launches
-            assert phys.shape == (9, 144, 16, 32) and np.isfinite(phys).all()
-            r = sh.readings(phys)
-            band_w, band_qc = SHOWER_BANDS[label]
-            assert band_w[0] < r["w_max"] < band_w[1], (label, r)
-            assert band_qc[0] < r["qc_max"] < band_qc[1], (label, r)
-            outs = sorted(f for f in os.listdir(sm.output_dir) if f.startswith("physical_out_"))
-            assert len(outs) == 7, outs
-            say(f"{label}-path", t0,
-                f"integrate_model convective shower (MoistEulerXYZ, {list(phys.shape)}) f32 "
-                f"on cuda, 240 steps (60 s), options {json.dumps(sm.opts(), default=str)}: "
-                f"column-solve launches {launches[0]}, analysis launches {launches[1]}; all "
-                f"fields finite; {json.dumps(r)} (w.max band {band_w}, q_c max band "
-                f"{band_qc}); {len(outs)} outputs")
+            grid, phys = tx.integrate_model(model, dtype=torch.float32, device="cuda")
+            m3d_launches = (cs.launches, ra.launches)
+            assert m3d_launches == (model.num_ts, model.num_ts + 1) == (120, 121), m3d_launches
+            assert phys.shape == (9, 144, 64, 48) and np.isfinite(phys).all()
+            wmax = float(phys[MOIST3D_VARS.index("w")].max())
+            assert wmax > 0.01, wmax
+            outs = sorted(f for f in os.listdir(model.output_dir) if f.startswith("physical_out_"))
+            assert len(outs) == 3, outs
+            say("moist3d-path", t0,
+                f"integrate_model moist3d f32 on cuda, 120 steps: column-solve launches "
+                f"{m3d_launches[0]}, analysis launches {m3d_launches[1]}, all fields finite, "
+                f"w.max {wmax:.4f} m/s, outputs {outs}")
             t0 = time.perf_counter()
-            ms_step, host_sps, state, step = time_steps(torch, tmodel, sm, 100)
-            busy, wall, nk, solve, gemm = profile_steps(
-                torch, state, step, card, label, os.path.join(out_dir, f"{label}_profile.txt"))
-            shower_runs[label] = {"launches": launches, "steps_per_s": 1000.0 / ms_step,
-                                  "busy_us": busy, "launches_per_step": nk}
-            say(f"{label}-steps-per-second", t0,
+            ms_step, host_sps, state, step = time_steps(torch, tmodel, model, 100)
+            say("moist3d-steps-per-second", t0,
                 f"100 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
-                f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}; "
-                f"profile of 10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step "
-                f"wall, {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step, "
-                f"matrix products {gemm:.1f} us/step; table in chiprun_out/{label}_profile.txt")
+                f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
+            t0 = time.perf_counter()
+            busy, wall, nk, solve, _ = profile_steps(torch, state, step, card, "moist3d",
+                                                     os.path.join(out_dir, "moist3d_profile.txt"))
+            say("moist3d-profile", t0,
+                f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
+                f"(profiled), {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step; "
+                f"table in chiprun_out/moist3d_profile.txt")
             del state, step, grid
 
-        # ---- phase 16: parity of the new geometries on the card
-        t0 = time.perf_counter()
-        xm = xyz_test_model(tx, tmp, 20)
-        _, p_gpu = tx.integrate_model(xm, dtype=torch.float64, device="cuda",
-                                      write_outputs=False)
-        _, p_cpu = tx.integrate_model(xm, dtype=torch.float64, device="cpu",
-                                      write_outputs=False)
-        rel_xyz = per_field_rel(p_gpu, p_cpu)
-        assert max(rel_xyz) <= 1e-9, rel_xyz
-        s20 = shower(tx, sh, os.path.join(tmp, "shower_20"), 20)
-        _, p32 = tx.integrate_model(s20, dtype=torch.float32, device="cuda",
-                                    write_outputs=False)
-        _, p64 = tx.integrate_model(s20, dtype=torch.float64, device="cuda",
-                                    write_outputs=False)
-        rel_sh = per_field_rel(p32, p64)
-        sh_checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
-        assert all(rel_sh[v] <= 1e-4 for v in sh_checked), rel_sh
-        zm = slz_test_model(tx, tmp, 20, thermal=True)
-        _, p_gpu = tx.integrate_model(zm, dtype=torch.float64, device="cuda",
-                                      write_outputs=False)
-        _, p_cpu = tx.integrate_model(zm, dtype=torch.float64, device="cpu",
-                                      write_outputs=False)
-        rel_slz = per_field_rel(p_gpu, p_cpu)
-        assert max(rel_slz) <= 1e-9, rel_slz
-        say("xyz-slz-parity", t0,
-            f"rel err per field: XYZ (tests/test_xyz.py's 12-cell grid) 20 f64 steps cuda vs "
-            f"cpu {fmt_rel(rel_xyz)} (tol 1e-9); the shower 20 steps cuda f32 vs f64 "
-            f"{fmt_rel(rel_sh)} (tol 1e-4, on "
-            f"{[MOIST3D_VARS[v] for v in sh_checked]}); SLZ (tests/test_slz.py's grid) 20 "
-            f"f64 steps cuda vs cpu {fmt_rel(rel_slz)} (tol 1e-9)")
+            # ---- phase 7: the mature-TC path, the counts reset just before it
+            t0 = time.perf_counter()
+            tc = tc_mature_model(os.path.join(tmp, "tc_mature"), t_end=1800.0,
+                                 output_interval=900.0)
+            cs.launches = ra.launches = 0
+            grid, phys = tx.integrate_model(tc, dtype=torch.float32, device="cuda")
+            tc_launches = (cs.launches, ra.launches)
+            assert tc_launches == (tc.num_ts, tc.num_ts + 1) == (900, 901), tc_launches
+            assert phys.shape == (9, 300, 4, 24) and np.isfinite(phys).all()
+            qc = float(td.ahyp(torch.from_numpy(phys[6]).double()).max())
+            qr = float(td.ahyp(torch.from_numpy(phys[7]).double()).max())
+            vmax = float(phys[4].max())
+            assert qc > TC_QC_MIN, qc
+            assert 12.0 < vmax < 20.0, vmax
+            outs = sorted(f for f in os.listdir(tc.output_dir) if f.startswith("physical_out_"))
+            assert len(outs) == 3, outs
+            say("tc-mature-path", t0,
+                f"integrate_model tc_mature_model f32 on cuda, 900 steps (30 min): "
+                f"column-solve launches {tc_launches[0]}, analysis launches "
+                f"{tc_launches[1]}, all fields finite, v.max {vmax:.4f} m/s, q_c max "
+                f"{qc:.4e} (> {TC_QC_MIN}), q_r max {qr:.4e}, w.max "
+                f"{float(phys[5].max()):.4f} m/s, outputs {outs}")
+            t0 = time.perf_counter()
+            ms_step, host_sps, state, step = time_steps(torch, tmodel, tc, 200)
+            say("tc-steps-per-second", t0,
+                f"200 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
+                f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
+            tc_sps = 1000.0 / ms_step
+            t0 = time.perf_counter()
+            busy, wall, nk, solve, _ = profile_steps(
+                torch, state, step, card, "tc_mature",
+                os.path.join(out_dir, "tc_mature_profile.txt"))
+            say("tc-profile", t0,
+                f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
+                f"(profiled), {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step; "
+                f"table in chiprun_out/tc_mature_profile.txt")
+            del state, step, grid
 
-        # ---- phase 17: the SLZ global balance, the counts reset just before
-        t0 = time.perf_counter()
-        zb = slz_test_model(tx, tmp, 200, thermal=False)
-        cs.launches = ra.launches = 0
-        _, p_gpu = tx.integrate_model(zb, dtype=torch.float64, device="cuda",
-                                      write_outputs=False)
-        slz_launches = (cs.launches, ra.launches)
-        assert slz_launches == (200, 201), slz_launches
-        w_abs, u_abs = float(np.abs(p_gpu[5]).max()), float(np.abs(p_gpu[3]).max())
-        assert np.isfinite(p_gpu).all() and w_abs < 1e-10 and u_abs < 1e-10, (w_abs, u_abs)
-        say("slz-balance", t0,
-            f"MoistEulerSLZ {list(p_gpu.shape)} from zero perturbation, 200 f64 steps on "
-            f"cuda: column-solve launches {slz_launches[0]}, analysis launches "
-            f"{slz_launches[1]}; max|w| {w_abs:.3e}, max|u| {u_abs:.3e} (tol 1e-10)")
+            # ---- phase 8: parity on the card
+            t0 = time.perf_counter()
+            sm = small(tx, tmp, 20)
+            _, p_gpu = tx.integrate_model(sm, dtype=torch.float64, device="cuda",
+                                          write_outputs=False)
+            _, p_cpu = tx.integrate_model(sm, dtype=torch.float64, device="cpu",
+                                          write_outputs=False)
+            rel_small = per_field_rel(p_gpu, p_cpu)
+            assert max(rel_small) <= 1e-9, rel_small
+            tc16 = tc_mature_model(os.path.join(tmp, "tc16"), t_end=200.0,
+                                   output_interval=200.0, num_cells=16, ts=4.0)
+            _, p_gpu = tx.integrate_model(tc16, dtype=torch.float64, device="cuda",
+                                          write_outputs=False)
+            _, p_cpu = tx.integrate_model(tc16, dtype=torch.float64, device="cpu",
+                                          write_outputs=False)
+            rel_tc16 = per_field_rel(p_gpu, p_cpu)
+            assert max(rel_tc16) <= 1e-9, rel_tc16
+            say("parity-f64", t0,
+                f"cuda f64 (kernels) vs cpu f64 (plain), rel err per field (tol 1e-9): small "
+                f"20 steps {fmt_rel(rel_small)}; TC bundle 16 cells 50 steps {fmt_rel(rel_tc16)}")
 
-        # ---- phase 18: Williamson case 2 on the SL sphere, one day; an RL
-        # structure, so no hand-written kernel lies on it and the counts say so
-        t0 = time.perf_counter()
-        w2 = wm.williamson2_model(os.path.join(tmp, "williamson2"))
-        cs.launches = ra.launches = 0
-        grid, phys = tx.integrate_model(w2, dtype=torch.float64, device="cuda")
-        sl_launches = (cs.launches, ra.launches)
-        assert sl_launches == (0, 0), sl_launches
-        h2, u2, _ = wm.w2_fields(grid.gridpoints()[:, 0].reshape(grid.spatial_shape))
-        l2 = float(np.sqrt(np.mean((phys[0] - h2) ** 2)) / np.sqrt(np.mean(h2**2)))
-        v_abs = float(np.abs(phys[2]).max())
-        assert np.isfinite(phys).all() and l2 < 5.0e-4 and v_abs < 0.05, (l2, v_abs)
-        outs = sorted(f for f in os.listdir(w2.output_dir) if f.startswith("physical_out_"))
-        assert len(outs) == 3, outs
-        say("williamson2-path", t0,
-            f"ShallowWaterSphere {list(phys.shape)} (models/williamson2_sphere.py's "
-            f"configuration) f64 on cuda, {w2.num_ts} steps (one day): hand-written kernel "
-            f"launches {sl_launches} (none lies on this path); l2(h) against the analytic "
-            f"state {l2:.3e} (tol 5e-4), max|v| {v_abs:.4f} m/s (tol 0.05); outputs {outs}")
+            t0 = time.perf_counter()
+            m20 = moist3d(tx, tmp, n_steps=20, out_every=20, name="moist3d_20")
+            _, p32 = tx.integrate_model(m20, dtype=torch.float32, device="cuda",
+                                        write_outputs=False)
+            _, p64 = tx.integrate_model(m20, dtype=torch.float64, device="cuda",
+                                        write_outputs=False)
+            rel_m3d = per_field_rel(p32, p64)
+            checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
+            assert all(rel_m3d[v] <= 1e-4 for v in checked), rel_m3d
+            tc20 = tc_mature_model(os.path.join(tmp, "tc20"), t_end=40.0, output_interval=40.0)
+            _, p32 = tx.integrate_model(tc20, dtype=torch.float32, device="cuda",
+                                        write_outputs=False)
+            _, p64 = tx.integrate_model(tc20, dtype=torch.float64, device="cuda",
+                                        write_outputs=False)
+            rel_tc = per_field_rel(p32, p64)
+            tc_checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
+            bounds = [TC_F32_BOUND.get(MOIST3D_VARS[v], 1e-4) for v in range(9)]
+            print(f"  TC 20 steps cuda f32 vs f64 rel err {fmt_rel(rel_tc)}", flush=True)
+            assert all(rel_tc[v] <= bounds[v] for v in tc_checked), rel_tc
+            say("parity-f32", t0,
+                f"cuda f32 vs cuda f64, 20 steps, rel err per field: moist3d {fmt_rel(rel_m3d)} "
+                f"(tol 1e-4 on {[MOIST3D_VARS[v] for v in checked]}); TC full width "
+                f"{fmt_rel(rel_tc)} (tol {TC_F32_BOUND} else 1e-4, on "
+                f"{[MOIST3D_VARS[v] for v in tc_checked]})")
+
+            # ---- phase 9: the flagship two-layer path; no hand-written kernel
+            # lies on it, and the counts, reset just before it, say so
+            t0 = time.perf_counter()
+            cs.launches = ra.launches = ep.launches = 0
+            tw, grid, phys = flagship_workflow(tx, cb, os.path.join(tmp, "flagship"),
+                                               torch.float32, "cuda")
+            fl_launches = (cs.launches, ra.launches, ep.launches)
+            assert fl_launches == (0, 0, 0), fl_launches
+            assert (grid.params.rDim, grid.params.b_rDim, grid.nl) == (300, 103, 256)
+            assert phys.shape == (6, 300, 256) and np.isfinite(phys).all()
+            fl = flagship_readings(grid, phys)
+            assert FLAGSHIP_VG_BAND[0] < fl["vg_max"] < FLAGSHIP_VG_BAND[1], fl
+            assert (FLAGSHIP_WAVE2_BAND[0] < fl["vg_wave2_at_50km"]
+                    < FLAGSHIP_WAVE2_BAND[1]), fl
+            assert fl["vg_largest_wave_at_45km"] == 2, fl
+            assert fl["vg_odd_waves_at_50km"] < 1e-3 * fl["vg_wave2_at_50km"], fl
+            assert fl["wb_max"] > 0.0 and fl["wb_min"] < 0.0, fl
+            spin_outs, outs = (
+                sorted(f for f in os.listdir(m.output_dir) if f.startswith("physical_out_"))
+                for m in (cb.spinup_model(os.path.join(tmp, "flagship")), tw))
+            assert spin_outs == ["physical_out_0.0.csv", "physical_out_600.0.csv"], spin_outs
+            assert outs == ["physical_out_0.0.csv", "physical_out_1200.0.csv",
+                            "physical_out_600.0.csv"], outs
+            with open(os.path.join(tw.output_dir, outs[1])) as f:
+                assert sum(1 for _ in f) == 1 + 300 * 256
+            say("flagship-path", t0,
+                f"cha_bell_initialization workflow f32 on cuda through integrate_model: "
+                f"Rankine ICs, Oneway_ShallowWater_Slab spinup 200 steps, add_wave2, "
+                f"Twoway_ShallowWater_Slab {tw.num_ts} steps on {list(phys.shape)}; hand-written "
+                f"kernel launches {fl_launches} (none lies on this path); all fields finite; "
+                f"{json.dumps(fl)} (vg.max band {FLAGSHIP_VG_BAND}, wave-2 band "
+                f"{FLAGSHIP_WAVE2_BAND}); outputs {outs}")
+
+            # ---- phase 10: flagship steps/s and profile
+            t0 = time.perf_counter()
+            ms_step, host_sps, state, step = time_steps(torch, tmodel, tw, 200)
+            fl_sps = 1000.0 / ms_step
+            say("flagship-steps-per-second", t0,
+                f"200 two-way steps after 10 warm-up: {fl_sps:.2f} steps/s ({ms_step:.4f} "
+                f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}")
+            t0 = time.perf_counter()
+            busy, wall, nk, _, gemm = profile_steps(
+                torch, state, step, card, "flagship two-way",
+                os.path.join(out_dir, "flagship_profile.txt"))
+            assert busy > 0.0 and gemm > 0.0, (busy, gemm)
+            say("flagship-profile", t0,
+                f"10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step wall "
+                f"(profiled), {nk:.0f} kernel launches/step, matrix products (einsum) "
+                f"{gemm:.1f} us/step = {100.0 * gemm / busy:.1f}% of busy, other kernels "
+                f"(elementwise, copies) {busy - gemm:.1f} us/step; table in "
+                f"chiprun_out/flagship_profile.txt")
+            del state, step
+
+            # ---- phase 11: the golden trajectory on the card
+            t0 = time.perf_counter()
+            gm = cb.flagship_model(32, 32)
+            golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                          "twoway_slab_50steps_f64.npz"))["phys"]
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                g = tx.create_grid(gm.grid_params, torch.float64, device=dev)
+                gstep = tmodel.build_step(gm, g, tmodel.build_context(gm, g, torch.float64),
+                                          torch.float64)
+                out = tmodel.make_scan(gstep, 50)(cb.vortex_state(g, torch.float64))
+                assert out.spec.device.type == dev
+                runs[dev] = g.synthesis(out.spec)["val"].cpu().numpy()
+            rel_golden = per_field_rel(runs["cuda"], golden)
+            rel_cpu = per_field_rel(runs["cuda"], runs["cpu"])
+            assert max(rel_golden) <= 1e-9 and max(rel_cpu) <= 1e-9, (rel_golden, rel_cpu)
+            say("flagship-golden", t0,
+                f"flagship_model(32, 32) 50 f64 steps on cuda, rel err per field (tol 1e-9): "
+                f"vs tests/golden/twoway_slab_50steps_f64.npz "
+                f"{fmt_rel(rel_golden, FLAGSHIP_VARS)}; vs the same run on the cpu "
+                f"{fmt_rel(rel_cpu, FLAGSHIP_VARS)}")
+
+            # ---- phase 12: flagship f32 against f64 on the card, 50 steps
+            t0 = time.perf_counter()
+            tw50 = tw.with_(integration_time=150.0, output_interval=150.0)
+            _, p32 = tx.integrate_model(tw50, dtype=torch.float32, device="cuda",
+                                        write_outputs=False)
+            _, p64 = tx.integrate_model(tw50, dtype=torch.float64, device="cuda",
+                                        write_outputs=False)
+            rel_fl = per_field_rel(p32, p64)
+            fl_bounds = [FLAGSHIP_F32_BOUND.get(n, 1e-4) for n in FLAGSHIP_VARS]
+            print(f"  flagship 50 steps cuda f32 vs f64 rel err {fmt_rel(rel_fl, FLAGSHIP_VARS)}",
+                  flush=True)
+            assert all(np.abs(p64[v]).max() > 0.0 for v in range(6))
+            assert all(r <= b for r, b in zip(rel_fl, fl_bounds)), (rel_fl, fl_bounds)
+            say("flagship-parity-f32", t0,
+                f"cuda f32 vs cuda f64, 50 two-way steps from the wave-2 ICs at full width, "
+                f"rel err per field {fmt_rel(rel_fl, FLAGSHIP_VARS)} (tol {FLAGSHIP_F32_BOUND} "
+                f"else 1e-4)")
+
+            # ---- phase 13: the height-resolved BL, an RLZ set: its closing
+            # analysis is the CUDA kernel; the counts reset just before it
+            t0 = time.perf_counter()
+            hm = hrbl_model(tx, tmp, 100)
+            cs.launches = ra.launches = 0
+            _, p_gpu = tx.integrate_model(hm, dtype=torch.float64, device="cuda",
+                                          write_outputs=False)
+            hrbl_launches = (cs.launches, ra.launches)
+            assert hrbl_launches == (0, hm.num_ts + 1) == (0, 101), hrbl_launches
+            _, p_cpu = tx.integrate_model(hm, dtype=torch.float64, device="cpu",
+                                          write_outputs=False)
+            assert ra.launches == 101  # the CPU run launched nothing
+            rel_hrbl = per_field_rel(p_gpu, p_cpu)
+            assert np.isfinite(p_gpu).all() and max(rel_hrbl) <= 1e-9, rel_hrbl
+            assert p_gpu[3].min() < 0.0 and np.abs(p_gpu[5]).max() > 0.0  # inflow, wb written
+            say("height-resolved-bl-path", t0,
+                f"Oneway_ShallowWater_HeightResolvedBL {list(p_gpu.shape)} 100 f64 steps on "
+                f"cuda: column-solve launches {hrbl_launches[0]}, analysis launches "
+                f"{hrbl_launches[1]}; vs cpu f64 rel err per field (tol 1e-9) "
+                f"{fmt_rel(rel_hrbl, FLAGSHIP_VARS)}; ub.min {float(p_gpu[3].min()):.4f} m/s")
+
+            # ---- phases 14-15: the convective shower at full width, with the
+            # example's options and under moist_production; the counts reset
+            # just before each run
+            shower_runs = {}
+            for label, profile in (("shower", None), ("shower_production", "moist_production")):
+                t0 = time.perf_counter()
+                sm = shower(tx, sh, os.path.join(tmp, label), 240, profile)
+                cs.launches = ra.launches = 0
+                grid, phys = tx.integrate_model(sm, dtype=torch.float32, device="cuda")
+                launches = (cs.launches, ra.launches)
+                assert launches == (sm.num_ts, sm.num_ts + 1) == (240, 241), launches
+                assert phys.shape == (9, 144, 16, 32) and np.isfinite(phys).all()
+                r = sh.readings(phys)
+                band_w, band_qc = SHOWER_BANDS[label]
+                assert band_w[0] < r["w_max"] < band_w[1], (label, r)
+                assert band_qc[0] < r["qc_max"] < band_qc[1], (label, r)
+                outs = sorted(f for f in os.listdir(sm.output_dir) if f.startswith("physical_out_"))
+                assert len(outs) == 7, outs
+                say(f"{label}-path", t0,
+                    f"integrate_model convective shower (MoistEulerXYZ, {list(phys.shape)}) f32 "
+                    f"on cuda, 240 steps (60 s), options {json.dumps(sm.opts(), default=str)}: "
+                    f"column-solve launches {launches[0]}, analysis launches {launches[1]}; all "
+                    f"fields finite; {json.dumps(r)} (w.max band {band_w}, q_c max band "
+                    f"{band_qc}); {len(outs)} outputs")
+                t0 = time.perf_counter()
+                ms_step, host_sps, state, step = time_steps(torch, tmodel, sm, 100)
+                busy, wall, nk, solve, gemm = profile_steps(
+                    torch, state, step, card, label, os.path.join(out_dir, f"{label}_profile.txt"))
+                shower_runs[label] = {"launches": launches, "steps_per_s": 1000.0 / ms_step,
+                                      "busy_us": busy, "launches_per_step": nk}
+                say(f"{label}-steps-per-second", t0,
+                    f"100 steps after 10 warm-up: {1000.0 / ms_step:.2f} steps/s ({ms_step:.4f} "
+                    f"ms/step by CUDA events; {host_sps:.2f} steps/s by host clock) on {card}; "
+                    f"profile of 10 steps: device busy {busy:.1f} us/step of {wall:.1f} us/step "
+                    f"wall, {nk:.0f} kernel launches/step, column solve {solve:.2f} us/step, "
+                    f"matrix products {gemm:.1f} us/step; table in chiprun_out/{label}_profile.txt")
+                del state, step, grid
+
+            # ---- phase 16: parity of the new geometries on the card
+            t0 = time.perf_counter()
+            xm = xyz_test_model(tx, tmp, 20)
+            _, p_gpu = tx.integrate_model(xm, dtype=torch.float64, device="cuda",
+                                          write_outputs=False)
+            _, p_cpu = tx.integrate_model(xm, dtype=torch.float64, device="cpu",
+                                          write_outputs=False)
+            rel_xyz = per_field_rel(p_gpu, p_cpu)
+            assert max(rel_xyz) <= 1e-9, rel_xyz
+            s20 = shower(tx, sh, os.path.join(tmp, "shower_20"), 20)
+            _, p32 = tx.integrate_model(s20, dtype=torch.float32, device="cuda",
+                                        write_outputs=False)
+            _, p64 = tx.integrate_model(s20, dtype=torch.float64, device="cuda",
+                                        write_outputs=False)
+            rel_sh = per_field_rel(p32, p64)
+            sh_checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
+            assert all(rel_sh[v] <= 1e-4 for v in sh_checked), rel_sh
+            zm = slz_test_model(tx, tmp, 20, thermal=True)
+            _, p_gpu = tx.integrate_model(zm, dtype=torch.float64, device="cuda",
+                                          write_outputs=False)
+            _, p_cpu = tx.integrate_model(zm, dtype=torch.float64, device="cpu",
+                                          write_outputs=False)
+            rel_slz = per_field_rel(p_gpu, p_cpu)
+            assert max(rel_slz) <= 1e-9, rel_slz
+            say("xyz-slz-parity", t0,
+                f"rel err per field: XYZ (tests/test_xyz.py's 12-cell grid) 20 f64 steps cuda vs "
+                f"cpu {fmt_rel(rel_xyz)} (tol 1e-9); the shower 20 steps cuda f32 vs f64 "
+                f"{fmt_rel(rel_sh)} (tol 1e-4, on "
+                f"{[MOIST3D_VARS[v] for v in sh_checked]}); SLZ (tests/test_slz.py's grid) 20 "
+                f"f64 steps cuda vs cpu {fmt_rel(rel_slz)} (tol 1e-9)")
+
+            # ---- phase 17: the SLZ global balance, the counts reset just before
+            t0 = time.perf_counter()
+            zb = slz_test_model(tx, tmp, 200, thermal=False)
+            cs.launches = ra.launches = 0
+            _, p_gpu = tx.integrate_model(zb, dtype=torch.float64, device="cuda",
+                                          write_outputs=False)
+            slz_launches = (cs.launches, ra.launches)
+            assert slz_launches == (200, 201), slz_launches
+            w_abs, u_abs = float(np.abs(p_gpu[5]).max()), float(np.abs(p_gpu[3]).max())
+            assert np.isfinite(p_gpu).all() and w_abs < 1e-10 and u_abs < 1e-10, (w_abs, u_abs)
+            say("slz-balance", t0,
+                f"MoistEulerSLZ {list(p_gpu.shape)} from zero perturbation, 200 f64 steps on "
+                f"cuda: column-solve launches {slz_launches[0]}, analysis launches "
+                f"{slz_launches[1]}; max|w| {w_abs:.3e}, max|u| {u_abs:.3e} (tol 1e-10)")
+
+            # ---- phase 18: Williamson case 2 on the SL sphere, one day; an RL
+            # structure, so no hand-written kernel lies on it and the counts say so
+            t0 = time.perf_counter()
+            w2 = wm.williamson2_model(os.path.join(tmp, "williamson2"))
+            cs.launches = ra.launches = 0
+            grid, phys = tx.integrate_model(w2, dtype=torch.float64, device="cuda")
+            sl_launches = (cs.launches, ra.launches)
+            assert sl_launches == (0, 0), sl_launches
+            h2, u2, _ = wm.w2_fields(grid.gridpoints()[:, 0].reshape(grid.spatial_shape))
+            l2 = float(np.sqrt(np.mean((phys[0] - h2) ** 2)) / np.sqrt(np.mean(h2**2)))
+            v_abs = float(np.abs(phys[2]).max())
+            assert np.isfinite(phys).all() and l2 < 5.0e-4 and v_abs < 0.05, (l2, v_abs)
+            outs = sorted(f for f in os.listdir(w2.output_dir) if f.startswith("physical_out_"))
+            assert len(outs) == 3, outs
+            say("williamson2-path", t0,
+                f"ShallowWaterSphere {list(phys.shape)} (models/williamson2_sphere.py's "
+                f"configuration) f64 on cuda, {w2.num_ts} steps (one day): hand-written kernel "
+                f"launches {sl_launches} (none lies on this path); l2(h) against the analytic "
+                f"state {l2:.3e} (tol 5e-4), max|v| {v_abs:.4f} m/s (tol 0.05); outputs {outs}")
+        if "jw06" in groups:
+            jw = phase_jw06(tx, tmodel, jwx, torch, cs, ra, tmp, card, out_dir)
+        if "ensembles" in groups:
+            ens = phase_ensembles(tx, tmodel, tti, torch, cs, ra, cb, sh, sio, tmp, card)
+        if "gradients" in groups:
+            kg_times = phase_kernel_gradients(tx, tti, torch, cs, ra, columns)
+            grad = phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    if groups != set(GROUPS):
+        print(f"  phase groups run: {sorted(groups)}; no kernels line without all of them",
+              flush=True)
+        return 0
     print(f"  TC mature path: {tc_sps:.2f} steps/s; moist3d launches {m3d_launches}; "
           f"flagship two-way: {fl_sps:.2f} steps/s; shower: "
-          f"{json.dumps(shower_runs)}", flush=True)
+          f"{json.dumps(shower_runs)}; JW06 production: {json.dumps(jw)}; ensembles: "
+          f"{json.dumps(ens)}", flush=True)
     cs_main = cs_times["9216x48 f32"]
     n_probe = int(np.prod(ep.SHAPE))
     # seven slot tensors and rinv read, one output written; 21 FLOP an output
@@ -1283,7 +1871,14 @@ def main():
                                  "height_resolved_bl": hrbl_launches[0],
                                  **{k: v["launches"][0] for k, v in shower_runs.items()},
                                  "slz_balance": slz_launches[0],
-                                 "williamson2": sl_launches[0]},
+                                 "williamson2": sl_launches[0],
+                                 "jw06_production": jw["launches"][0],
+                                 "flagship_ensemble": ens["flagship_launches"][0],
+                                 "shower_ensemble": ens["shower_launches"][0],
+                                 "slz_gradient": grad["launches"][0]},
+            "backward_launches": grad["launches"][1],
+            **grad_keys(kg_times, "column_solve 9216x48", ""),
+            **grad_keys(kg_times, "column_solve 13824x24", "jw06_"),
             "max_abs_err": cs_err["kernel"],
             "library_max_abs_err": cs_err["library"],
             "ms": cs_main[0],
@@ -1302,7 +1897,8 @@ def main():
             **{f"{key}_{k}": cs_times[label][i]
                for key, label in (("profile", "9216x48 f32 profile"),
                                   ("shower", "2304x32 f32"),
-                                  ("shower_profile", "2304x32 f32 profile"))
+                                  ("shower_profile", "2304x32 f32 profile"),
+                                  ("jw06", "13824x24 f32"))
                for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by"))},
         },
@@ -1318,7 +1914,14 @@ def main():
                                  "height_resolved_bl": hrbl_launches[1],
                                  **{k: v["launches"][1] for k, v in shower_runs.items()},
                                  "slz_balance": slz_launches[1],
-                                 "williamson2": sl_launches[1]},
+                                 "williamson2": sl_launches[1],
+                                 "jw06_production": jw["launches"][1],
+                                 "flagship_ensemble": ens["flagship_launches"][1],
+                                 "shower_ensemble": ens["shower_launches"][1],
+                                 "slz_gradient": grad["launches"][2]},
+            "backward_route": "einsum (the transposed chain; no kernel)",
+            **grad_keys(kg_times, "rlz_analysis moist3d", ""),
+            **grad_keys(kg_times, "rlz_analysis jw06_production", "jw06_"),
             "max_abs_err": ra_err,
             "ms": ra_times["moist3d"][0],
             "plain_ms": ra_times["moist3d"][1],
@@ -1335,7 +1938,8 @@ def main():
             "transform_bound_by": ra_times["transform"][3],
             "moist3d_f64_ms": ra_times["moist3d_f64"][0],
             "moist3d_f64_plain_ms": ra_times["moist3d_f64"][1],
-            **{f"{name}_{k}": ra_times[name][i] for name in ("shower", "slz_test", "jw06")
+            **{f"{name}_{k}": ra_times[name][i]
+               for name in ("shower", "slz_test", "jw06", "jw06_production")
                for i, k in enumerate(("ms", "plain_ms", "bound_ms", "bound_by"))},
         },
         {

@@ -14,6 +14,10 @@ analysis of the RLZ-structured grids are hand-written CUDA kernels
 transforms are matrix products (``torch.einsum``).  The entry
 points run on the card by default (``device="cuda"``) and raise where there
 is none; pass ``device="cpu"`` to run on the CPU, as the tests do.
+Both kernels are ``torch.autograd.Function``s with backward, jvp and vmap
+rules, so the port differentiates (``adjoint.make_simulator``,
+``fit_parameters``), batches ensembles (``model.integrate_ensemble``) and
+balances initial states (``balance.balance_zonal_state``) on the card.
 """
 
 from .config import BC, ZBC, GridParameters, ModelParameters
@@ -27,6 +31,7 @@ __all__ = [
     "Grid",
     "create_grid",
     "integrate_model",
+    "make_simulator",
 ]
 
 
@@ -37,3 +42,11 @@ def integrate_model(model, dtype=None, write_outputs=True, resume_from=None,
 
     return _run(model, dtype=dtype, write_outputs=write_outputs,
                 resume_from=resume_from, profile_dir=profile_dir, device=device)
+
+
+def make_simulator(model, dtype=None, n_steps=None, remat=True, device="cuda"):
+    """Differentiable end-to-end simulator (adjoint.make_simulator):
+    sim(params, phys0) -> final fields, for torch.autograd and torch.func."""
+    from .adjoint import make_simulator as _mk
+
+    return _mk(model, dtype=dtype, n_steps=n_steps, remat=remat, device=device)

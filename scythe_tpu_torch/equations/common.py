@@ -137,6 +137,17 @@ def get_equation_set(name: str) -> Callable:
     return REGISTRY[name]
 
 
+def same_param(a, b) -> bool:
+    """Whether two physical parameters are one value, decided on the host:
+    the same object, or equal Python numbers.  A traced parameter (a tensor,
+    adjoint.make_simulator) is never compared by value, so the test cuts no
+    graph and does not wait for the card; the form the caller then takes
+    computes the same sum."""
+    if a is b:
+        return True
+    return not torch.is_tensor(a) and not torch.is_tensor(b) and a == b
+
+
 def stack_tendencies(nvars: int, shape, dtype, terms: dict[int, torch.Tensor]):
     """Assemble [nvars, *spatial] from a non-empty {var_index: tendency}
     mapping; the missing rows are zeros on the terms' device."""

@@ -23,7 +23,7 @@ import torch
 from ..physics import microphysics as mp
 from ..physics import thermodynamics as td
 from ..physics import turbulence as tb
-from .common import EqContext, EqResult, equation_set, stack_tendencies
+from .common import EqContext, EqResult, equation_set, same_param, stack_tendencies
 
 
 @equation_set(geometry="SL")
@@ -175,7 +175,7 @@ def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
         dtype=dp.dtype, device=dp.device,
     )[:, None, None, None]
     aa = a * a
-    K_v_const = float(ctx.p("K_v", K))
+    K_v_const = ctx.p("K_v", K)  # a traced parameter stays a tensor
     cs = float(ctx.options.get("smagorinsky", 0.0) or 0.0)
     ivd = bool(ctx.options.get("implicit_vdiff"))
     smag_h = str(ctx.options.get("smagorinsky_axes", "rlz")) == "rl"
@@ -200,7 +200,7 @@ def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
     horiz = dpp / aa + dll / (aa * cosp * cosp) - tanp * dp / aa
     if ivd:
         lap_all = lap_mask * (K_eff * horiz)
-    elif K_v_const == K and not smag_h:
+    elif same_param(K_v_const, K) and not smag_h:
         lap_all = lap_mask * (K_eff * (horiz + dzz))
     else:
         lap_all = lap_mask * (K_eff * horiz + Kz_eff * dzz)

@@ -13,7 +13,7 @@ import torch
 from ..physics import microphysics as mp
 from ..physics import thermodynamics as td
 from ..physics import turbulence as tb
-from .common import EqContext, EqResult, equation_set, stack_tendencies
+from .common import EqContext, EqResult, equation_set, same_param, stack_tendencies
 
 
 @equation_set(geometry="R")
@@ -445,7 +445,7 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
         dtype=dr.dtype, device=dr.device,
     )[:, None, None, None]
     # physical_params['K_v']: separate constant vertical diffusivity
-    K_v_const = float(ctx.p("K_v", K))
+    K_v_const = ctx.p("K_v", K)  # a traced parameter stays a tensor
     cs = float(ctx.options.get("smagorinsky", 0.0) or 0.0)
     ivd = bool(ctx.options.get("implicit_vdiff"))
     # options['smagorinsky_axes'] = 'rl': the horizontal-only closure; the
@@ -471,7 +471,7 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
     horiz = drr + dr / r + dll / (r * r)
     if ivd:
         lap_all = lap_mask * (K_eff * horiz)
-    elif K_v_const == K and not smag_h:
+    elif same_param(K_v_const, K) and not smag_h:
         lap_all = lap_mask * (K_eff * (horiz + dzz))
     else:
         lap_all = lap_mask * (K_eff * horiz + Kz_eff * dzz)
@@ -630,7 +630,7 @@ def MoistEulerXYZ(fields, ctx: EqContext) -> EqResult:
         return (-u * dx[i]) + (-v * dy[i]) + (-w * wdz)
 
     # physical_params['K_v']: separate constant vertical diffusivity
-    K_v_const = float(ctx.p("K_v", K))
+    K_v_const = ctx.p("K_v", K)  # a traced parameter stays a tensor
     cs = float(ctx.options.get("smagorinsky", 0.0) or 0.0)
     ivd = bool(ctx.options.get("implicit_vdiff"))
     smag_h = str(ctx.options.get("smagorinsky_axes", "rlz")) == "rl"
@@ -655,7 +655,7 @@ def MoistEulerXYZ(fields, ctx: EqContext) -> EqResult:
         # rainfall_test's K (dxx + dzz) with dyy inserted in the middle
         if ivd:
             return K_eff * (dxx[i] + dyy[i])
-        if K_v_const == K and not smag_h:
+        if same_param(K_v_const, K) and not smag_h:
             return K_eff * (dxx[i] + dyy[i] + dzz[i])
         return K_eff * (dxx[i] + dyy[i]) + Kz_eff * dzz[i]
 

@@ -219,7 +219,9 @@ class Grid:
         DFT, ring mask and radial and vertical operators, so XYZ (a uniform
         2/3-rule mask) and SLZ (the a cos(lat) ring mask) are the same
         function at other shapes; the JAX package ran its fused TPU analysis
-        on RLZ only, and this reach is a choice of implementation."""
+        on RLZ only, and this reach is a choice of implementation.  The
+        wrapper's autograd Function carries the graph (backward, jvp, and a
+        vmap rule that takes every member in one launch)."""
         if self._struct == "RLZ":
             if phys.device.type == "cuda":
                 # the kernel reads row-major; a field computed from the

@@ -20,6 +20,9 @@ filter (``modal_filter_tau``, ``modal_filter_order``, ``modal_filter_axes``),
 ``smagorinsky``, ``smagorinsky_axes``), ``topography_file``,
 ``checkpoint_interval``, ``write_spectral`` and ``output_format='nc'``.
 ``profile_dir`` on ``integrate_model`` writes a ``torch.profiler`` trace.
+``integrate_ensemble`` runs members as a leading axis (``torch.func.vmap``
+over a member's run: each hand-written kernel launches once a step for all
+members).
 """
 
 from __future__ import annotations
@@ -475,10 +478,11 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
         var_np1, e_nm1, e_nm2 = ti.explicit_step(
             phys, expdot, state.expdot_nm1, state.expdot_nm2, state.t, ts
         )
-        # var_np1 is a new tensor made by explicit_step, held by no history,
-        # so the corrector and the condensation adjustment write into it in
-        # place; the histories (state.*, res.expdot, res.impdot) are only
-        # ever handed on
+        # var_np1 is a new tensor made by explicit_step, held by no history
+        # and saved by no backward, so the corrector and the vertical
+        # diffusion write rows into it in place (the condensation adjustment,
+        # whose thermodynamics save views of it, returns a new one); the
+        # histories (state.*, res.expdot, res.impdot) are only ever handed on
         impdot = res.impdot
         i_nm1, i_nm2 = state.impdot_nm1, state.impdot_nm2
         # slim implicit history: [[w, xi], *spatial]
@@ -766,3 +770,44 @@ def run_loop(
         gps,
     )
     return grid, phys
+
+
+def integrate_ensemble(model: ModelParameters, ics, dtype=None, mesh=None,
+                       device: Any = DEFAULT):
+    """Run an ensemble of initial conditions through the model on ``device``
+    (the card unless the caller asks for the CPU).
+
+    ``ics``: [n_members, nvars, *spatial] physical initial conditions.
+    Returns (grid, final physical fields [n_members, nvars, *spatial] as a
+    numpy array).  A member's run (analysis, ``integration_time / ts``
+    steps, synthesis) goes under ``torch.func.vmap``, so the members batch
+    through every transform product, and each hand-written kernel takes
+    them in one launch a step (its vmap rule folds them into its columns or
+    variables).  As in the JAX package, the context is the model's own
+    (no boundary references are set from the members' states).
+
+    ``mesh`` (members sharded over several cards, the JAX package's
+    ``parallel.sharding.make_ensemble_mesh``) is not ported: it raises
+    NotImplementedError (ROADMAP item 11)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "integrate_ensemble(mesh=...): members sharded across cards "
+            "(parallel/sharding.py) is not ported to scythe_tpu_torch "
+            "(ROADMAP item 11)"
+        )
+    dtype = dtype or torch.get_default_dtype()
+    grid = create_grid(model.grid_params, dtype, device=device)
+    ctx = build_context(model, grid, dtype)
+    step = build_step(model, grid, ctx, dtype)
+    num_ts = model.num_ts
+    imp_rows = imp_history_rows(model)
+
+    def member(phys0):
+        state = ti.initial_state(grid.analysis(phys0), phys0.shape, dtype, imp_rows=imp_rows)
+        return grid.synthesis(make_scan(step, num_ts)(state).spec)["val"]
+
+    arr = torch.as_tensor(np.asarray(ics), dtype=dtype, device=grid.device)
+    with torch.no_grad():
+        out = torch.func.vmap(member)(arr).cpu().numpy()
+    sio.check_cfl(grid, out.reshape((-1,) + grid.spatial_shape))
+    return grid, out

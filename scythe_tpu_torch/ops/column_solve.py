@@ -40,8 +40,12 @@ work left out.
 five operators: the plain chain for tensors on the CPU; on a CUDA device it
 composes and packs them (a few small launches) and launches the kernel.
 Every wrapper checks its inputs and has no fallback: on a CUDA tensor it
-launches the kernel or raises.  ``launches`` counts kernel launches only.
-The bf16x3 ("comp") mode of the TPU kernel is not ported.
+launches the kernel or raises.  Both wrappers go through ``ColumnSolveFn``,
+a ``torch.autograd.Function`` whose backward is the same kernel on M^T
+(``ColumnOperator.packed_T``), whose jvp is the kernel on the tangents and
+whose vmap folds members into the columns.  ``launches`` counts the
+kernel's launches with M, ``backward_launches`` those with M^T.  The
+bf16x3 ("comp") mode of the TPU kernel is not ported.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ PLAN_ERRORS = {
     -3: "shared memory differs from the layout or exceeds 232448 bytes",
 }
 
-launches = 0
+launches = 0  # forward (and jvp) launches: the operator M
+backward_launches = 0  # backward launches: M^T
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -237,18 +242,24 @@ def pack_operator(M: torch.Tensor, dtype) -> torch.Tensor:
 class ColumnOperator(NamedTuple):
     """One stage's chain as one operator, made by ``column_operator`` from
     one M: ``M`` [2nz, 2nz] in the run's dtype and device, which the plain
-    version applies on the CPU, and ``packed``, pack_operator of the same M,
-    which the kernel reads on a CUDA device."""
+    version applies on the CPU; ``packed``, pack_operator of the same M,
+    which the kernel reads on a CUDA device; and ``packed_T``, pack_operator
+    of M^T, which the kernel reads for the backward (the cotangents of
+    [w | xi] times M are those of [x* | w*]).  An operator built without
+    ``packed_T`` runs forward on the card, and its backward there raises."""
 
     M: torch.Tensor
     packed: torch.Tensor
+    packed_T: torch.Tensor | None = None
 
 
 def column_operator(m64: torch.Tensor, dtype, device) -> ColumnOperator:
-    """A stage's ColumnOperator from its float64 M (compose_column_operator)."""
+    """A stage's ColumnOperator from its float64 M (compose_column_operator),
+    with the packed transpose its backward reads."""
     return ColumnOperator(
         M=m64.to(dtype=dtype, device=device),
         packed=pack_operator(m64, dtype).to(device),
+        packed_T=pack_operator(m64.T, dtype).to(device),
     )
 
 
@@ -309,10 +320,18 @@ def _check(xstar, wstar, ops, side) -> tuple[int, int]:
     return ncols, nz
 
 
-def _launch(xstar, wstar, packed, ncols, nz):
-    global launches
+def _launch(xstar, wstar, packed, transposed=False):
+    """One kernel launch: [out1 | out2] = [xstar | wstar] A^T for the
+    operator A whose packing is ``packed`` (M forward, M^T backward)."""
+    global launches, backward_launches
     from ._build import load
 
+    if packed is None:
+        raise ValueError(
+            "the column solve's backward needs the operator's packed transpose "
+            "(ColumnOperator.packed_T, which column_operator builds)"
+        )
+    ncols, nz = xstar.shape
     nt = 2 * _up8(nz) // 8
     want = (nt, nt, 32, 4 if xstar.dtype == torch.float32 else 2)
     if (tuple(packed.shape) != want or packed.dtype != xstar.dtype
@@ -340,18 +359,86 @@ def _launch(xstar, wstar, packed, ncols, nz):
     if err != 0:
         msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
         raise RuntimeError(f"column_solve kernel launch failed: {msg} ({err}); {p}")
-    launches += 1
+    if transposed:
+        backward_launches += 1
+    else:
+        launches += 1
     return w_out, xi_out
+
+
+class ColumnSolveFn(torch.autograd.Function):
+    """The column solve as a differentiable operation: (a, b) -> [a | b] A^T
+    for the stage's operator A (M, or M^T in a backward), on the CPU its
+    plain matmul, on a CUDA device the kernel; every rule below runs on both
+    devices the same way, so the CPU tests check the formulas the card uses.
+
+    * backward: the map is linear, so the cotangents of (out1, out2) times A
+      are those of (a, b): the same Function with A^T (``packed_T`` on the
+      card; on the CPU the view M.T), one more kernel launch, counted in
+      ``backward_launches``;
+    * jvp: the same launch on the tangents;
+    * vmap: the batch is folded into the columns, one launch for all members.
+
+    A and its packings get no gradient: the Helmholtz operator is built from
+    the reference state at its static values, as the JAX package bakes it
+    into its step (scythe_tpu/adjoint.py, make_simulator's caveats)."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(a, b, M, packed, M_T, packed_T, transposed):
+        if a.device.type == "cpu":
+            return apply_column_operator_plain(a, b, M)
+        if a.device.type != "cuda":
+            raise ValueError(f"the column solve runs on cpu or cuda tensors, got {a.device}")
+        return _launch(a.contiguous(), b.contiguous(), packed, transposed)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, M, packed, M_T, packed_T, transposed = inputs
+        ctx.transposed = transposed
+        # packed_T is None where an operator was built without it
+        ctx.save_for_backward(M, packed, M_T, packed_T)
+        ctx.save_for_forward(M, packed, M_T, packed_T)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        M, packed, M_T, packed_T = ctx.saved_tensors
+        ga, gb = ColumnSolveFn.apply(g1, g2, M_T, packed_T, M, packed, not ctx.transposed)
+        return ga, gb, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, a_t, b_t, *_):
+        M, packed, M_T, packed_T = ctx.saved_tensors
+        a_t = torch.zeros_like(b_t) if a_t is None else a_t
+        b_t = torch.zeros_like(a_t) if b_t is None else b_t
+        return ColumnSolveFn.apply(a_t, b_t, M, packed, M_T, packed_T, ctx.transposed)
+
+    @staticmethod
+    def vmap(info, in_dims, a, b, M, packed, M_T, packed_T, transposed):
+        if any(d is not None for d in in_dims[2:]):
+            raise NotImplementedError(
+                "the column solve applies one operator to every member; its "
+                "operator cannot carry a batch dimension"
+            )
+        n = info.batch_size
+
+        def fold(t, d):
+            t = t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+            return t.reshape(-1, t.shape[-1])
+
+        out = ColumnSolveFn.apply(fold(a, in_dims[0]), fold(b, in_dims[1]), M, packed,
+                                  M_T, packed_T, transposed)
+        return tuple(o.reshape(n, -1, o.shape[-1]) for o in out), (0, 0)
 
 
 def apply_column_operator(xstar, wstar, op: ColumnOperator):
     """Apply a stage's operator to [ncols, nz] column batches x* (xi*) and
-    w*; returns (w_new, xi_new).  The kernel on a CUDA device (op.packed),
-    its plain version on the CPU (op.M): both from the one M."""
-    ncols, nz = _check(xstar, wstar, (("M", op.M),), 2)
-    if xstar.device.type == "cpu":
-        return apply_column_operator_plain(xstar, wstar, op.M)
-    return _launch(xstar, wstar, op.packed, ncols, nz)
+    w*; returns (w_new, xi_new), through ColumnSolveFn: the kernel on a CUDA
+    device (op.packed; op.packed_T for its backward), its plain version on
+    the CPU (op.M): both from the one M."""
+    _check(xstar, wstar, (("M", op.M),), 2)
+    return ColumnSolveFn.apply(xstar, wstar, op.M, op.packed, op.M.T, op.packed_T, False)
 
 
 def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
@@ -360,13 +447,14 @@ def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
     x* (xi*) first.  ``Hinv`` is the inverse of the BC-row-shuffled
     Helmholtz matrix (timeintegration.helmholtz_matrix); ``ts_term`` is a
     scalar, ``pxi_bar`` a scalar or an [nz] profile (the TPU kernel takes a
-    scalar only).  The plain chain on the CPU; on a CUDA device
-    the operators are composed in float64 and packed (a few small
-    launches), then the kernel runs.  The main path composes once per stage
-    instead and calls apply_column_operator."""
+    scalar only).  The plain chain on the CPU (autograd differentiates it
+    as it stands); on a CUDA device the operators are composed in float64
+    and packed with their transpose (a few small launches), then the kernel
+    runs through ColumnSolveFn, as the main path's apply_column_operator.
+    The main path composes once per stage instead."""
     ops = (F, Dz, Hinv, S, Ds)
-    ncols, nz = _check(xstar, wstar, tuple(zip(("F", "Dz", "Hinv", "S", "Ds"), ops)), 1)
+    _check(xstar, wstar, tuple(zip(("F", "Dz", "Hinv", "S", "Ds"), ops)), 1)
     if xstar.device.type == "cpu":
         return fused_column_solve_plain(xstar, wstar, *ops, ts_term, pxi_bar)
-    M = compose_column_operator(*(o.double() for o in ops), ts_term, pxi_bar)
-    return _launch(xstar, wstar, pack_operator(M, xstar.dtype), ncols, nz)
+    M = compose_column_operator(*(o.detach().double() for o in ops), ts_term, pxi_bar)
+    return apply_column_operator(xstar, wstar, column_operator(M, xstar.dtype, xstar.device))

@@ -14,10 +14,13 @@ split of the TPU kernel is not ported.  The kernel (``csrc/rlz_analysis.cu``)
 launches one thread-block cluster per (variable, k-tile, b-tile) whose
 blocks split r and reduce their partial sums over distributed shared
 memory; ``plan`` sizes its tiles, and the kernel's header says what bounds
-it.  The wrapper ``rlz_analysis`` checks its inputs, then takes the plain
-version for tensors on the CPU and launches the kernel for tensors on a
-CUDA device; there is no fallback between the two.  ``launches`` counts
-kernel launches only.
+it.  The wrapper ``rlz_analysis`` checks its inputs, then goes through
+``RLZAnalysisFn``, a ``torch.autograd.Function``: the plain version for
+tensors on the CPU, the kernel for tensors on a CUDA device, with no
+fallback between the two; its jvp is the kernel on the tangents, its vmap
+folds members into V (one launch), its backward the transposed chain as
+einsums (the JAX package has no backward kernel either).  ``launches``
+counts kernel launches only.
 """
 
 from __future__ import annotations
@@ -303,14 +306,76 @@ def _launch(phys, ops, shape):
     return out
 
 
+def rlz_analysis_transposed(g, l_analysis, ring_mask, analysis_r, analysis_z):
+    """The adjoint of the analysis: spectral cotangents ``[V, b_rDim, nl,
+    nz]`` to physical ``[V, rDim, nl, nz]``, the chain transposed
+    (analysis_z^T, analysis_r^T, the ring mask, l_analysis^T) as einsums on
+    either device; the JAX package differentiates its einsum chain the same
+    way (no Pallas backward exists)."""
+    gc = torch.einsum("vKz,vbkK->vbkz", analysis_z, g)
+    ga = torch.einsum("vbr,vbkz->vrkz", analysis_r, gc)
+    ga = ga * ring_mask[None, :, :, None]
+    return torch.einsum("kl,vrkz->vrlz", l_analysis, ga)
+
+
+class RLZAnalysisFn(torch.autograd.Function):
+    """The analysis as a differentiable operation: on the CPU its plain
+    version, on a CUDA device the kernel; every rule below runs on both
+    devices the same way, so the CPU tests check the formulas the card uses.
+
+    * jvp: the map is linear in phys, so the kernel on the tangents;
+    * vmap: the batch folded into V, with analysis_r and analysis_z
+      repeated along it, one launch for all members;
+    * backward: the transposed chain (rlz_analysis_transposed), as einsums.
+
+    The operators get no gradient: they are the grid's, fixed at its build."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(phys, l_analysis, ring_mask, analysis_r, analysis_z):
+        ops = (l_analysis, ring_mask, analysis_r, analysis_z)
+        if phys.device.type == "cpu":
+            return rlz_analysis_plain(phys, *ops)
+        if phys.device.type != "cuda":
+            raise ValueError(f"rlz_analysis runs on cpu or cuda tensors, got {phys.device}")
+        phys = phys.contiguous()
+        return _launch(phys, ops, _check(phys, ops))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[1:])
+        ctx.save_for_forward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (rlz_analysis_transposed(g, *ctx.saved_tensors),) + (None,) * 4
+
+    @staticmethod
+    def jvp(ctx, phys_t, *_):
+        return RLZAnalysisFn.apply(phys_t, *ctx.saved_tensors)
+
+    @staticmethod
+    def vmap(info, in_dims, phys, l_analysis, ring_mask, analysis_r, analysis_z):
+        if any(d is not None for d in in_dims[1:]):
+            raise NotImplementedError(
+                "the RLZ analysis applies the grid's operators to every member; "
+                "they cannot carry a batch dimension"
+            )
+        if in_dims[0] is None:
+            return RLZAnalysisFn.apply(phys, l_analysis, ring_mask, analysis_r,
+                                       analysis_z), None
+        x = phys.movedim(in_dims[0], 0)
+        n, V = x.shape[:2]
+        out = RLZAnalysisFn.apply(x.reshape(n * V, *x.shape[2:]), l_analysis, ring_mask,
+                                  analysis_r.repeat(n, 1, 1), analysis_z.repeat(n, 1, 1))
+        return out.reshape(n, V, *out.shape[1:]), 0
+
+
 def rlz_analysis(phys, l_analysis, ring_mask, analysis_r, analysis_z):
     """Physical ``[V, rDim, nl, nz]`` -> spectral ``[V, b_rDim, nl, nz]``
     with the RLZ grid's operators (``Grid.l_analysis``, ``ring_mask``,
-    ``analysis_r``, ``analysis_z``)."""
+    ``analysis_r``, ``analysis_z``), through RLZAnalysisFn."""
     ops = (l_analysis, ring_mask, analysis_r, analysis_z)
-    shape = _check(phys, ops)
-    if phys.device.type == "cpu":
-        return rlz_analysis_plain(phys, *ops)
-    if phys.device.type != "cuda":
-        raise ValueError(f"rlz_analysis runs on cpu or cuda tensors, got {phys.device}")
-    return _launch(phys, ops, shape)
+    _check(phys, ops)
+    return RLZAnalysisFn.apply(phys, *ops)

@@ -178,10 +178,10 @@ def condensation_adjustment(var_np1, impdot_n, ctx):
     supersaturation (ref condensation_adjustment, microphysics.jl:139-195).
 
     ``var_np1``: [nvars, *spatial] with z last; uses vars s, xi, mu, mu_c
-    (or mu_l), mu_r (optional), qss.  Writes the adjusted s, mu and cloud
-    rows into ``var_np1`` IN PLACE and returns it: the stepper hands it the
-    tensor this step made, which no history tensor shares.  Every new row is
-    computed before the first write.
+    (or mu_l), mu_r (optional), qss.  Returns a new tensor, the adjusted s,
+    mu and cloud rows with the others as they were: out of place, since the
+    thermodynamics above keep views of ``var_np1`` for autograd's backward,
+    which a write into it would corrupt.
     """
     vi = ctx.var_index
     rs = ctx.ref_state
@@ -224,7 +224,5 @@ def condensation_adjustment(var_np1, impdot_n, ctx):
     mu_c_new = mu_c + tau_r * ctx.dmudq_source(mu_c, q_c) * q_cond
     s_new = s + tau_r * s_condensation(q_cond, Tk, rho_d, q_v, q_l, p)
 
-    var_np1[vi("s")] = s_new
-    var_np1[vi("mu")] = mu_new
-    var_np1[vi(cloud_name)] = mu_c_new
-    return var_np1
+    new = {vi("s"): s_new, vi("mu"): mu_new, vi(cloud_name): mu_c_new}
+    return torch.stack([new.get(v, var_np1[v]) for v in range(var_np1.shape[0])])

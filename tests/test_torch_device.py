@@ -19,8 +19,11 @@ import torch
 import scythe_tpu_torch as tx
 from scythe_tpu_torch import convert, io as sio
 from scythe_tpu_torch import model as tmodel
+from scythe_tpu_torch import adjoint, balance
 from scythe_tpu_torch import timeintegration as tti
+from scythe_tpu_torch.examples import assimilate_4dvar, assimilate_enkf
 from scythe_tpu_torch.examples import cha_bell_initialization as cb
+from scythe_tpu_torch.examples import jw06_baroclinic_slz
 from scythe_tpu_torch.physics import reference_state as trs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,6 +39,13 @@ ENTRY_POINTS = {
     "convert.context_extras_from_numpy": convert.context_extras_from_numpy,
     "convert.reference_state_from_numpy": convert.reference_state_from_numpy,
     "examples.cha_bell_initialization.initialize_wave2": cb.initialize_wave2,
+    "model.integrate_ensemble": tmodel.integrate_ensemble,
+    "adjoint.make_simulator": adjoint.make_simulator,
+    "make_simulator": tx.make_simulator,
+    "balance.balance_zonal_state": balance.balance_zonal_state,
+    "examples.jw06_baroclinic_slz.balanced_delta": jw06_baroclinic_slz.balanced_delta,
+    "examples.assimilate_4dvar.build_case": assimilate_4dvar.build_case,
+    "examples.assimilate_enkf.build_case": assimilate_enkf.build_case,
 }
 
 
@@ -84,6 +94,8 @@ def _calls_without_device(tmp):
     ckpt = os.path.join(tmp, "ckpt.npz")
     sio.save_checkpoint(ckpt, state, 0.0)
     arrays = convert.state_to_numpy(state)
+    phys = sio.read_physical_grid(model.initial_conditions, tx.create_grid(
+        model.grid_params, torch.float64, device="cpu"))
     ref = tmodel.build_context(
         model, tx.create_grid(model.grid_params, torch.float64, device="cpu"), torch.float64
     ).ref_state
@@ -104,6 +116,11 @@ def _calls_without_device(tmp):
             lambda: tx.create_grid(
                 cb.initialize_wave2(tmp, quick=True, grid_params=cb.cha_bell_grid(4, 8))
                 .grid_params, torch.float32).synth_r,
+        "model.integrate_ensemble":
+            lambda: tmodel.integrate_ensemble(model, phys[None], torch.float64)[0].synth_r,
+        "make_simulator": lambda: tx.make_simulator(model, torch.float64)[1].synth_r,
+        "examples.assimilate_4dvar.build_case":
+            lambda: assimilate_4dvar.build_case(4, 8)[3],
     }
 
 

@@ -3,7 +3,10 @@ a fresh interpreter with sys.modules['jax'] = None imports the package (its
 kernels' modules and every example included), runs 3 steps of the moist
 RLZ core, of the flagship two-way slab model and of Williamson case 2 on the
 SL sphere on the CPU, writes NetCDF output, and registers all 21 equation
-sets, importing no triton."""
+sets, importing no triton.  It differentiates the moist core through
+adjoint.make_simulator and runs a two-member integrate_ensemble, and each
+kernel wrapper's output carries its Function's grad_fn when its input needs
+a gradient (the wrappers once returned outputs with no graph)."""
 
 import os
 import subprocess
@@ -30,6 +33,9 @@ SCRIPT = textwrap.dedent(
     from scythe_tpu_torch.examples import convective_shower_xyz  # noqa: F401
     from scythe_tpu_torch.examples import williamson_sphere as wm
     from scythe_tpu_torch.examples import cha_bell_initialization as cb
+    from scythe_tpu_torch.examples import calibrate_drag, jw06_baroclinic_slz  # noqa: F401
+    from scythe_tpu_torch.examples import assimilate_4dvar, assimilate_enkf  # noqa: F401
+    from scythe_tpu_torch import adjoint, balance  # noqa: F401
     from scythe_tpu_torch.equations import sphere  # noqa: F401
     from scythe_tpu_torch.physics import turbulence  # noqa: F401
     from scythe_tpu_torch import diagnostics  # noqa: F401
@@ -83,6 +89,29 @@ SCRIPT = textwrap.dedent(
     _, wphys = tx.integrate_model(w2, dtype=torch.float64, device="cpu")
     assert np.isfinite(wphys).all() and wphys.shape == (3, 96, 96)
     assert "physical_out_900.0.nc" in os.listdir(os.path.join(tmp, "w2"))
+    # the kernels' wrappers carry their Functions' graphs
+    from scythe_tpu_torch import timeintegration as tti
+    op = tti.build_semiimplicit_ops(8, 0.0, 8000.0, None, 9.0e4, 0.25, torch.float64,
+                                    "cpu").solve
+    xs = torch.ones((3, 8), dtype=torch.float64, requires_grad=True)
+    w_new, xi_new = column_solve.apply_column_operator(xs, xs.detach(), op)
+    assert type(w_new.grad_fn).__name__ == "ColumnSolveFnBackward", w_new.grad_fn
+    g = tx.create_grid(gp, torch.float64, device="cpu")
+    ph = torch.ones((9,) + g.spatial_shape, dtype=torch.float64, requires_grad=True)
+    sp = rlz_analysis.rlz_analysis(ph, g.l_analysis, g.ring_mask, g.analysis_r, g.analysis_z)
+    assert type(sp.grad_fn).__name__ == "RLZAnalysisFnBackward", sp.grad_fn
+    assert type(g.analysis(ph).grad_fn).__name__ == "RLZAnalysisFnBackward"
+    # a gradient through two flagship steps, and a two-member moist ensemble
+    sim, sg, _ = tx.make_simulator(cb.flagship_model(8, 8), torch.float64, n_steps=2,
+                                   device="cpu")
+    p0 = torch.from_numpy(cb.vortex_phys(sg)).requires_grad_(True)
+    (gp0,) = torch.autograd.grad(sim({}, p0)[2].sum(), p0)
+    assert torch.isfinite(gp0).all() and float(gp0.abs().max()) > 0.0
+    ics = tx.io.read_physical_grid(model.initial_conditions, g)
+    _, ens = tmodel.integrate_ensemble(model.with_(integration_time=0.5),
+                                       np.stack([ics, 2.0 * ics]), dtype=torch.float64,
+                                       device="cpu")
+    assert ens.shape == (2, 9, 12, 8, 8) and np.isfinite(ens).all()
     assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NOJAX_OK", sorted(os.listdir(os.path.join(tmp, "out"))))
