@@ -18,7 +18,8 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    at 9216 x 48 and the shower's scalar and profile operators at 2304 x 32,
    the stage's operator applied as the main path applies it
    (apply_column_operator) and the TPU function's counterpart
-   (fused_column_solve, composed per call): f64 kernel vs f64 plain chain
+   (fused_column_solve, composed per call, mode="plain"): f64 kernel vs f64
+   plain chain
    (1e-12 of max|ref|), f32 kernel vs f64 plain (1e-5, and at most 4x the
    f32 plain chain's own error), two calls bitwise equal in each dtype, the
    library call's error printed beside the kernel's, the plan printed per
@@ -147,9 +148,41 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    backward (M^T) and the analysis counted; fit_parameters on
    calibrate_drag's case for 3 Adam iterations on the card against the CPU
    (1e-9), the loss falling.
+27. the compensated (bf16x3) kernels, the TPU kernels' own arithmetic: the
+   column solve in mode="comp" (the bf16 split of the composed M and of the
+   activations) at nz {13, 24, 48, 128} x ncols {37, 9216} and at 9216 x 48,
+   1200 x 24, 2304 x 32 and 13,824 x 24, both stages, against its plain
+   version (the torch bf16x3 map) on the same inputs (4e-6 of max) and the
+   f64 chain (0.75x to 4x the plain version's error, and 1e-4; bitwise
+   repeatable), with the counterpart
+   fused_column_solve at its default mode; timed at the four shapes beside
+   its plain version and torch.matmul in true f32 (no single PyTorch call
+   computes bf16x3 with an f32 output); the analysis in mode="comp" on
+   compensated grids at the moist3d, TC, transform, shower, SLZ test and
+   JW06 production shapes, the same checks (1e-5 of max against its plain
+   version) and timing;
+28. moist3d at full width on compensated grids (create_grid's
+   matmul="compensated" under integrate_model, deriv_single auto: on, the
+   JAX package's TPU production numerics), 120 steps: 121 comp analysis launches, none of the plain
+   mode, 120 column solves; steps/s, device busy and launches a step in turns
+   with the plain f32 run (chiprun_out/moist3d_{comp,plain}_profile.txt);
+   20 steps compensated f32 against plain f64 (bounds in COMP_M3D_BOUND,
+   from the CPU); then fused_column_solve at its default (comp) on the run's
+   final xi and w columns, both stages: 2 comp launches, against its plain
+   version on the same composed M (4e-6) and the plain-mode kernel (1e-4);
+29. the flagship workflow at full width on compensated grids with the fast
+   derivative slots (tools/validate_fastderiv.py's configuration): inside
+   phase 9's bands, no kernel launched;
+30. the factored DFT: tools/profile_factored.py's RL grid (64 cells, 6
+   vars) at nl 4096 (auto: factored) round trip f64 on the card against the
+   CPU (1e-12), nl 2048 l_factored=True against dense (1e-12), dense against
+   factored device time at nl 1024, 2048 and 4096; MoistEulerXYZ on the XYZ
+   box at lDim 4096 (factored) 10 f64 steps with 0 analysis launches (the
+   factored grid takes the einsum chain by design) against the CPU (1e-9).
 
 ``--only`` runs some phase groups alone (kernels: 3-5; paths: 6-18; jw06:
-19-21; ensembles: 22-23; gradients: 24-26); only a run of all prints the
+19-21; ensembles: 22-23; gradients: 24-26; comp_kernels: 27; comp_moist3d:
+28; comp_flagship: 29; factored: 30); only a run of all prints the
 kernels line and the closing line.  No phase catches its own failure: any
 failed check raises and the script exits non-zero.  Without a CUDA device
 it exits 2 and prints no result.
@@ -157,12 +190,14 @@ The last lines of standard output are the card's name and power limit, a
 JSON object describing the kernels (each with its bound: the larger of its
 bytes over 3.35 TB/s and its operations over the H100 SXM's peak for them:
 products of f32 matrices at the tensor cores' f32-accurate rate, 3xTF32, a
-third of 495 TFLOP/s; of f64 matrices at 67 TFLOP/s; f32 elementwise work at
-67 TFLOP/s), then {"ok": true, "device": {...}}.  It imports nothing of jax.
+third of 495 TFLOP/s; the comp kernels' bf16x3 products at a third of 989
+TFLOP/s; of f64 matrices at 67 TFLOP/s; f32 elementwise work at 67
+TFLOP/s), then {"ok": true, "device": {...}}.  It imports nothing of jax.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -206,7 +241,10 @@ SHOWER_BANDS = {"shower": ((1.0, 1.25), (2.5e-3, 3.5e-3)),
 # f32 elementwise work outside them
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"f32 products": 495e12 / 3, "f64 products": 67e12,
-                   "f32 elementwise": 67e12}
+                   "f32 elementwise": 67e12,
+                   # the comp kernels' products: three bf16 tensor-core passes
+                   # of each, so a third of 989 TFLOP/s dense bf16
+                   "bf16x3 products": 989e12 / 3}
 # what the library's matrix-product kernels (behind torch.einsum) are named
 GEMM_KERNEL_WORDS = ("gemm", "gemv", "cutlass", "xmma", "splitk")
 # JW06 at its production recipe (scythe_tpu_torch/examples/
@@ -249,6 +287,15 @@ CS_TIMED = (("9216x48 f32", 9216, 48, "moist3d", False, "float32"),
             ("2304x32 f32", 2304, 32, "shower", False, "float32"),
             ("2304x32 f32 profile", 2304, 32, "shower", True, "float32"),
             ("13824x24 f32", 13824, 24, "jw06", False, "float32"))
+
+
+def zero_counts(*mods):
+    """Every launch count of the kernels' modules to 0 (plain and comp,
+    forward and backward), just before a path is driven."""
+    for mod in mods:
+        for name in dir(mod):
+            if name.endswith("launches") and isinstance(getattr(mod, name), int):
+                setattr(mod, name, 0)
 
 
 def say(phase, t0, msg):
@@ -335,21 +382,22 @@ def write_ics(sio, path, coord_names, pts, cols):
     sio._write_csv(path, [*coord_names, *MOIST3D_VARS], data)
 
 
-def xyz_test_model(tx, tmp, n_steps):
+def xyz_test_model(tx, tmp, n_steps, cells=12, ldim=16, zdim=16, ts=0.2, name="xyz"):
     """MoistEulerXYZ at tests/test_xyz.py's size (12 cells x 16 x 16, a
     12 x 8 x 10 km box, ts 0.2 s, K 20, semi-implicit) with its sounding and
-    its warm bubble, modulated in y, written under ``tmp``."""
+    its warm bubble, modulated in y, written under ``tmp``; other sizes and
+    steps of the same box by keyword (the factored DFT's: lDim 4096)."""
     import torch
     from scythe_tpu_torch import io as sio
 
     lx, ly, lz = 12000.0, 8000.0, 10000.0
     gp = tx.GridParameters(
-        geometry="XYZ", xmin=0.0, xmax=lx, num_cells=12, lDim=16, ymin=0.0, ymax=ly,
-        zmin=0.0, zmax=lz, zDim=16, BCL={"u": tx.BC.R1T0, "w": tx.BC.R1T1},
+        geometry="XYZ", xmin=0.0, xmax=lx, num_cells=cells, lDim=ldim, ymin=0.0, ymax=ly,
+        zmin=0.0, zmax=lz, zDim=zdim, BCL={"u": tx.BC.R1T0, "w": tx.BC.R1T1},
         BCR={"u": tx.BC.R1T0}, vars=MOIST3D_VARS,
     )
     zs = np.linspace(0.0, 1.2 * lz, 40)
-    snd = os.path.join(tmp, "xyz_sounding.txt")
+    snd = os.path.join(tmp, f"{name}_sounding.txt")
     with open(snd, "w") as f:
         f.write("1015.0 300.0 12.0\n")
         for z in zs[1:]:
@@ -359,12 +407,12 @@ def xyz_test_model(tx, tmp, n_steps):
     rad = np.sqrt(((x - 0.4 * lx) / 2500.0) ** 2 + ((z - 2500.0) / 2000.0) ** 2)
     s_pert = (2.0 * np.maximum(0.0, np.cos(np.pi * np.minimum(rad, 1.0) / 2.0)) ** 2
               * (1.0 + 0.3 * np.sin(2.0 * np.pi * y / ly)))
-    ics = os.path.join(tmp, "xyz_ics.csv")
+    ics = os.path.join(tmp, f"{name}_ics.csv")
     write_ics(sio, ics, ("x", "y", "z"), pts, {"s": s_pert})
     return tx.ModelParameters(
-        ts=0.2, integration_time=n_steps * 0.2, output_interval=n_steps * 0.2,
+        ts=ts, integration_time=n_steps * ts, output_interval=n_steps * ts,
         equation_set="MoistEulerXYZ", initial_conditions=ics,
-        output_dir=os.path.join(tmp, "xyz_out"), ref_state_file=snd, grid_params=gp,
+        output_dir=os.path.join(tmp, f"{name}_out"), ref_state_file=snd, grid_params=gp,
         physical_params={"K": 20.0}, options={"semiimplicit": True},
     )
 
@@ -621,8 +669,8 @@ def check_stage(torch, cs, o64, o32, x, w, stage, pxi):
     library32 = cs.apply_column_operator_plain(x32, w32, s32.M)
     k64, k64b = (cs.apply_column_operator(x, w, s64) for _ in range(2))
     k32, k32b = (cs.apply_column_operator(x32, w32, s32) for _ in range(2))
-    c64 = cs.fused_column_solve(x, w, *ops64, ts_term, pxi)
-    c32 = cs.fused_column_solve(x32, w32, *ops32, ts_term, pxi)
+    c64 = cs.fused_column_solve(x, w, *ops64, ts_term, pxi, mode="plain")
+    c32 = cs.fused_column_solve(x32, w32, *ops32, ts_term, pxi, mode="plain")
     torch.cuda.synchronize()
     where = (tuple(x.shape), stage, "profile" if np.ndim(pxi) else "scalar Pxi")
     for a, b in zip(k64 + k32, k64b + k32b):
@@ -877,10 +925,25 @@ def phase_probe(torch, ep):
     return err, min(kt), min(pt), launches
 
 
-def time_steps(torch, tmodel, model, n):
+def compensated_grids():
+    """For the duration, the model module builds every grid compensated
+    (matmul="compensated", deriv_single auto: on), as the JAX package's auto
+    does on a TPU; initialize and integrate_model keep the JAX signature,
+    so the TPU's production numerics are asked for here."""
+    import functools
+    from unittest import mock
+
+    from scythe_tpu_torch import model as tmodel
+
+    return mock.patch.object(tmodel, "create_grid",
+                             functools.partial(tmodel.create_grid, matmul="compensated"))
+
+
+def time_steps(torch, tmodel, model, n, comp=False):
     """(ms/step by CUDA events, steps/s by host clock, state) over ``n``
-    steps after 10 warm-up steps."""
-    grid, ctx, state = tmodel.initialize(model, torch.float32, "cuda")
+    steps after 10 warm-up steps; ``comp`` on compensated grids."""
+    with compensated_grids() if comp else contextlib.nullcontext():
+        grid, ctx, state = tmodel.initialize(model, torch.float32, "cuda")
     step = tmodel.build_step(model, grid, ctx, torch.float32)
     for _ in range(10):  # warm-up (and the Euler/AB2 ramp)
         state = step(state)
@@ -1042,7 +1105,7 @@ def phase_jw06(tx, tmodel, tw, torch, cs, ra, tmp, card, out_dir):
           f"max|residual| {' -> '.join(f'{h:.3e}' for h in history)}", flush=True)
     grid, ctx, state, step = tw.prepare_run(model, phys0, torch.float32, "cuda")
     assert (grid.params.rDim, grid.nl, grid.params.zDim) == (144, 96, 24)
-    cs.launches = ra.launches = 0
+    zero_counts(cs, ra)
     state, ms_step = run_steps(torch, tmodel, step, state, JW06_STEPS)
     launches = (cs.launches, ra.launches)
     # the analysis twice a step: the del^4 term refits its first Laplacian
@@ -1154,7 +1217,7 @@ def phase_ensembles(tx, tmodel, tti, torch, cs, ra, cb, sh, sio, tmp, card):
     assert ens["launches_per_step"] < one["launches_per_step"] + FLAGSHIP_MEMBERS - 1, rates
     # f64: each member against its own single run, 20 steps
     f20 = fm.with_(integration_time=60.0, output_interval=60.0)
-    cs.launches = ra.launches = 0
+    zero_counts(cs, ra)
     _, out64 = tmodel.integrate_ensemble(f20, ics64, dtype=torch.float64, device="cuda")
     fl_launches = (cs.launches, ra.launches)
     assert fl_launches == (0, 0), fl_launches
@@ -1185,7 +1248,7 @@ def phase_ensembles(tx, tmodel, tti, torch, cs, ra, cb, sh, sio, tmp, card):
     ics64 = np.stack([phys0 * (1.0 + i / 100.0) for i in range(SHOWER_MEMBERS)])
     outs, launches = {}, {}
     for dtype in (torch.float32, torch.float64):
-        cs.launches = ra.launches = 0
+        zero_counts(cs, ra)
         _, outs[dtype] = tmodel.integrate_ensemble(sm, ics64, dtype=dtype, device="cuda")
         launches[dtype] = (cs.launches, ra.launches)
         assert launches[dtype] == (20, 21), launches
@@ -1266,7 +1329,7 @@ def phase_kernel_gradients(tx, tti, torch, cs, ra, columns):
         plain_out = cs.apply_column_operator_plain(xs, ws, op.M)
         g32 = gcat.float()
         k_b = lambda: cs.ColumnSolveFn.apply(gw32, gx32, op.M.T, op.packed_T, op.M,  # noqa: E731
-                                             op.packed, True)
+                                             op.packed, True, False)
         p_b = lambda: torch.autograd.grad(plain_out, (xs, ws), (gw32, gx32),  # noqa: E731
                                           retain_graph=True)
         l_b = lambda: torch.matmul(g32, op.M)  # noqa: E731
@@ -1370,7 +1433,7 @@ def phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint):
         w_t = torch.as_tensor(wts, device=dev)
         p0 = torch.as_tensor(phys0, device=dev).requires_grad_(True)
         K = torch.tensor(100.0, dtype=torch.float64, device=dev, requires_grad=True)
-        cs.launches = cs.backward_launches = ra.launches = 0
+        zero_counts(cs, ra)
         loss = torch.sum(w_t * sim({"K": K}, p0))
         gp0, gK = torch.autograd.grad(loss, (p0, K))
         if dev == "cuda":
@@ -1419,7 +1482,438 @@ def phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint):
     return {"launches": launches}
 
 
-GROUPS = ("kernels", "paths", "jw06", "ensembles", "gradients")
+# ---- the compensated (bf16x3) numerics: the JAX package's TPU production
+# mode.  (label, ncols, nz, reference state) of the comp column solve's
+# timed calls: moist3d's, the TC's, the shower's and JW06's shapes
+CS_COMP_TIMED = (("9216x48", 9216, 48, "moist3d"), ("1200x24", 1200, 24, "moist3d"),
+                 ("2304x32", 2304, 32, "shower"), ("13824x24", 13824, 24, "jw06"))
+CS_COMP_NZ = (13, 24, 48, 128)
+CS_COMP_NCOLS = (37, 9216)
+# each comp kernel against its plain version on the same inputs, per output
+# of its max: the same bf16 products summed in another order (the CPU
+# emulations of the kernels' decompositions, tests/test_torch_column_solve.py
+# and tests/test_torch_rlz_analysis.py, measure up to 1e-6 and 3.4e-6; the
+# card up to 1.68e-6 and 3.27e-6, an H100 80GB HBM3 at 700 W); and
+# its error against f64 within COMP_ERR_RATIO of its plain version's, from
+# below too, so that a body on any other arithmetic than bf16x3 fails: plain
+# f32 is ~1e-5 of max from bf16x3 and ~100x nearer f64, f32 products by
+# O_hi + O_lo (the activations left unsplit) 0.5x its error on the CPU; the
+# kernels measured 0.96x to 1.07x on an H100 80GB HBM3 at 700 W
+COMP_DIRECT = {"column_solve": 4e-6, "rlz_analysis": 1e-5}
+COMP_ERR_RATIO = (0.75, 4.0)
+# the comp analysis at phase 4's timed shapes
+ANALYSIS_COMP_SHAPES = ("moist3d", "tc", "transform", "shower", "slz_test",
+                        "jw06_production")
+# compensated f32 (deriv_single on) against plain f64 after 20 full-width
+# moist3d steps on the card, per field: about 3x the same comparison on the
+# CPU, where the derivative slots' single bf16 pass leaves 1.0e-3 to 4.1e-3
+# of a field's max (plain f32: 1.7e-6 to 1.2e-5; s 7.0e-5, xi 1.06e-3, mu
+# 1.03e-3, u 4.14e-3, v 2.40e-3, w 2.00e-3, mu_c 1.26e-3, qss 1.17e-3;
+# tools/torch_comp_reference.py on the card machine's CPU; PERF.md)
+COMP_M3D_BOUND = {"s": 2e-4, "u": 1.25e-2, "v": 7.5e-3, "w": 6e-3, "mu_c": 4e-3}
+COMP_M3D_DEFAULT_BOUND = 3.5e-3
+# the factored DFT: tools/profile_factored.py's RL grid (64 cells, 6 vars)
+FACTORED_CELLS = 64
+FACTORED_TIMED_NL = (1024, 2048, 4096)
+
+
+def column_solve_comp_bound(ncols, nz):
+    """The comp column solve: x*, w* read, w, xi written, M's bf16 hi and lo
+    read once (the size of one f32 M); 2 ncols (2nz)^2 FLOP of products, each
+    three bf16 passes."""
+    return bound_ms((4 * ncols * nz + 4 * nz * nz) * 4,
+                    2 * ncols * (2 * nz) ** 2, "bf16x3 products")
+
+
+def analysis_comp_bound(shape, b_rdim):
+    """The comp RLZ analysis: as analysis_bound, each operator's bf16 hi and
+    lo read once (an f32 operator's bytes), each product three bf16
+    passes."""
+    V, R, L, Z = shape
+    B = b_rdim
+    return bound_ms(
+        4 * (V * R * L * Z + L * L + R * L + V * B * R + V * Z * Z + V * B * L * Z),
+        2 * V * R * L * L * Z + 2 * V * B * R * L * Z + 2 * V * B * L * Z * Z,
+        "bf16x3 products")
+
+
+def comp_stage(torch, cs, o64, x, w, stage):
+    """The comp operator of a stage (the f64 M of o64 split), the f64 chain's
+    (w, xi) and the five f32 operators with the stage's ts'."""
+    ts_term = 0.5 * o64.ts if stage == "t1" else 1.25 * o64.ts
+    s64 = o64.solve_t1 if stage == "t1" else o64.solve
+    ops64 = (o64.col_filter, o64.col_deriv,
+             o64.hinv_t1 if stage == "t1" else o64.hinv, o64.synth, o64.dsynth)
+    op = cs.column_operator(s64.M, torch.float32, "cuda", "comp")
+    ref = cs.fused_column_solve_plain(x, w, *ops64, ts_term, o64.pxi_bar)
+    return op, ref, tuple(o.float() for o in ops64), ts_term
+
+
+def phase_comp_kernels(tx, tti, torch, cs, ra, columns):
+    """The comp (bf16x3) kernels against their plain versions and f64, then
+    timed; returns ({"column_solve" | "rlz_analysis": max_abs_err against the
+    plain version at moist3d, and "..._vs_f64" against f64}, {label: (ms, plain_ms, library_ms, bound_ms, bound_by)} of the
+    column solve, {name: (ms, plain_ms, bound_ms, bound_by)} of the
+    analysis), device times."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    zmax, ts, pxi, _ = columns["moist3d"]
+    shapes = [(ncols, nz, "moist3d") for nz in CS_COMP_NZ for ncols in CS_COMP_NCOLS]
+    shapes += [(ncols, nz, src) for _, ncols, nz, src in CS_COMP_TIMED]
+    worst, lines, errs = {}, [], {}
+    for ncols, nz, src in shapes:
+        zmax_, ts_, bar, _ = columns[src]
+        o64 = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, bar, ts_, torch.float64, "cuda")
+        x = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        w = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        x32, w32 = x.float(), w.float()
+        for stage in ("t1", "ab"):
+            op, ref, ops32, ts_term = comp_stage(torch, cs, o64, x, w, stage)
+            k, kb = (cs.apply_column_operator(x32, w32, op) for _ in range(2))
+            plain = cs.apply_column_operator_comp_plain(x32, w32, op.M)
+            counterpart = cs.fused_column_solve(x32, w32, *ops32, ts_term, bar)
+            torch.cuda.synchronize()
+            where = (ncols, nz, src, stage)
+            for a, b in zip(k, kb):
+                assert torch.isfinite(a).all() and torch.equal(a, b), (where, "not repeatable")
+            rk, ek = rel_errs(k, ref)
+            rp, _ = rel_errs(plain, ref)
+            rc, _ = rel_errs(counterpart, ref)
+            rd, ed = rel_errs(k, tuple(p.double() for p in plain))
+            lo, hi = COMP_ERR_RATIO
+            assert rd <= COMP_DIRECT["column_solve"], (where, "kernel vs its plain version", rd)
+            assert lo * rp <= rk <= hi * rp and rk <= 1e-4, (where, "comp kernel", rk,
+                                                              "plain comp", rp)
+            assert lo * rp <= rc <= hi * rp and rc <= 1e-4, (where, "counterpart", rc, rp)
+            for key, v in (("kernel", rk), ("plain", rp), ("ratio", rk / rp),
+                           ("counterpart", rc), ("direct", rd)):
+                worst[key] = max(worst.get(key, 0.0), v)
+            worst["least_ratio"] = min(worst.get("least_ratio", hi), rk / rp)
+            if (ncols, nz, stage) == (9216, 48, "ab"):
+                errs["column_solve"], errs["column_solve_vs_f64"] = ed, ek
+        lines.append(f"{ncols}x{nz}")
+    say("comp-column-solve-vs-plain", t0,
+        f"mode='comp' (bf16 split of the composed M and of [x* | w*]), {lines} x 2 stages: "
+        f"kernel against its plain version (the torch bf16x3 map) on the same inputs, max "
+        f"rel err {worst['direct']:.3e} (tol {COMP_DIRECT['column_solve']}); max rel err "
+        f"against the f64 chain: kernel {worst['kernel']:.3e}, plain version "
+        f"{worst['plain']:.3e}, ratio kernel / plain {worst['least_ratio']:.3f} to "
+        f"{worst['ratio']:.3f} (tol {COMP_ERR_RATIO}, and 1e-4); the counterpart "
+        f"fused_column_solve at its default mode {worst['counterpart']:.3e}; two calls "
+        f"bitwise equal")
+
+    t0 = time.perf_counter()
+    cs_times = {}
+    for label, ncols, nz, src in CS_COMP_TIMED:
+        zmax_, ts_, bar, _ = columns[src]
+        o64 = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, bar, ts_, torch.float64, "cuda")
+        x64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        w64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        op, ref, _, _ = comp_stage(torch, cs, o64, x64, w64, "ab")
+        x, w = x64.float(), w64.float()
+        xw = torch.cat([x, w], dim=1).contiguous()
+        m_t = op.M.T
+        plain = lambda: cs.apply_column_operator_comp_plain(x, w, op.M)  # noqa: E731
+        kernel = lambda: cs.apply_column_operator(x, w, op)  # noqa: E731
+        library = lambda: torch.matmul(xw, m_t)  # noqa: E731
+        lib_out = library()
+        err = {"kernel": rel_errs(kernel(), ref)[0], "plain": rel_errs(plain(), ref)[0],
+               "library": rel_errs((lib_out[:, :nz], lib_out[:, nz:]), ref)[0]}
+        kt, pt, lt = in_turns(plain, kernel, 200, timer=queued_time_ms, library=library)
+        kb, pb, lb = in_turns(plain, kernel, 200, library=library)
+        bound, by = column_solve_comp_bound(ncols, nz)
+        cs_times[label] = (min(kt), min(pt), min(lt), bound, by)
+        print(f"  comp column solve {label}: device time kernel {kt} ms, plain {pt} ms, "
+              f"library (torch.matmul in true f32) {lt} ms; back to back kernel {kb} ms, plain "
+              f"{pb} ms, library {lb} ms; bound {bound:.5f} ms ({by}), kernel at "
+              f"{100.0 * bound / min(kt):.1f}% of it; rel err against the f64 chain: kernel "
+              f"{err['kernel']:.3e}, plain {err['plain']:.3e}, library {err['library']:.3e}",
+              flush=True)
+    say("comp-column-solve-timing", t0,
+        "200 calls a run, min device ms kernel vs plain (torch bf16x3) vs library "
+        "(torch.matmul in true f32: no single PyTorch call computes bf16x3 with an f32 "
+        "output) (bound, share): "
+        + ", ".join(f"{k} {a:.5f} vs {b:.5f} vs {c:.5f} ({d:.5f} {e}, {100.0 * d / a:.1f}%)"
+                    for k, (a, b, c, d, e) in cs_times.items()))
+
+    t0 = time.perf_counter()
+    lines = []
+    ra_times = {}
+    for name in ANALYSIS_COMP_SHAPES:
+        nv = ANALYSIS_SHAPES[name][0]
+        params = analysis_params(tx, name)
+        g64 = tx.create_grid(params, torch.float64, device="cuda")
+        gc = tx.create_grid(params, torch.float32, matmul="compensated", device="cuda")
+        assert gc.comp and gc.l_fact is None
+        ops64 = (g64.l_analysis, g64.ring_mask, g64.analysis_r, g64.analysis_z)
+        opsc = (gc.l_analysis, gc.ring_mask, gc.analysis_r, gc.analysis_z)
+        x = torch.from_numpy(rng.normal(size=(nv,) + g64.spatial_shape)).cuda()
+        x32 = x.float()
+        ref = ra.rlz_analysis_plain(x, *ops64)
+        plain = ra.rlz_analysis_comp_plain(x32, *opsc)
+        k, kb = (ra.rlz_analysis(x32, *opsc, mode="comp") for _ in range(2))
+        via_grid = gc.analysis(x32)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        ek = float((k.double() - ref).abs().max())
+        ep = float((plain.double() - ref).abs().max())
+        ed = float((k.double() - plain.double()).abs().max())
+        lo, hi = COMP_ERR_RATIO
+        assert torch.isfinite(k).all() and torch.equal(k, kb), (name, "not repeatable")
+        assert torch.equal(via_grid, k), (name, "Grid.analysis is not the comp kernel")
+        assert ed <= COMP_DIRECT["rlz_analysis"] * scale, (name, "vs plain", ed / scale)
+        assert lo * ep <= ek <= hi * ep and ek <= 1e-4 * scale, (name, ek / scale, ep / scale)
+        if name == "moist3d":
+            errs["rlz_analysis"], errs["rlz_analysis_vs_f64"] = ed, ek
+        pc = ra.plan(x.shape, g64.params.b_rDim, torch.float32, "comp")
+        lines.append(f"{name} {g64.geometry} {list(x.shape)}: rel err against its plain "
+                     f"version {ed / scale:.2e}; against f64 kernel {ek / scale:.2e}, plain comp "
+                     f"{ep / scale:.2e} ({ek / ep:.2f}x); {pc} {pc.ctas} blocks")
+        plain_fn = lambda: ra.rlz_analysis_comp_plain(x32, *opsc)  # noqa: E731
+        kernel_fn = lambda: ra.rlz_analysis(x32, *opsc, mode="comp")  # noqa: E731
+        kt, pt = in_turns(plain_fn, kernel_fn, 100, timer=queued_time_ms)
+        bound, by = analysis_comp_bound(tuple(x.shape), g64.params.b_rDim)
+        ra_times[name] = (min(kt), min(pt), bound, by)
+        print(f"  comp analysis {name} {list(x.shape)}: device time kernel {kt} ms, plain "
+              f"{pt} ms; bound {bound:.5f} ms ({by}), kernel at "
+              f"{100.0 * bound / min(kt):.1f}% of it", flush=True)
+    say("comp-analysis-vs-plain-and-timing", t0,
+        f"mode='comp' on compensated grids: the kernel within "
+        f"{COMP_DIRECT['rlz_analysis']} of max|ref| of its plain comp chain on the same "
+        f"inputs; against the f64 plain chain its error {COMP_ERR_RATIO}x the plain comp "
+        f"chain's and <= 1e-4 of max|ref|; two calls bitwise equal, Grid.analysis equal to "
+        f"it; 100 calls a run, min device ms kernel vs plain (bound): "
+        + ", ".join(f"{k} {t[0]:.5f} vs {t[1]:.5f} ({t[2]:.5f} {t[3]})"
+                    for k, t in ra_times.items()) + " | " + " | ".join(lines))
+    return errs, cs_times, ra_times
+
+
+def phase_comp_moist3d(tx, tmodel, tti, torch, cs, ra, tmp, card, out_dir):
+    """The slice's path: moist3d at full width on a compensated grid
+    (deriv_single auto: on), 120 steps through integrate_model (initialize,
+    build_context, build_step, run_loop) with its launches counted; steps/s,
+    launches and device busy a step beside the plain f32 run; comp f32 against
+    plain f64 after 20 steps; then fused_column_solve at its default (comp) on
+    the final xi and w columns of the 120-step run, its launches counted.
+    Returns a dict for the closing line and the kernels line."""
+    t0 = time.perf_counter()
+    model = moist3d(tx, tmp, n_steps=120, out_every=60, name="moist3d_comp")
+    zero_counts(cs, ra)
+    with compensated_grids():
+        grid, phys = tx.integrate_model(model, dtype=torch.float32, device="cuda")
+    launches = {"column_solve": cs.launches, "column_solve_comp": cs.comp_launches,
+                "rlz_analysis": ra.launches, "rlz_analysis_comp": ra.comp_launches}
+    assert grid.comp and grid.fast and grid.l_fact is None
+    assert launches == {"column_solve": 120, "column_solve_comp": 0, "rlz_analysis": 0,
+                        "rlz_analysis_comp": 121}, launches
+    assert phys.shape == (9, 144, 64, 48) and np.isfinite(phys).all()
+    wmax = float(phys[MOIST3D_VARS.index("w")].max())
+    assert wmax > 0.01, wmax
+    outs = sorted(f for f in os.listdir(model.output_dir) if f.startswith("physical_out_"))
+    assert len(outs) == 3, outs
+    say("comp-moist3d-path", t0,
+        f"integrate_model moist3d f32 on cuda, compensated grids (deriv_single auto: "
+        f"fast {grid.fast}), 120 steps: launches {json.dumps(launches)}, all fields finite, "
+        f"w.max {wmax:.4f} m/s, outputs {outs}")
+
+    t0 = time.perf_counter()
+    runs = {}
+    for mode in ("plain", "comp", "comp", "plain"):
+        ms_step, host_sps, state, step = time_steps(torch, tmodel, model, 100, mode == "comp")
+        runs.setdefault(mode, []).append(1000.0 / ms_step)
+        if len(runs[mode]) == 2:
+            label = f"moist3d_{mode}"
+            busy, wall, nk, solve, gemm = profile_steps(
+                torch, state, step, card, label, os.path.join(out_dir, f"{label}_profile.txt"))
+            runs[mode + "_profile"] = {"busy_us": busy, "wall_us": wall,
+                                       "launches_per_step": nk, "gemm_us": gemm}
+        del state, step
+    res = {"launches": launches, "steps_per_s": runs["comp"],
+           "plain_steps_per_s": runs["plain"], "profile": runs["comp_profile"],
+           "plain_profile": runs["plain_profile"]}
+    say("comp-moist3d-steps-per-second", t0,
+        f"100 steps after 10 warm-up each, in turns plain, comp, comp, plain: steps/s comp "
+        f"{runs['comp']}, plain f32 {runs['plain']} on {card}; profile of 10 steps "
+        f"(device busy us/step, launches/step, matrix products us/step): comp "
+        f"{json.dumps(runs['comp_profile'])}, plain {json.dumps(runs['plain_profile'])}; "
+        f"tables in chiprun_out/moist3d_{{comp,plain}}_profile.txt")
+
+    t0 = time.perf_counter()
+    m20 = moist3d(tx, tmp, n_steps=20, out_every=20, name="moist3d_comp_20")
+    with compensated_grids():
+        _, pc = tx.integrate_model(m20, dtype=torch.float32, device="cuda",
+                                   write_outputs=False)
+    _, p64 = tx.integrate_model(m20, dtype=torch.float64, device="cuda", write_outputs=False)
+    rel = per_field_rel(pc, p64)
+    checked = [v for v in range(9) if np.abs(p64[v]).max() > 0.0]
+    bounds = [COMP_M3D_BOUND.get(n, COMP_M3D_DEFAULT_BOUND) for n in MOIST3D_VARS]
+    assert all(rel[v] <= bounds[v] for v in checked), (rel, bounds)
+    res["comp_vs_f64_20_steps"] = dict(zip(MOIST3D_VARS, rel))
+    say("comp-moist3d-vs-f64", t0,
+        f"20 full-width steps, cuda compensated f32 vs cuda plain f64, rel err per field "
+        f"{fmt_rel(rel)} (tol {COMP_M3D_BOUND} else {COMP_M3D_DEFAULT_BOUND}, on "
+        f"{[MOIST3D_VARS[v] for v in checked]})")
+
+    # fused_column_solve at its default mode (comp) on the run's own columns:
+    # the comp column solve's path; the counts reset just before it
+    t0 = time.perf_counter()
+    xi, w = (torch.from_numpy(np.ascontiguousarray(phys[MOIST3D_VARS.index(n)]))
+             .to("cuda").reshape(-1, 48) for n in ("xi", "w"))
+    zmax = model.grid_params.zmax
+    ctx = tmodel.build_context(model, grid, torch.float32)
+    pxi = float(ctx.ref_state.Pxi_bar)
+    o32 = tti.build_semiimplicit_ops(48, 0.0, zmax, None, pxi, model.ts, torch.float32, "cuda")
+    stages = (("t1", 0.5 * model.ts, o32.hinv_t1, o32.solve_t1),
+              ("ab", 1.25 * model.ts, o32.hinv, o32.solve))
+    zero_counts(cs, ra)
+    outs = [cs.fused_column_solve(xi, w, o32.col_filter, o32.col_deriv, hinv, o32.synth,
+                                  o32.dsynth, ts_term, pxi)
+            for _, ts_term, hinv, _ in stages]
+    torch.cuda.synchronize()
+    path_launches = cs.comp_launches
+    assert (path_launches, cs.launches) == (2, 0), (path_launches, cs.launches)
+    errs, direct = [], []
+    for out, (_, ts_term, hinv, op) in zip(outs, stages):
+        ref = cs.apply_column_operator(xi, w, op)  # the plain (3xTF32) kernel
+        errs.append(rel_errs(out, tuple(r.double() for r in ref))[0])
+        m = cs.compose_column_operator(*(o.double() for o in (
+            o32.col_filter, o32.col_deriv, hinv, o32.synth, o32.dsynth)), ts_term, pxi)
+        plain = cs.apply_column_operator_comp_plain(
+            xi, w, cs.column_operator(m, torch.float32, "cuda", "comp").M)
+        direct.append(rel_errs(out, tuple(p.double() for p in plain))[0])
+    assert max(direct) <= COMP_DIRECT["column_solve"], direct
+    assert max(errs) <= 1e-4, errs
+    res["column_solve_comp_launches"] = path_launches
+    say("comp-column-solve-path", t0,
+        f"fused_column_solve(..., mode='comp' by default) on the compensated moist3d's "
+        f"[9216, 48] columns, both stages: comp kernel launches {path_launches}; against "
+        f"its plain version (the same composed M, torch bf16x3) rel err "
+        f"{[f'{e:.2e}' for e in direct]} (tol {COMP_DIRECT['column_solve']}); against the "
+        f"plain-mode kernel {[f'{e:.2e}' for e in errs]} (tol 1e-4)")
+    return res
+
+
+def comp_flagship_workflow(tx, torch, cb, base, dtype, device, twoway_steps=400):
+    """flagship_workflow on compensated grids (deriv_single auto: on), as the
+    JAX package runs it on a TPU: Rankine ICs, the one-way spinup for 200
+    steps, add_wave2 on its last output, ``twoway_steps`` two-way steps with
+    an output halfway."""
+    spin = cb.spinup_model(base).with_(integration_time=600.0, output_interval=600.0)
+    pts_grid = tx.create_grid(spin.grid_params, torch.float64, device="cpu")  # points only
+    cb.write_rankine_ics(pts_grid, spin.initial_conditions)
+    with compensated_grids():
+        tx.integrate_model(spin, dtype=dtype, device=device)
+    balanced = os.path.join(spin.output_dir, "physical_out_600.0.csv")
+    t_end = twoway_steps * 3.0
+    tw = cb.twoway_model(base).with_(integration_time=t_end, output_interval=t_end / 2)
+    cb.add_wave2(pts_grid, balanced, tw.initial_conditions)
+    with compensated_grids():
+        grid, phys = tx.integrate_model(tw, dtype=dtype, device=device)
+    return tw, grid, phys
+
+
+def phase_comp_flagship(tx, torch, cs, ra, cb, tmp):
+    """The flagship workflow at full width on compensated grids with the fast
+    derivative slots: inside phase 9's bands; no hand-written kernel lies on
+    this RL path, and the counts say 0."""
+    t0 = time.perf_counter()
+    zero_counts(cs, ra)
+    tw, grid, phys = comp_flagship_workflow(tx, torch, cb, os.path.join(tmp, "flagship_comp"),
+                                            torch.float32, "cuda")
+    launches = (cs.launches, cs.comp_launches, ra.launches, ra.comp_launches)
+    assert launches == (0, 0, 0, 0), launches
+    assert grid.comp and grid.fast
+    assert phys.shape == (6, 300, 256) and np.isfinite(phys).all()
+    fl = flagship_readings(grid, phys)
+    assert FLAGSHIP_VG_BAND[0] < fl["vg_max"] < FLAGSHIP_VG_BAND[1], fl
+    assert FLAGSHIP_WAVE2_BAND[0] < fl["vg_wave2_at_50km"] < FLAGSHIP_WAVE2_BAND[1], fl
+    say("comp-flagship-path", t0,
+        f"the Cha & Bell workflow f32 on cuda, compensated grids with deriv_single auto "
+        f"(fast {grid.fast}): spinup 200 steps, add_wave2, two-way {tw.num_ts} steps on "
+        f"{list(phys.shape)}; kernel launches {launches} (none lies on this path); "
+        f"{json.dumps(fl)} (vg.max band {FLAGSHIP_VG_BAND}, wave-2 band {FLAGSHIP_WAVE2_BAND})")
+    return fl
+
+
+def factored_rl_params(tx, nl, factored=None):
+    """tools/profile_factored.py's RL grid: 64 cells, 6 variables."""
+    return tx.GridParameters(geometry="RL", xmin=0.0, xmax=3.0e5, num_cells=FACTORED_CELLS,
+                             lDim=nl, l_factored=factored,
+                             vars={f"v{i}": i + 1 for i in range(6)})
+
+
+def round_trip(grid, spec):
+    """Every slot of the synthesis, then the analysis of the value slot."""
+    out = grid.synthesis(spec)
+    return out, grid.analysis(out["val"])
+
+
+def phase_factored(tx, tmodel, torch, cs, ra, tmp):
+    """The factored DFT on the card: the auto choice at nl 4096 against the
+    CPU, explicit factored against dense at 2048, dense against factored
+    device time, and a factored XYZ grid stepping with no analysis launch.
+    Returns {nl: (dense ms, factored ms)}."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    gp = factored_rl_params(tx, 4096)
+    gc = tx.create_grid(gp, torch.float64, device="cuda")
+    gcpu = tx.create_grid(gp, torch.float64, device="cpu")
+    assert gc.l_fact is not None and gc.kDim == gc.l_fact.fd.K, "auto did not factor"
+    spec = torch.from_numpy(rng.normal(size=gc.spectral_shape))
+    a, sa = round_trip(gc, spec.cuda())
+    b, sb = round_trip(gcpu, spec)
+    rel4096 = max([float((a[k].cpu() - b[k]).abs().max() / b[k].abs().max()) for k in b]
+                  + [float((sa.cpu() - sb).abs().max() / sb.abs().max())])
+    assert rel4096 <= 1e-12, rel4096
+    gd = tx.create_grid(factored_rl_params(tx, 2048, False), torch.float64, device="cuda")
+    gf = tx.create_grid(factored_rl_params(tx, 2048, True), torch.float64, device="cuda")
+    phys = torch.from_numpy(rng.normal(size=(6,) + gd.spatial_shape)).cuda()
+    od, of = gd.synthesis(gd.analysis(phys)), gf.synthesis(gf.analysis(phys))
+    rel2048 = max(float((of[k] - od[k]).abs().max() / od[k].abs().max()) for k in od)
+    assert rel2048 <= 1e-12, rel2048
+    say("factored-dft", t0,
+        f"RL {FACTORED_CELLS} cells x 6 vars: nl 4096 (auto: factored, K {gc.kDim}) round "
+        f"trip f64 cuda vs cpu rel err {rel4096:.2e} (tol 1e-12); nl 2048 l_factored=True "
+        f"vs dense f64 on cuda, every slot {rel2048:.2e} (tol 1e-12)")
+
+    t0 = time.perf_counter()
+    times = {}
+    for nl in FACTORED_TIMED_NL:
+        row = []
+        for factored in (False, True):
+            g = tx.create_grid(factored_rl_params(tx, nl, factored), torch.float32,
+                               device="cuda")
+            s = torch.full(g.spectral_shape, 1e-3, dtype=torch.float32, device="cuda")
+            row.append(lambda g=g, s=s: g.analysis(g.synthesis(s)["val"]))
+        kt, pt = in_turns(row[0], row[1], 20, timer=queued_time_ms)
+        times[nl] = (min(pt), min(kt))
+        print(f"  factored DFT RL nl {nl} f32 round trip: device time dense {pt} ms, "
+              f"factored {kt} ms", flush=True)
+    say("factored-dft-timing", t0,
+        "RL round trip (all synthesis slots, then the analysis of the value slot), f32, 20 "
+        "calls a run, min device ms dense vs factored: "
+        + ", ".join(f"nl {nl} {d:.4f} vs {f:.4f}" for nl, (d, f) in times.items()))
+
+    t0 = time.perf_counter()
+    xm = xyz_test_model(tx, tmp, 10, cells=4, ldim=4096, zdim=6, ts=0.002,
+                        name="xyz_factored")
+    zero_counts(cs, ra)
+    g, p_gpu = tx.integrate_model(xm, dtype=torch.float64, device="cuda", write_outputs=False)
+    launches = (cs.launches, ra.launches, ra.comp_launches)
+    assert g.l_fact is not None and launches == (10, 0, 0), launches
+    _, p_cpu = tx.integrate_model(xm, dtype=torch.float64, device="cpu", write_outputs=False)
+    rel = per_field_rel(p_gpu, p_cpu)
+    assert np.isfinite(p_gpu).all() and max(rel) <= 1e-9, rel
+    say("factored-xyz-path", t0,
+        f"MoistEulerXYZ on the XYZ box at lDim 4096 (factored, K {g.kDim}; "
+        f"{list(p_gpu.shape)}), 10 f64 steps of 0.002 s on cuda: launches (column solve, "
+        f"analysis, comp analysis) {launches}: the factored grid takes the einsum analysis by "
+        f"design; vs cpu f64 rel err per field {fmt_rel(rel)} (tol 1e-9)")
+    return times
+
+
+GROUPS = ("kernels", "paths", "jw06", "ensembles", "gradients", "comp_kernels",
+          "comp_moist3d", "comp_flagship", "factored")
 
 
 def main(argv=None):
@@ -1507,7 +2001,7 @@ def main(argv=None):
         if "paths" in groups:
             # ---- phase 6: moist3d, the counts reset just before it
             t0 = time.perf_counter()
-            cs.launches = ra.launches = 0
+            zero_counts(cs, ra)
             grid, phys = tx.integrate_model(model, dtype=torch.float32, device="cuda")
             m3d_launches = (cs.launches, ra.launches)
             assert m3d_launches == (model.num_ts, model.num_ts + 1) == (120, 121), m3d_launches
@@ -1538,7 +2032,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             tc = tc_mature_model(os.path.join(tmp, "tc_mature"), t_end=1800.0,
                                  output_interval=900.0)
-            cs.launches = ra.launches = 0
+            zero_counts(cs, ra)
             grid, phys = tx.integrate_model(tc, dtype=torch.float32, device="cuda")
             tc_launches = (cs.launches, ra.launches)
             assert tc_launches == (tc.num_ts, tc.num_ts + 1) == (900, 901), tc_launches
@@ -1621,7 +2115,7 @@ def main(argv=None):
             # ---- phase 9: the flagship two-layer path; no hand-written kernel
             # lies on it, and the counts, reset just before it, say so
             t0 = time.perf_counter()
-            cs.launches = ra.launches = ep.launches = 0
+            zero_counts(cs, ra, ep)
             tw, grid, phys = flagship_workflow(tx, cb, os.path.join(tmp, "flagship"),
                                                torch.float32, "cuda")
             fl_launches = (cs.launches, ra.launches, ep.launches)
@@ -1715,7 +2209,7 @@ def main(argv=None):
             # analysis is the CUDA kernel; the counts reset just before it
             t0 = time.perf_counter()
             hm = hrbl_model(tx, tmp, 100)
-            cs.launches = ra.launches = 0
+            zero_counts(cs, ra)
             _, p_gpu = tx.integrate_model(hm, dtype=torch.float64, device="cuda",
                                           write_outputs=False)
             hrbl_launches = (cs.launches, ra.launches)
@@ -1739,7 +2233,7 @@ def main(argv=None):
             for label, profile in (("shower", None), ("shower_production", "moist_production")):
                 t0 = time.perf_counter()
                 sm = shower(tx, sh, os.path.join(tmp, label), 240, profile)
-                cs.launches = ra.launches = 0
+                zero_counts(cs, ra)
                 grid, phys = tx.integrate_model(sm, dtype=torch.float32, device="cuda")
                 launches = (cs.launches, ra.launches)
                 assert launches == (sm.num_ts, sm.num_ts + 1) == (240, 241), launches
@@ -1804,7 +2298,7 @@ def main(argv=None):
             # ---- phase 17: the SLZ global balance, the counts reset just before
             t0 = time.perf_counter()
             zb = slz_test_model(tx, tmp, 200, thermal=False)
-            cs.launches = ra.launches = 0
+            zero_counts(cs, ra)
             _, p_gpu = tx.integrate_model(zb, dtype=torch.float64, device="cuda",
                                           write_outputs=False)
             slz_launches = (cs.launches, ra.launches)
@@ -1820,7 +2314,7 @@ def main(argv=None):
             # structure, so no hand-written kernel lies on it and the counts say so
             t0 = time.perf_counter()
             w2 = wm.williamson2_model(os.path.join(tmp, "williamson2"))
-            cs.launches = ra.launches = 0
+            zero_counts(cs, ra)
             grid, phys = tx.integrate_model(w2, dtype=torch.float64, device="cuda")
             sl_launches = (cs.launches, ra.launches)
             assert sl_launches == (0, 0), sl_launches
@@ -1842,6 +2336,15 @@ def main(argv=None):
         if "gradients" in groups:
             kg_times = phase_kernel_gradients(tx, tti, torch, cs, ra, columns)
             grad = phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint)
+        if "comp_kernels" in groups:
+            comp_errs, cs_comp_times, ra_comp_times = phase_comp_kernels(
+                tx, tti, torch, cs, ra, columns)
+        if "comp_moist3d" in groups:
+            cm3d = phase_comp_moist3d(tx, tmodel, tti, torch, cs, ra, tmp, card, out_dir)
+        if "comp_flagship" in groups:
+            cfl = phase_comp_flagship(tx, torch, cs, ra, cb, tmp)
+        if "factored" in groups:
+            fact_times = phase_factored(tx, tmodel, torch, cs, ra, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1852,7 +2355,9 @@ def main(argv=None):
     print(f"  TC mature path: {tc_sps:.2f} steps/s; moist3d launches {m3d_launches}; "
           f"flagship two-way: {fl_sps:.2f} steps/s; shower: "
           f"{json.dumps(shower_runs)}; JW06 production: {json.dumps(jw)}; ensembles: "
-          f"{json.dumps(ens)}", flush=True)
+          f"{json.dumps(ens)}; compensated moist3d: {json.dumps(cm3d)}; compensated "
+          f"flagship: {json.dumps(cfl)}; factored DFT dense vs factored ms: "
+          f"{json.dumps(fact_times)}", flush=True)
     cs_main = cs_times["9216x48 f32"]
     n_probe = int(np.prod(ep.SHAPE))
     # seven slot tensors and rinv read, one output written; 21 FLOP an output
@@ -1940,6 +2445,48 @@ def main(argv=None):
             "moist3d_f64_plain_ms": ra_times["moist3d_f64"][1],
             **{f"{name}_{k}": ra_times[name][i]
                for name in ("shower", "slz_test", "jw06", "jw06_production")
+               for i, k in enumerate(("ms", "plain_ms", "bound_ms", "bound_by"))},
+        },
+        {
+            "name": "fused_column_solve_comp",
+            "route": "cuda",
+            "source": "scythe_tpu_torch/ops/csrc/column_solve.cu",
+            "replaces": "scythe_tpu/ops/pallas_semiimplicit.py:78",
+            "launches": cm3d["column_solve_comp_launches"],
+            "launches_by_path": {"fused_column_solve_default_on_comp_moist3d":
+                                 cm3d["column_solve_comp_launches"],
+                                 "comp_moist3d_model": cm3d["launches"]["column_solve_comp"]},
+            "max_abs_err": comp_errs["column_solve"],
+            "max_abs_err_vs_f64": comp_errs["column_solve_vs_f64"],
+            "ms": cs_comp_times["9216x48"][0],
+            "plain_ms": cs_comp_times["9216x48"][1],
+            "bound_ms": cs_comp_times["9216x48"][3],
+            "bound_by": cs_comp_times["9216x48"][4],
+            "library_ms": cs_comp_times["9216x48"][2],
+            "library_call": "torch.matmul([x* | w*], M^T) in true f32: no single PyTorch "
+                            "call computes bf16x3 with an f32 output",
+            **{f"{key}_{k}": cs_comp_times[label][i]
+               for key, label in (("tc", "1200x24"), ("shower", "2304x32"),
+                                  ("jw06", "13824x24"))
+               for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by"))},
+        },
+        {
+            "name": "rlz_analysis_comp",
+            "route": "cuda",
+            "source": "scythe_tpu_torch/ops/csrc/rlz_analysis.cu",
+            "replaces": "scythe_tpu/ops/pallas_transforms.py:134",
+            "launches": cm3d["launches"]["rlz_analysis_comp"],
+            "launches_per_step": (cm3d["launches"]["rlz_analysis_comp"] - 1) / 120,
+            "max_abs_err": comp_errs["rlz_analysis"],
+            "max_abs_err_vs_f64": comp_errs["rlz_analysis_vs_f64"],
+            "ms": ra_comp_times["moist3d"][0],
+            "plain_ms": ra_comp_times["moist3d"][1],
+            "bound_ms": ra_comp_times["moist3d"][2],
+            "bound_by": ra_comp_times["moist3d"][3],
+            "library_ms": None,
+            **{f"{name}_{k}": ra_comp_times[name][i]
+               for name in ANALYSIS_COMP_SHAPES if name != "moist3d"
                for i, k in enumerate(("ms", "plain_ms", "bound_ms", "bound_by"))},
         },
         {

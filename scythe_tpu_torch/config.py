@@ -2,10 +2,10 @@
 
 The same frozen dataclasses as ``scythe_tpu.config`` (the reference's
 config surface, src/Scythe.jl:8-21 and src/spectralGrid.jl:20-45), so a
-configuration reads alike in both packages.  Two grid switches of the JAX
-package are not ported: the factored azimuthal DFT (``l_factored=True``)
-and single-pass bf16 derivative synthesis (``deriv_single=True``, a TPU
-precision mode); both raise NotImplementedError.
+configuration reads alike in both packages, the grid switches
+``l_factored`` (the radix-split azimuthal DFT) and ``deriv_single``
+(single-pass bf16 derivative synthesis in compensated mode) included, each
+with the JAX meaning: None is auto (grids/base.py create_grid).
 """
 
 from __future__ import annotations
@@ -125,16 +125,6 @@ class GridParameters:
     vars: Any = ("u",)
 
     def __post_init__(self):
-        if self.l_factored:
-            raise NotImplementedError(
-                "GridParameters.l_factored=True: the factored azimuthal DFT "
-                "is not ported to scythe_tpu_torch yet"
-            )
-        if self.deriv_single:
-            raise NotImplementedError(
-                "GridParameters.deriv_single=True: single-pass bf16 "
-                "derivative synthesis is not ported to scythe_tpu_torch yet"
-            )
         names = _normalize_vars(self.vars)
         object.__setattr__(self, "vars", names)
         object.__setattr__(self, "BCL", _normalize_bc(self.BCL, names, BC.R0))

@@ -5,6 +5,9 @@ operators (rebuilt from the configuration by either package), the reference
 state, the model state and the context extras its options read (the
 sponges' and the radiation boundary's reference fields).  These functions
 move the last three across as numpy arrays, so a run can start in one package from the other's state.
+A state carries as it is laid out on its grid: the K_f slots of a
+factored-DFT grid, float32 from a compensated one (tests/test_torch_
+{factored_dft,compensated}.py step each once against the JAX package).
 Nothing here imports jax: a JAX array converts through ``np.asarray``.
 Every loader puts its tensors on the card unless the caller asks for the
 CPU (``device="cpu"``).

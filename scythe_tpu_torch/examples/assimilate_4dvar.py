@@ -58,9 +58,7 @@ def synthesize_obs(sims, truth0, seed=0):
 
 
 def wavenumber_weights(grid, dtype, device):
-    from ..basis import fourier
-
-    k = fourier.coeff_wavenumbers(grid.nl)
+    k = grid.slot_wavenumbers()  # each spectral slot's, dense or factored
     return torch.as_tensor((1.0 + (k / 2.0) ** 2) ** 1.5, dtype=dtype, device=device)[None, None, :]
 
 

@@ -51,9 +51,7 @@ def obs_operator(x0, xf):
 def sample_ensemble(grid, bg, n_members, target_spread=2.0, seed0=100):
     """Background ensemble from the 4D-Var-consistent spectral covariance
     (std ~ w_k^{-1/2}); numpy draws, one generator a member."""
-    from ..basis import fourier
-
-    k = fourier.coeff_wavenumbers(grid.nl)
+    k = grid.slot_wavenumbers()  # each spectral slot's, dense or factored
     std_k = 1.0 / np.sqrt((1.0 + (k / 2.0) ** 2) ** 1.5)
     d = np.stack([np.random.default_rng(seed0 + i).normal(size=grid.spectral_shape)
                   for i in range(n_members)]) * std_k[None, None, None, :]

@@ -37,11 +37,11 @@ import torch
 
 from . import io as sio
 from . import timeintegration as ti
-from .basis import bspline, chebyshev, fourier
+from .basis import bspline, chebyshev
 from .config import ModelParameters
 from .device import DEFAULT
 from .equations.common import EqContext, get_equation_set
-from .grids.base import Grid, create_grid
+from .grids.base import Grid, _split3, create_grid
 from .physics import microphysics as mp
 from .physics import reference_state as rsmod
 from .physics import thermodynamics as td
@@ -118,15 +118,22 @@ def build_modal_filter(grid: Grid, tau: float, order: int, ts: float, dtype,
     * Fourier axis: exp(-(ts/tau) (|k|/kmax)^order) per wavenumber;
       Chebyshev axis: exp(-(ts/tau) (n/nmax)^order) per mode.
 
-    Every operator is built in float64 numpy and cast once.  ``axes``
+    Every operator is built in float64 numpy and cast once (on a
+    compensated grid into its bf16 stack, applied by ``grid._mm``).  ``axes``
     (options['modal_filter_axes']) selects the filtered directions; without
     "r" the radial factor is skipped.  Returns a function spec -> spec."""
     p = grid.params
     g = grid._struct
     a = ts / tau
 
-    def prep(o):
+    def tensor(o):
         return torch.as_tensor(np.asarray(o), dtype=dtype, device=grid.device)
+
+    def prep(o):
+        """An operator of grid._mm: on a compensated grid its bf16 stack."""
+        if grid.comp:
+            return _split3(o).to(dtype=dtype, device=grid.device)
+        return tensor(o)
 
     br = p.b_rDim
     F_r = F_rk = None
@@ -162,20 +169,18 @@ def build_modal_filter(grid: Grid, tau: float, order: int, ts: float, dtype,
                     )
                     a_ops.append(ops.analysis)  # [b_r, rDim]
                     sf_ops.append(ops.synth[0] @ fs[v])  # [rDim, b_r]
-                F_rk = (prep(np.stack(a_ops)), prep(np.stack(sf_ops)), prep(mask))
+                F_rk = (prep(np.stack(a_ops)), prep(np.stack(sf_ops)), tensor(mask))
                 F_r = None
 
     f_l = f_z = None
     if g in ("RL", "RLZ") and "l" in axes:
-        # dense-DFT slot layout; a factored DFT (nl > 2048) never gets here:
-        # create_grid raises for it
-        k = np.abs(fourier.coeff_wavenumbers(grid.nl)).astype(np.float64)
+        k = grid.slot_wavenumbers()  # dense or factored slot layout
         kmax = max(k.max(), 1.0)
-        f_l = prep(np.exp(-a * (k / kmax) ** order))
+        f_l = tensor(np.exp(-a * (k / kmax) ** order))
     if g in ("RZ", "RLZ") and "z" in axes:
         n = np.arange(p.zDim, dtype=np.float64)
         nmax = max(p.zDim - 1, 1)
-        f_z = prep(np.exp(-a * (n / nmax) ** order))
+        f_z = tensor(np.exp(-a * (n / nmax) ** order))
 
     def apply(spec):
         out = spec

@@ -58,21 +58,24 @@ def _nvcc() -> str:
     return found
 
 
-# scythe_column_solve_f32 / _f64: x, w, packed M, w_out, xi_out; ncols nz;
+# scythe_column_solve_f32 / _f64 / _comp: x, w, packed M, w_out, xi_out; ncols nz;
 # the plan (ops/column_solve.py): RG KSLAB ST, threads, smem, blocks; stream
 COLUMN_SOLVE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("scythe_column_solve_f32", "scythe_column_solve_f64"):
+    for name in ("scythe_column_solve_f32", "scythe_column_solve_f64",
+                 "scythe_column_solve_comp"):
         fn = getattr(lib, name)
         fn.argtypes = COLUMN_SOLVE_ARGTYPES
         fn.restype = i32
-    for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64"):
+    for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64",
+                 "scythe_rlz_analysis_comp"):
         fn = getattr(lib, name)
-        # x, l_analysis, ring_mask, analysis_r, analysis_z, out; V R L Z B;
-        # the plan (ops/rlz_analysis.py): KT BT C RC LC ZC ST, threads, smem
+        # x, l_analysis, ring_mask, analysis_r, analysis_z, out (comp: each
+        # operator its [hi, lo] pair, stacked); V R L Z B; the plan
+        # (ops/rlz_analysis.py): KT BT C RC LC ZC ST, threads, smem
         fn.argtypes = [ptr] * 6 + [i32] * 5 + [i32] * 9 + [ptr]
         fn.restype = i32
     for name in (

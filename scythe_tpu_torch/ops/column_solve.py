@@ -37,15 +37,28 @@ does about each fault of the first one;
 work left out.
 
 ``fused_column_solve`` is the counterpart of the TPU function, with its
-five operators: the plain chain for tensors on the CPU; on a CUDA device it
+five operators and its two modes.  ``mode="plain"`` (the TPU kernel's
+``_kernel``): the plain chain for tensors on the CPU; on a CUDA device it
 composes and packs them (a few small launches) and launches the kernel.
+``mode="comp"``, the default as in the TPU function (its ``_kernel_comp``):
+the bf16x3 product, float32 only.  The port's chain is one composed M, so
+the comp mode splits the composed M (and the activations [x* | w*]) into
+bf16 hi/lo parts, rounded to nearest even, and forms hi·hi + lo·hi + hi·lo
+with f32 accumulation: ``column_operator(..., mode="comp")`` packs M's
+bf16 split (``pack_operator(M, float32, "bf16")``) and the kernel splits the
+activations by bf16 instead of TF32.  Splitting the composed M and not the
+five operators differs from the TPU kernel by bf16x3-sized rounding
+(tests/test_torch_column_solve.py holds it at the JAX test's comp bar).  On
+the CPU its plain version is the same map in f32 arithmetic
+(``apply_column_operator_comp_plain``).
 Every wrapper checks its inputs and has no fallback: on a CUDA tensor it
 launches the kernel or raises.  Both wrappers go through ``ColumnSolveFn``,
 a ``torch.autograd.Function`` whose backward is the same kernel on M^T
 (``ColumnOperator.packed_T``), whose jvp is the kernel on the tangents and
-whose vmap folds members into the columns.  ``launches`` counts the
-kernel's launches with M, ``backward_launches`` those with M^T.  The
-bf16x3 ("comp") mode of the TPU kernel is not ported.
+whose vmap folds members into the columns; a comp operator takes the comp
+kernel in each.  ``launches`` counts the plain kernel's launches with M,
+``backward_launches`` those with M^T; ``comp_launches`` and
+``comp_backward_launches`` the comp kernel's.
 """
 
 from __future__ import annotations
@@ -55,6 +68,8 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+
+from .bf16x3 import bf16_round, comp_einsum, split_op
 
 # largest nz the kernel takes (column_solve.cu kMaxNz): beyond what fits
 # beside the ring, M streams through shared memory in K slabs
@@ -78,8 +93,12 @@ PLAN_ERRORS = {
     -3: "shared memory differs from the layout or exceeds 232448 bytes",
 }
 
+MODES = ("plain", "comp")
+
 launches = 0  # forward (and jvp) launches: the operator M
 backward_launches = 0  # backward launches: M^T
+comp_launches = 0  # the same two counts of the comp kernel
+comp_backward_launches = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -217,13 +236,15 @@ def tf32_round(v: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def pack_operator(M: torch.Tensor, dtype) -> torch.Tensor:
+def pack_operator(M: torch.Tensor, dtype, split: str = "tf32") -> torch.Tensor:
     """M [2nz, 2nz] in the order the kernel's tensor-core fragments read it,
     one 16-byte slot a lane: [K/8, K/8, 32, 2] float64 or [K/8, K/8, 32, 4]
     float32 (K = 2 up8(nz), each half of M zero-padded to up8(nz)), indexed
     [k-step kb, output tile nt, lane g*4 + t] -> M[8 nt + g][8 kb + t] and
-    M[8 nt + g][8 kb + 4 + t]; at float32 those two as hi = tf32_round(v)
-    and then lo = tf32_round(v - hi), v = float32(M), split once here."""
+    M[8 nt + g][8 kb + 4 + t]; at float32 those two as hi = round(v) and
+    then lo = round(v - hi), v = float32(M), split once here: ``split``
+    "tf32" (tf32_round, the plain kernel) or "bf16" (bf16_round, the comp
+    kernel: the TPU kernel's bf16 split, as its __float2bfloat16_rn)."""
     nz = M.shape[0] // 2
     kh = _up8(nz)
     nt = 2 * kh // 8
@@ -235,8 +256,9 @@ def pack_operator(M: torch.Tensor, dtype) -> torch.Tensor:
     if dtype == torch.float64:
         return frag.contiguous()
     v = frag.to(torch.float32)
-    hi = tf32_round(v)
-    return torch.cat([hi, tf32_round(v - hi)], dim=-1).contiguous()
+    rnd = {"tf32": tf32_round, "bf16": bf16_round}[split]
+    hi = rnd(v)
+    return torch.cat([hi, rnd(v - hi)], dim=-1).contiguous()
 
 
 class ColumnOperator(NamedTuple):
@@ -246,20 +268,30 @@ class ColumnOperator(NamedTuple):
     which the kernel reads on a CUDA device; and ``packed_T``, pack_operator
     of M^T, which the kernel reads for the backward (the cotangents of
     [w | xi] times M are those of [x* | w*]).  An operator built without
-    ``packed_T`` runs forward on the card, and its backward there raises."""
+    ``packed_T`` runs forward on the card, and its backward there raises.
+    ``comp``: the bf16x3 product (packings of M's bf16 split; float32)."""
 
     M: torch.Tensor
     packed: torch.Tensor
     packed_T: torch.Tensor | None = None
+    comp: bool = False
 
 
-def column_operator(m64: torch.Tensor, dtype, device) -> ColumnOperator:
+def column_operator(m64: torch.Tensor, dtype, device, mode: str = "plain") -> ColumnOperator:
     """A stage's ColumnOperator from its float64 M (compose_column_operator),
-    with the packed transpose its backward reads."""
+    with the packed transpose its backward reads; ``mode`` "plain" or "comp"
+    (float32 only)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    comp = mode == "comp"
+    if comp and dtype != torch.float32:
+        raise ValueError(f"the comp mode runs in float32, got {dtype}")
+    split = "bf16" if comp else "tf32"
     return ColumnOperator(
         M=m64.to(dtype=dtype, device=device),
-        packed=pack_operator(m64, dtype).to(device),
-        packed_T=pack_operator(m64.T, dtype).to(device),
+        packed=pack_operator(m64, dtype, split).to(device),
+        packed_T=pack_operator(m64.T, dtype, split).to(device),
+        comp=comp,
     )
 
 
@@ -279,6 +311,15 @@ def apply_column_operator_plain(xstar, wstar, M):
     """[w | xi] = [x* | w*] M^T in plain PyTorch: one matmul."""
     nz = xstar.shape[1]
     out = torch.cat([xstar, wstar], dim=1) @ M.T
+    return out[:, :nz].contiguous(), out[:, nz:].contiguous()
+
+
+def apply_column_operator_comp_plain(xstar, wstar, M):
+    """The comp kernel's function in plain PyTorch: [w | xi] = [x* | w*] M^T
+    as the bf16x3 product (M and [x* | w*] each split into bf16 hi/lo, the
+    three products hi·hi + lo·hi + hi·lo summed in float32)."""
+    nz = xstar.shape[1]
+    out = comp_einsum("nk,ck->cn", split_op(M), torch.cat([xstar, wstar], dim=1))
     return out[:, :nz].contiguous(), out[:, nz:].contiguous()
 
 
@@ -320,10 +361,11 @@ def _check(xstar, wstar, ops, side) -> tuple[int, int]:
     return ncols, nz
 
 
-def _launch(xstar, wstar, packed, transposed=False):
+def _launch(xstar, wstar, packed, transposed=False, comp=False):
     """One kernel launch: [out1 | out2] = [xstar | wstar] A^T for the
-    operator A whose packing is ``packed`` (M forward, M^T backward)."""
-    global launches, backward_launches
+    operator A whose packing is ``packed`` (M forward, M^T backward); the
+    comp kernel for a comp operator."""
+    global launches, backward_launches, comp_launches, comp_backward_launches
     from ._build import load
 
     if packed is None:
@@ -340,13 +382,16 @@ def _launch(xstar, wstar, packed, transposed=False):
             f"packed must be pack_operator(M, {xstar.dtype}) on {xstar.device}, "
             f"{list(want)}; got {packed.dtype} {list(packed.shape)} on {packed.device}"
         )
+    if comp and xstar.dtype != torch.float32:
+        raise ValueError(f"the comp mode runs in float32, got {xstar.dtype}")
     p = plan(ncols, nz, xstar.dtype)
     lib = load().lib
-    fn = (
-        lib.scythe_column_solve_f32
-        if xstar.dtype == torch.float32
-        else lib.scythe_column_solve_f64
-    )
+    if comp:
+        fn = lib.scythe_column_solve_comp
+    elif xstar.dtype == torch.float32:
+        fn = lib.scythe_column_solve_f32
+    else:
+        fn = lib.scythe_column_solve_f64
     w_out = torch.empty_like(xstar)
     xi_out = torch.empty_like(xstar)
     with torch.cuda.device(xstar.device):
@@ -359,7 +404,12 @@ def _launch(xstar, wstar, packed, transposed=False):
     if err != 0:
         msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
         raise RuntimeError(f"column_solve kernel launch failed: {msg} ({err}); {p}")
-    if transposed:
+    if comp:
+        if transposed:
+            comp_backward_launches += 1
+        else:
+            comp_launches += 1
+    elif transposed:
         backward_launches += 1
     else:
         launches += 1
@@ -379,6 +429,10 @@ class ColumnSolveFn(torch.autograd.Function):
     * jvp: the same launch on the tangents;
     * vmap: the batch is folded into the columns, one launch for all members.
 
+    ``comp`` (a comp operator's) takes the comp kernel, or its plain version
+    on the CPU, in each rule: the backward is the comp kernel on the split
+    of M^T.
+
     A and its packings get no gradient: the Helmholtz operator is built from
     the reference state at its static values, as the JAX package bakes it
     into its step (scythe_tpu/adjoint.py, make_simulator's caveats)."""
@@ -386,17 +440,19 @@ class ColumnSolveFn(torch.autograd.Function):
     generate_vmap_rule = False
 
     @staticmethod
-    def forward(a, b, M, packed, M_T, packed_T, transposed):
+    def forward(a, b, M, packed, M_T, packed_T, transposed, comp):
         if a.device.type == "cpu":
-            return apply_column_operator_plain(a, b, M)
+            plain = apply_column_operator_comp_plain if comp else apply_column_operator_plain
+            return plain(a, b, M)
         if a.device.type != "cuda":
             raise ValueError(f"the column solve runs on cpu or cuda tensors, got {a.device}")
-        return _launch(a.contiguous(), b.contiguous(), packed, transposed)
+        return _launch(a.contiguous(), b.contiguous(), packed, transposed, comp)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, _, M, packed, M_T, packed_T, transposed = inputs
+        _, _, M, packed, M_T, packed_T, transposed, comp = inputs
         ctx.transposed = transposed
+        ctx.comp = comp
         # packed_T is None where an operator was built without it
         ctx.save_for_backward(M, packed, M_T, packed_T)
         ctx.save_for_forward(M, packed, M_T, packed_T)
@@ -404,18 +460,20 @@ class ColumnSolveFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g1, g2):
         M, packed, M_T, packed_T = ctx.saved_tensors
-        ga, gb = ColumnSolveFn.apply(g1, g2, M_T, packed_T, M, packed, not ctx.transposed)
-        return ga, gb, None, None, None, None, None
+        ga, gb = ColumnSolveFn.apply(g1, g2, M_T, packed_T, M, packed, not ctx.transposed,
+                                     ctx.comp)
+        return ga, gb, None, None, None, None, None, None
 
     @staticmethod
     def jvp(ctx, a_t, b_t, *_):
         M, packed, M_T, packed_T = ctx.saved_tensors
         a_t = torch.zeros_like(b_t) if a_t is None else a_t
         b_t = torch.zeros_like(a_t) if b_t is None else b_t
-        return ColumnSolveFn.apply(a_t, b_t, M, packed, M_T, packed_T, ctx.transposed)
+        return ColumnSolveFn.apply(a_t, b_t, M, packed, M_T, packed_T, ctx.transposed,
+                                   ctx.comp)
 
     @staticmethod
-    def vmap(info, in_dims, a, b, M, packed, M_T, packed_T, transposed):
+    def vmap(info, in_dims, a, b, M, packed, M_T, packed_T, transposed, comp):
         if any(d is not None for d in in_dims[2:]):
             raise NotImplementedError(
                 "the column solve applies one operator to every member; its "
@@ -428,7 +486,7 @@ class ColumnSolveFn(torch.autograd.Function):
             return t.reshape(-1, t.shape[-1])
 
         out = ColumnSolveFn.apply(fold(a, in_dims[0]), fold(b, in_dims[1]), M, packed,
-                                  M_T, packed_T, transposed)
+                                  M_T, packed_T, transposed, comp)
         return tuple(o.reshape(n, -1, o.shape[-1]) for o in out), (0, 0)
 
 
@@ -436,25 +494,34 @@ def apply_column_operator(xstar, wstar, op: ColumnOperator):
     """Apply a stage's operator to [ncols, nz] column batches x* (xi*) and
     w*; returns (w_new, xi_new), through ColumnSolveFn: the kernel on a CUDA
     device (op.packed; op.packed_T for its backward), its plain version on
-    the CPU (op.M): both from the one M."""
+    the CPU (op.M): both from the one M; a comp operator's in comp mode."""
     _check(xstar, wstar, (("M", op.M),), 2)
-    return ColumnSolveFn.apply(xstar, wstar, op.M, op.packed, op.M.T, op.packed_T, False)
+    if op.comp and xstar.dtype != torch.float32:
+        raise ValueError(f"the comp mode runs in float32, got {xstar.dtype}")
+    return ColumnSolveFn.apply(xstar, wstar, op.M, op.packed, op.M.T, op.packed_T, False,
+                               op.comp)
 
 
-def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar):
+def fused_column_solve(xstar, wstar, F, Dz, Hinv, S, Ds, ts_term, pxi_bar, mode="comp"):
     """The TPU function's counterpart: apply the chain to [ncols, nz] column
     batches; returns (w_new, xi_new).  Argument order as the TPU kernel's:
     x* (xi*) first.  ``Hinv`` is the inverse of the BC-row-shuffled
     Helmholtz matrix (timeintegration.helmholtz_matrix); ``ts_term`` is a
     scalar, ``pxi_bar`` a scalar or an [nz] profile (the TPU kernel takes a
-    scalar only).  The plain chain on the CPU (autograd differentiates it
-    as it stands); on a CUDA device the operators are composed in float64
-    and packed with their transpose (a few small launches), then the kernel
+    scalar only).  ``mode`` as the TPU function's, "comp" by default: the
+    bf16x3 product of the composed M, float32 only (the module docstring);
+    "plain": f32 or f64.  In plain mode the plain chain on the CPU (autograd
+    differentiates it as it stands); otherwise, and on a CUDA device, the
+    operators are composed in float64 and packed with their transpose (a
+    few small launches), then the kernel, or on the CPU its plain version,
     runs through ColumnSolveFn, as the main path's apply_column_operator.
     The main path composes once per stage instead."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     ops = (F, Dz, Hinv, S, Ds)
     _check(xstar, wstar, tuple(zip(("F", "Dz", "Hinv", "S", "Ds"), ops)), 1)
-    if xstar.device.type == "cpu":
+    if mode == "plain" and xstar.device.type == "cpu":
         return fused_column_solve_plain(xstar, wstar, *ops, ts_term, pxi_bar)
     M = compose_column_operator(*(o.detach().double() for o in ops), ts_term, pxi_bar)
-    return apply_column_operator(xstar, wstar, column_operator(M, xstar.dtype, xstar.device))
+    return apply_column_operator(
+        xstar, wstar, column_operator(M, xstar.dtype, xstar.device, mode))

@@ -64,6 +64,21 @@
 // decimal digits and is not used.  f64 (the parity runs) is DMMA, mma.sync
 // m8n8k4, on the same structure: a warp's 16 rows are two 8-row products.
 //
+// The comp mode (the TPU kernel's _kernel_comp, fused_column_solve's
+// default there) is the same kernel with a bf16 split (kBf16): a = hi + lo
+// with hi = bf16(a) and lo = bf16(a - hi), each rounded to nearest even
+// (__float2bfloat16_rn, never by truncation), likewise for M (split once in
+// pack_operator with split="bf16"), and the three products hi·hi + lo·hi +
+// hi·lo with f32 accumulation.  It reuses the TF32 tensor-core products on
+// purpose: a bf16 value (8 significant bits) is exact in TF32 (11), so
+// mma.sync m16n8k8 TF32 on the bf16-valued hi/lo parts forms exactly the
+// products that mma.sync m16n8k16 bf16 would, with the same fragment
+// layout, the same packing of M and the same accumulation as the plain
+// mode; the bf16 instruction would halve the K steps but needs a packing
+// of its own (K padded to 16, pairs of bf16 a register).  The TPU kernel
+// splits each of its five operators; here the composed M is split, which
+// differs from it by bf16x3-sized rounding.
+//
 // Layout and padding.  K = N = 2 up8(nz): each half (x* | w* in, w | xi out)
 // is padded to a multiple of 8.  A block's shared memory is the mbarriers,
 // M's slab [KSLAB/8][N/8][32 lanes] of 16-byte fragment slots, then each row
@@ -76,6 +91,7 @@
 // memory from the same numbers and refuses a plan whose bytes differ.  No
 // atomics: a call is deterministic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -192,6 +208,17 @@ __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
   lo = tf32_bits(v - __uint_as_float(hi));
 }
 
+// bf16(v) as a float: round to nearest even (the comp mode's split)
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void split_bf16(float v, uint32_t& hi, uint32_t& lo) {
+  const float h = bf16_round(v);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(bf16_round(v - h));
+}
+
 // c += a b
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -247,11 +274,12 @@ struct Frag {
 // A warp's accumulators: 16 rows x kNtw 8-wide output tiles, in the m16n8
 // C-fragment order (rows g, g + 8; columns 2t, 2t + 1).  ``step`` takes one
 // 8-deep K step's operands.
-template <typename T>
+template <typename T, bool kBf16 = false>
 struct Acc;
 
-template <>
-struct Acc<float> {
+// kBf16: the comp mode, the activations split by bf16 (M arrives split so)
+template <bool kBf16>
+struct Acc<float, kBf16> {
   float hh[kNtw][4];       // hi(a) hi(b)
   float lh[2][kNtw][4];    // lo(a) hi(b), even and odd K steps
   float hl[2][kNtw][4];    // hi(a) lo(b), even and odd K steps
@@ -277,7 +305,13 @@ struct Acc<float> {
   __device__ __forceinline__ void step(const Frag<float>& f) {
     uint32_t ah[4], al[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split(f.a[i], ah[i], al[i]);
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kBf16) {
+        split_bf16(f.a[i], ah[i], al[i]);
+      } else {
+        split(f.a[i], ah[i], al[i]);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < kNtw; ++j) {
       const uint4 b = f.b[j];  // {hi b0, hi b1, lo b0, lo b1}
@@ -299,7 +333,7 @@ struct Acc<float> {
 };
 
 template <>
-struct Acc<double> {
+struct Acc<double, false> {
   double c[kNtw][4];
 
   __device__ __forceinline__ void zero() {
@@ -325,7 +359,7 @@ struct Acc<double> {
   __device__ __forceinline__ double get(int j, int i) const { return c[j][i]; }
 };
 
-template <typename T>
+template <typename T, bool kBf16>
 __global__ void __launch_bounds__(kMaxThreads)
     column_solve_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         const uint4* __restrict__ mp, T* __restrict__ w_out,
@@ -430,7 +464,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (tile < ntiles) load_tile(tile, s);
   }
 
-  Acc<T> acc;
+  Acc<T, kBf16> acc;
   unsigned m_phase = 0;
   for (int i = 0;; ++i) {
     const int tile = first + i * step;
@@ -510,12 +544,12 @@ int check(int ncols, int nz, const Plan& p, int elem_size) {
   return 0;
 }
 
-template <typename T>
+template <typename T, bool kBf16 = false>
 int launch(const T* x, const T* w, const void* mp, T* w_out, T* xi_out, int ncols,
            int nz, const Plan& p, void* stream) {
   const int bad = check(ncols, nz, p, sizeof(T));
   if (bad != 0) return bad;
-  auto kernel = column_solve_kernel<T>;
+  auto kernel = column_solve_kernel<T, kBf16>;
   if (p.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
@@ -539,6 +573,15 @@ int scythe_column_solve_f32(const float* x, const float* w, const void* mp, floa
                             int threads, int smem, int blocks, void* stream) {
   const Plan p{rg, kslab, st, threads, smem, blocks};
   return launch<float>(x, w, mp, w_out, xi_out, ncols, nz, p, stream);
+}
+
+// the comp mode: mp packed by pack_operator(M, float32, "bf16")
+int scythe_column_solve_comp(const float* x, const float* w, const void* mp,
+                             float* w_out, float* xi_out, int ncols, int nz, int rg,
+                             int kslab, int st, int threads, int smem, int blocks,
+                             void* stream) {
+  const Plan p{rg, kslab, st, threads, smem, blocks};
+  return launch<float, true>(x, w, mp, w_out, xi_out, ncols, nz, p, stream);
 }
 
 int scythe_column_solve_f64(const double* x, const double* w, const void* mp,

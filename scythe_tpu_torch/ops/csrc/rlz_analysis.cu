@@ -10,9 +10,21 @@
 //     out[v,b,k,K] = sum_z az[v,K,z] c[b,k,z]               vertical Chebyshev analysis
 //
 // and writes only out [V, B, L, Z]: neither the azimuthal coefficients nor
-// the radial contraction reach device memory.  The operators are read in
-// the field's own dtype (f32 or f64); the TPU kernel's bf16 hi/lo split is
-// that chip's route to f32 accuracy and is not carried over.
+// the radial contraction reach device memory.  The plain mode reads the
+// operators in the field's own dtype (f32 or f64).
+//
+// The comp mode (template flag C, f32) is the TPU kernel's own arithmetic,
+// for a compensated grid: each operator comes as its bf16 pair [hi, lo]
+// (the grid's split, rounded to nearest even), the activation is split in
+// the kernel as hi = bf16(v), lo = bf16(v - hi) (__float2bfloat16_rn, never
+// by truncation) before each contraction -- x, the masked lambda
+// coefficients as the radial stage reads them, the reduced radial sums as
+// the vertical stage reads them: where the TPU kernel re-splits -- and each
+// product is hi·hi + lo·hi + hi·lo, three FFMAs into the f32 accumulator
+// (fma3).  The same tiles, staging and cluster reduction serve both modes;
+// comp stages each operator tile twice (hi, then lo) and does three times
+// the FMAs, so it is the plain kernel's FFMA-bound design at three times
+// its arithmetic (PERF.md has its times).
 //
 // What bounded the first design (one block per (k-tile of 4, b-tile,
 // variable), r walked serially inside it): too few blocks (9 at the TC
@@ -102,6 +114,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -137,20 +150,21 @@ struct Tiles {
 
 // Shared-memory layout in elements after the mbarriers: the accumulator,
 // then a region used by the main loop's staging and, after it, by the
-// epilogue.
+// epilogue.  ``nops``: parts an operator tile is staged in (1; the comp
+// mode 2: hi, then lo right after it).
 struct Layout {
   int zp, ktp, btp;
   int acc_n, x_n, la_n, an_n, ms_n, a_n, red_n, az_n;
   int x_off, la_off, an_off, ms_off, a_off, red_off, az_off, total;
-  __host__ __device__ Layout(int Z, const Tiles& t, int elem_size)
+  __host__ __device__ Layout(int Z, const Tiles& t, int elem_size, int nops)
       : zp(up4(Z)), ktp(up4(t.kt)), btp(up4(t.bt)) {
     acc_n = btp * ktp * zp;
     // a piece of x [RC][LC][Zp], each slot 128-byte aligned for the copy
     // engine
     const int align = 128 / elem_size;
     x_n = cdiv(t.rc * t.lc * zp, align) * align;
-    la_n = t.lc * ktp;       // l_analysis transposed [LC][KTp]
-    an_n = t.rc * btp;       // analysis_r transposed [RC][BTp]
+    la_n = nops * t.lc * ktp;  // l_analysis transposed [nops][LC][KTp]
+    an_n = nops * t.rc * btp;  // analysis_r transposed [nops][RC][BTp]
     ms_n = t.rc * ktp;       // ring mask [RC][KTp]
     a_n = t.rc * ktp * zp;   // the chunk's lambda coefficients [RC][KTp][Zp]
     x_off = acc_n;
@@ -160,7 +174,7 @@ struct Layout {
     a_off = ms_off + 2 * ms_n;
     const int stage_n = a_off + a_n - acc_n;
     red_n = up4(cdiv(t.bt * t.kt, t.c)) * zp;  // this block's share of rows
-    az_n = zp * up4(t.zc);                     // analysis_z^T chunk [Zp][ZCp]
+    az_n = nops * zp * up4(t.zc);  // analysis_z^T chunk [nops][Zp][ZCp]
     red_off = acc_n;
     az_off = red_off + red_n;
     total = acc_n + max_of(stage_n, red_n + az_n);
@@ -288,8 +302,23 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return __fma_rn(a, b, c);
 }
 
-// NT threads: NT - 32 consumers and one producer warp
-template <typename T, int NT>
+// the comp mode's split of an activation: hi = bf16(v), lo = bf16(v - hi),
+// each rounded to nearest even, kept as floats
+__device__ __forceinline__ void split_bf16(float v, float& hi, float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(v));
+  lo = __bfloat162float(__float2bfloat16_rn(v - hi));
+}
+
+// s + the compensated product of an operator (oh, ol) and an activation
+// (xh, xl): oh xh + ol xh + oh xl, the lo·lo term dropped; each product of
+// two bf16 values is exact in f32
+__device__ __forceinline__ float fma3(float oh, float ol, float xh, float xl, float s) {
+  return __fmaf_rn(oh, xl, __fmaf_rn(ol, xh, __fmaf_rn(oh, xh, s)));
+}
+
+// NT threads: NT - 32 consumers and one producer warp; C: the comp mode
+// (T = float; la, an and az then point at [2][...]: hi, then lo)
+template <typename T, int NT, bool C>
 __global__ void __launch_bounds__(NT, 512 / NT)
 rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
                     const T* __restrict__ mask, const T* __restrict__ an,
@@ -303,7 +332,7 @@ rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
   uint64_t* an_full = empty + kMaxSt;                      // [2] a chunk's operators
   uint64_t* an_empty = an_full + 2;                        // [2]
   T* sm = reinterpret_cast<T*>(smem_raw + kBarBytes);
-  const Layout lay(Z, t, static_cast<int>(sizeof(T)));
+  const Layout lay(Z, t, static_cast<int>(sizeof(T)), C ? 2 : 1);
   const int zp = lay.zp, ktp = lay.ktp, btp = lay.btp;
   cg::cluster_group cluster = cg::this_cluster();
   const int j = static_cast<int>(cluster.block_rank());  // the r-slice
@@ -316,6 +345,9 @@ rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
   const int tid = threadIdx.x;
   const T* xv = x + static_cast<size_t>(v) * R * L * Z;
   const T* anv = an + static_cast<size_t>(v) * B * R;
+  // the comp mode's lo parts: after all V variables' hi parts
+  const T* anv_lo = an + (static_cast<size_t>(gridDim.z) + v) * B * R;
+  const T* la_lo = la + static_cast<size_t>(L) * L;
   T* acc = sm;  // [BTp][KTp][Zp]
   T* as = sm + lay.a_off;
 
@@ -367,6 +399,10 @@ rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
           const int rr = e - b * nr;
           cp_async<sizeof(T)>(ans + rr * btp + b,
                               anv + static_cast<size_t>(b0 + b) * R + r0 + rr);
+          if constexpr (C) {
+            cp_async<sizeof(T)>(ans + t.rc * btp + rr * btp + b,
+                                anv_lo + static_cast<size_t>(b0 + b) * R + r0 + rr);
+          }
         }
         T* mss = sm + lay.ms_off + a * lay.ms_n;
         for (int e = lane; e < nr * nk; e += 32) {
@@ -404,6 +440,10 @@ rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
         const int ll = e - k * nl;
         cp_async<sizeof(T)>(las + ll * ktp + k,
                             la + static_cast<size_t>(k0 + k) * L + l0 + ll);
+        if constexpr (C) {
+          cp_async<sizeof(T)>(las + t.lc * ktp + ll * ktp + k,
+                              la_lo + static_cast<size_t>(k0 + k) * L + l0 + ll);
+        }
       }
       mbar_arrive_cp_async(&full[s]);
     }
@@ -435,10 +475,24 @@ rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
               T xr[4], lr[4];
               ld4(xp + ll * zp, xr);
               ld4(lp + ll * ktp, lr);
+              if constexpr (C) {
+                T lo[4], xh[4], xl[4];
+                ld4(lp + t.lc * ktp + ll * ktp, lo);
 #pragma unroll
-              for (int i = 0; i < 4; ++i) {
+                for (int q = 0; q < 4; ++q) split_bf16(xr[q], xh[q], xl[q]);
 #pragma unroll
-                for (int q = 0; q < 4; ++q) sum[i][q] = fma_t(lr[i], xr[q], sum[i][q]);
+                for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                  for (int q = 0; q < 4; ++q) {
+                    sum[i][q] = fma3(lr[i], lo[i], xh[q], xl[q], sum[i][q]);
+                  }
+                }
+              } else {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                  for (int q = 0; q < 4; ++q) sum[i][q] = fma_t(lr[i], xr[q], sum[i][q]);
+                }
               }
             }
           };
@@ -490,10 +544,22 @@ rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
           T ar[4], br[4];
           ld4(ap + r2 * kz_n, ar);
           ld4(bp + r2 * btp, br);
+          if constexpr (C) {
+            T bl[4], ah[4], al[4];
+            ld4(bp + t.rc * btp + r2 * btp, bl);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+            for (int q = 0; q < 4; ++q) split_bf16(ar[q], ah[q], al[q]);
 #pragma unroll
-            for (int q = 0; q < 4; ++q) c4[i][q] = fma_t(br[i], ar[q], c4[i][q]);
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) c4[i][q] = fma3(br[i], bl[i], ah[q], al[q], c4[i][q]);
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) c4[i][q] = fma_t(br[i], ar[q], c4[i][q]);
+            }
           }
         }
         T* cp = acc + bg * 4 * kz_n + kzg * 4;
@@ -515,14 +581,21 @@ rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
   // the first chunk of analysis_z^T, over the staging region, in flight
   // through the cluster's reduction
   const T* azv = az + static_cast<size_t>(v) * Z * Z;
-  T* azs = sm + lay.az_off;  // [Zp][ZCp]
+  const T* azv_lo = az + (static_cast<size_t>(gridDim.z) + v) * Z * Z;  // comp
+  T* azs = sm + lay.az_off;  // [nops][Zp][ZCp]
   const int kcp = up4(t.zc);
+  const int az_lo = zp * kcp;  // the comp mode's lo part, after the hi part
   auto stage_az = [&](int K0) {
     for_2d<NT>(min_of(t.zc, Z - K0), zp, [&](int Kr, int z) {
       if (z < Z) {
         cp_async<sizeof(T)>(azs + z * kcp + Kr, azv + static_cast<size_t>(K0 + Kr) * Z + z);
+        if constexpr (C) {
+          cp_async<sizeof(T)>(azs + az_lo + z * kcp + Kr,
+                              azv_lo + static_cast<size_t>(K0 + Kr) * Z + z);
+        }
       } else {
         azs[z * kcp + Kr] = T(0);
+        if constexpr (C) azs[az_lo + z * kcp + Kr] = T(0);
       }
     });
   };
@@ -587,12 +660,27 @@ rlz_analysis_kernel(const T* __restrict__ x, const T* __restrict__ la,
         for (int i = 0; i < 4; ++i) ld4(rp + i * zp + z, cr[i]);
 #pragma unroll
         for (int w = 0; w < 4; ++w) ld4(ap + (z + w) * kcp, ar[w]);
+        if constexpr (C) {
 #pragma unroll
-        for (int w = 0; w < 4; ++w) {
+          for (int w = 0; w < 4; ++w) {
+            T al[4];
+            ld4(ap + az_lo + (z + w) * kcp, al);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < 4; ++i) {
+              T xh, xl;
+              split_bf16(cr[i][w], xh, xl);
 #pragma unroll
-            for (int q = 0; q < 4; ++q) s[i][q] = fma_t(cr[i][w], ar[w][q], s[i][q]);
+              for (int q = 0; q < 4; ++q) s[i][q] = fma3(ar[w][q], al[q], xh, xl, s[i][q]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) s[i][q] = fma_t(cr[i][w], ar[w][q], s[i][q]);
+            }
           }
         }
       }
@@ -653,7 +741,7 @@ int encode_x_map(CUtensorMap* map, const T* x, int V, int R, int L, int Z, const
   return r == CUDA_SUCCESS ? 0 : kNoTensorMap;
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool C>
 int launch(const T* x, const T* la, const T* mask, const T* an, const T* az,
            T* out, int V, int R, int L, int Z, int B, const Tiles& t, int smem,
            void* stream) {
@@ -668,7 +756,7 @@ int launch(const T* x, const T* la, const T* mask, const T* an, const T* az,
       t.st < 2 || t.st > kMaxSt) {
     return kBadTile;
   }
-  const Layout lay(Z, t, static_cast<int>(sizeof(T)));
+  const Layout lay(Z, t, static_cast<int>(sizeof(T)), C ? 2 : 1);
   if (static_cast<size_t>(smem) !=
           kBarBytes + static_cast<size_t>(lay.total) * sizeof(T) ||
       static_cast<size_t>(smem) > kMaxSmem) {
@@ -694,13 +782,13 @@ int launch(const T* x, const T* la, const T* mask, const T* an, const T* az,
   if (smem != checked_smem || t.c != checked_c) {
     if (smem > smem_set) {
       const cudaError_t e = cudaFuncSetAttribute(
-          rlz_analysis_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          rlz_analysis_kernel<T, NT, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
       smem_set = smem;
     }
     int clusters = 0;
     const cudaError_t e =
-        cudaOccupancyMaxActiveClusters(&clusters, rlz_analysis_kernel<T, NT>, &cfg);
+        cudaOccupancyMaxActiveClusters(&clusters, rlz_analysis_kernel<T, NT, C>, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (clusters < 1) return kNoCluster;
     checked_smem = smem;
@@ -715,22 +803,22 @@ int launch(const T* x, const T* la, const T* mask, const T* an, const T* az,
     const int err = encode_x_map(&xmap, x, V, R, L, Z, t);
     if (err != 0) return err;
   }
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, rlz_analysis_kernel<T, NT>, x,
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, rlz_analysis_kernel<T, NT, C>, x,
                                            la, mask, an, az, out, R, L, Z, B,
                                            t, n_kt, xmap, xtma);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool C = false>
 int dispatch(const T* x, const T* la, const T* mask, const T* an, const T* az,
              T* out, int V, int R, int L, int Z, int B, const Tiles& t,
              int threads, int smem, void* stream) {
   switch (threads) {
     case 256:
-      return launch<T, 256>(x, la, mask, an, az, out, V, R, L, Z, B, t, smem, stream);
+      return launch<T, 256, C>(x, la, mask, an, az, out, V, R, L, Z, B, t, smem, stream);
     case 512:
-      return launch<T, 512>(x, la, mask, an, az, out, V, R, L, Z, B, t, smem, stream);
+      return launch<T, 512, C>(x, la, mask, an, az, out, V, R, L, Z, B, t, smem, stream);
     default:
       return kBadTile;
   }
@@ -755,6 +843,18 @@ int scythe_rlz_analysis_f32(const float* x, const float* la,
                             void* stream) {
   return dispatch<float>(x, la, mask, an, az, out, V, R, L, Z, B,
                          Tiles{kt, bt, c, rc, lc, zc, st}, threads, smem, stream);
+}
+
+// the comp mode: la [2][L][L], an [2][V][B][R], az [2][V][Z][Z], each its
+// bf16 hi part then its lo part
+int scythe_rlz_analysis_comp(const float* x, const float* la,
+                             const float* mask, const float* an,
+                             const float* az, float* out, int V, int R, int L,
+                             int Z, int B, int kt, int bt, int c, int rc,
+                             int lc, int zc, int st, int threads, int smem,
+                             void* stream) {
+  return dispatch<float, true>(x, la, mask, an, az, out, V, R, L, Z, B,
+                               Tiles{kt, bt, c, rc, lc, zc, st}, threads, smem, stream);
 }
 
 int scythe_rlz_analysis_f64(const double* x, const double* la,

@@ -9,8 +9,13 @@ Replaces the Pallas TPU kernel ``scythe_tpu/ops/pallas_transforms.py``
     c[b,k,z]     = sum_r analysis_r[v,b,r] a[r,k,z]
     out[v,b,k,K] = sum_z analysis_z[v,K,z] c[b,k,z]
 
-with the grid's own operators in its dtype (f32 or f64); the bf16 hi/lo
-split of the TPU kernel is not ported.  The kernel (``csrc/rlz_analysis.cu``)
+with the grid's own operators in its dtype (f32 or f64): ``mode="plain"``.
+``mode="comp"`` is the TPU kernel's own arithmetic, on a compensated grid:
+the operators come as the grid's [O_hi, O_lo, O_hi] bf16 stacks, every
+contraction is hi·hi + lo·hi + hi·lo with f32 accumulation, and the
+activation is split into bf16 hi/lo before each contraction (x, the masked
+lambda coefficients, the radial sums), as the TPU kernel re-splits; f32
+only.  The kernel (``csrc/rlz_analysis.cu``)
 launches one thread-block cluster per (variable, k-tile, b-tile) whose
 blocks split r and reduce their partial sums over distributed shared
 memory; ``plan`` sizes its tiles, and the kernel's header says what bounds
@@ -19,8 +24,11 @@ it.  The wrapper ``rlz_analysis`` checks its inputs, then goes through
 tensors on the CPU, the kernel for tensors on a CUDA device, with no
 fallback between the two; its jvp is the kernel on the tangents, its vmap
 folds members into V (one launch), its backward the transposed chain as
-einsums (the JAX package has no backward kernel either).  ``launches``
-counts kernel launches only.
+einsums (the JAX package has no backward kernel either; in comp mode
+the transposed chain of the operators O_hi + O_lo in f32, where the JAX
+package's gradient through its compensated ``_mm`` rounds the cotangents to
+bf16).  ``launches`` counts plain-mode kernel launches, ``comp_launches``
+comp-mode ones.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import functools
 from dataclasses import dataclass
 
 import torch
+
+from .bf16x3 import comp_einsum
 
 # the kernel's limits (rlz_analysis.cu): nz as the column solve's, nl as the
 # dense DFT's (grids/base.py); a larger shape raises on CUDA
@@ -62,7 +72,10 @@ PLAN_ERRORS = {
     -5: "cuTensorMapEncodeTiled is missing or refused the tensor map of x",
 }
 
-launches = 0
+MODES = ("plain", "comp")
+
+launches = 0  # plain-mode launches
+comp_launches = 0  # comp-mode launches
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -100,25 +113,27 @@ class Plan:
 
 
 def smem_layout(Z: int, es: int, kt: int, bt: int, c: int, rc: int, lc: int,
-                zc: int, st: int) -> tuple[int, int, int]:
+                zc: int, st: int, nops: int = 1) -> tuple[int, int, int]:
     """Bytes of (accumulator, main-loop staging, epilogue) as the kernel lays
     them out; a block takes BARRIER_BYTES + accumulator + max(staging,
     epilogue).  Rows of z are padded to a multiple of 4, as are the k and b
-    extents."""
+    extents.  ``nops``: parts an operator tile is staged in, 1 (plain) or 2
+    (comp: hi, then lo)."""
     zp, ktp, btp = _up4(Z), _up4(kt), _up4(bt)
     acc = btp * ktp * zp
     # x pieces (st slots, each 128-byte aligned for the copy engine),
     # l_analysis pieces (st slots), analysis_r and ring_mask chunks (two
     # slots), and the chunk's lambda coefficients
     x = _cdiv(rc * lc * zp, 128 // es) * (128 // es)
-    stage = st * (x + lc * ktp) + 2 * (rc * btp + rc * ktp) + rc * ktp * zp
+    stage = (st * (x + nops * lc * ktp) + 2 * (nops * rc * btp + rc * ktp)
+             + rc * ktp * zp)
     # this block's reduced rows, and a chunk of the vertical operator
-    epilogue = _up4(_cdiv(bt * kt, c)) * zp + _up4(zc) * zp
+    epilogue = _up4(_cdiv(bt * kt, c)) * zp + nops * _up4(zc) * zp
     return acc * es, stage * es, epilogue * es
 
 
-def _smem(Z, es, *tiles) -> int:
-    acc, stage, epi = smem_layout(Z, es, *tiles)
+def _smem(Z, es, nops, *tiles) -> int:
+    acc, stage, epi = smem_layout(Z, es, *tiles, nops=nops)
     return BARRIER_BYTES + acc + max(stage, epi)
 
 
@@ -128,24 +143,24 @@ def lanes_a_row(kt: int, Z: int) -> int:
     return _up4(kt) // 4 * (_up4(Z) // 4)
 
 
-def _est_cycles(R, L, Z, B, V, kt, bt, c, bps) -> float:
+def _est_cycles(R, L, Z, B, V, kt, bt, c, bps, fmas=1) -> float:
     """The plan's cost model: the waves of the grid times the cycles of one
     block, with rates measured on the card (H100 SXM, clock64 phases):
     ~34 FMA a clock on an SM in the lambda and radial stages, ~25 in the
     vertical stage, ~12k clocks of set-up, barriers and reduction; ``bps``
-    blocks an SM."""
+    blocks an SM, ``fmas`` FMAs a product (3 in comp mode)."""
     zp = _up4(Z)
     ctas = c * _cdiv(L, kt) * _cdiv(B, bt) * V
     wave = int(NUM_SMS * bps * CLUSTER_FILL[c])
     rows = _cdiv(R, c)
     share = _cdiv(bt * kt, c)
     # two blocks on an SM share its FMA rate: they overlap only latency
-    block = bps * (rows * (_up4(kt) * L + _up4(bt) * _up4(kt)) * zp / 34.0
-                   + share * zp * zp / 25.0) + 12_000.0
+    block = fmas * bps * (rows * (_up4(kt) * L + _up4(bt) * _up4(kt)) * zp / 34.0
+                          + share * zp * zp / 25.0) + 12_000.0
     return _cdiv(ctas, wave) * block
 
 
-def plan(phys_shape, b_rdim: int, dtype) -> Plan:
+def plan(phys_shape, b_rdim: int, dtype, mode: str = "plain") -> Plan:
     """The kernel's tiles at this shape; pure Python, the plan's only home
     (cached: the wrapper asks for it on every call).
 
@@ -163,16 +178,28 @@ def plan(phys_shape, b_rdim: int, dtype) -> Plan:
     just past a wave costs a second one.  A block of 512 threads (one an
     SM) takes a large accumulator, one of 256 (two an SM) a small one.  The
     r-chunk is the largest (one lambda tile a consumer thread at most) for
-    which two slots of an l-chunk of at least 12 azimuths fit.
+    which two slots of an l-chunk of at least 12 azimuths fit.  In comp
+    mode (f32 only) every operator tile is staged twice (hi and lo) and a
+    product costs three FMAs, so the same rules run on that layout and cost.
     """
-    return _plan(tuple(int(n) for n in phys_shape), int(b_rdim), dtype)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "comp" and dtype != torch.float32:
+        raise ValueError(f"the comp mode runs in float32, got {dtype}")
+    return _plan(tuple(int(n) for n in phys_shape), int(b_rdim), dtype, mode)
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(phys_shape, B, dtype) -> Plan:
+def _plan(phys_shape, B, dtype, mode) -> Plan:
     V, R, L, Z = phys_shape
     es = torch.empty((), dtype=dtype).element_size()
     zp = _up4(Z)
+    nops = fmas = 1
+    if mode == "comp":
+        nops, fmas = 2, 3
+
+    def smem(*tiles):
+        return _smem(Z, es, nops, *tiles)
 
     def acc_bytes(bt, kt):
         return _up4(bt) * _up4(kt) * zp * es
@@ -188,10 +215,10 @@ def _plan(phys_shape, B, dtype) -> Plan:
         return 2 if acc_bytes(bt, kt) <= SMALL_ACC else 1
 
     def fits(bt, c):  # the epilogue's share of rows beside the accumulator
-        return _smem(Z, es, kt, bt, c, 1, 1, 1, 2) <= SMEM_MAX
+        return smem(kt, bt, c, 1, 1, 1, 2) <= SMEM_MAX
 
     options = [
-        (_est_cycles(R, L, Z, B, V, kt, bt, c, bps(bt)), c, -bt)
+        (_est_cycles(R, L, Z, B, V, kt, bt, c, bps(bt), fmas), c, -bt)
         for c in range(1, MAX_CLUSTER + 1) if c == 1 or _cdiv(R, c) >= MIN_SLICE_ROWS
         for bt in sorted({_cdiv(B, n) for n in range(1, _cdiv(B, 16) + 1)} | {bt_max})
         if bt <= bt_max and fits(bt, c)
@@ -213,9 +240,9 @@ def _plan(phys_shape, B, dtype) -> Plan:
         for rc0 in range(min(MAX_RC, (threads - 32) // per_r, rows), 0, -1):
             rc = _cdiv(rows, _cdiv(rows, rc0))  # balanced chunks
             for lc in range(min(L, 64), lc_min - 1, -1):
-                if _smem(Z, es, kt, bt, c, rc, lc, 1, 2) <= cap:
+                if smem(kt, bt, c, rc, lc, 1, 2) <= cap:
                     lc = _cdiv(L, _cdiv(L, lc))  # balanced chunks
-                    st = 3 if lc == L and _smem(Z, es, kt, bt, c, rc, lc, 1, 3) <= cap else 2
+                    st = 3 if lc == L and smem(kt, bt, c, rc, lc, 1, 3) <= cap else 2
                     return rc, lc, st
         return None
 
@@ -226,11 +253,10 @@ def _plan(phys_shape, B, dtype) -> Plan:
         found = chunks(threads, cap, min(L, 12)) or chunks(threads, cap, 1)
     rc, lc, st = found
     zc = Z  # else a multiple of 4
-    while zc > 4 and _smem(Z, es, kt, bt, c, rc, lc, zc, st) > cap:
+    while zc > 4 and smem(kt, bt, c, rc, lc, zc, st) > cap:
         zc = (zc - 1) // 4 * 4
-    smem = _smem(Z, es, kt, bt, c, rc, lc, zc, st)
     return Plan(kt=kt, bt=bt, c=c, rc=rc, lc=lc, zc=zc, st=st, threads=threads,
-                smem=smem, grid=(c, _cdiv(L, kt) * n_bt, V))
+                smem=smem(kt, bt, c, rc, lc, zc, st), grid=(c, _cdiv(L, kt) * n_bt, V))
 
 
 def rlz_analysis_plain(phys, l_analysis, ring_mask, analysis_r, analysis_z):
@@ -242,7 +268,19 @@ def rlz_analysis_plain(phys, l_analysis, ring_mask, analysis_r, analysis_z):
     return torch.einsum("vKz,vbkz->vbkK", analysis_z, rc)
 
 
-def _check(phys, ops) -> tuple[int, int, int, int, int]:
+def rlz_analysis_comp_plain(phys, l_analysis, ring_mask, analysis_r, analysis_z):
+    """The comp mode in plain PyTorch: the chain of a compensated grid's
+    ``_analysis_with``, each contraction bf16x3 over the operator stacks
+    ([3, ...]: O_hi, O_lo, O_hi) with the activation split before it."""
+    hat = comp_einsum("kl,vrlz->vrkz", l_analysis, phys)
+    hat = hat * ring_mask[None, :, :, None]
+    rc = comp_einsum("vbr,vrkz->vbkz", analysis_r, hat)
+    return comp_einsum("vKz,vbkz->vbkK", analysis_z, rc)
+
+
+def _check(phys, ops, mode="plain") -> tuple[int, int, int, int, int]:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if phys.ndim != 4:
         raise ValueError(f"phys must be [V, rDim, nl, nz]; got {tuple(phys.shape)}")
     V, R, L, Z = phys.shape
@@ -255,24 +293,27 @@ def _check(phys, ops) -> tuple[int, int, int, int, int]:
                 f"{name} is {t.dtype} on {t.device}; phys is {phys.dtype} on "
                 f"{phys.device}"
             )
-    B = ops[2].shape[1] if ops[2].ndim == 3 else 0  # analysis_r [V, b_rDim, rDim]
+    # comp: the operators are [3, ...] stacks (O_hi, O_lo, O_hi)
+    stack = (3,) if mode == "comp" else ()
+    an = ops[2]
+    B = an.shape[len(stack) + 1] if an.ndim == 3 + len(stack) else 0
     want = {
-        "l_analysis": (L, L),
+        "l_analysis": stack + (L, L),
         "ring_mask": (R, L),
-        "analysis_r": (V, B, R),
-        "analysis_z": (V, Z, Z),
+        "analysis_r": stack + (V, B, R),
+        "analysis_z": stack + (V, Z, Z),
     }
     for name, t in zip(names, ops):
         if tuple(t.shape) != want[name]:
             raise ValueError(
                 f"{name} must be {list(want[name])} for phys "
-                f"{list(phys.shape)}, got {list(t.shape)}"
+                f"{list(phys.shape)} in {mode} mode, got {list(t.shape)}"
             )
     return V, R, L, Z, B
 
 
-def _launch(phys, ops, shape):
-    global launches
+def _launch(phys, ops, shape, mode):
+    global launches, comp_launches
     from ._build import load
 
     V, R, L, Z, B = shape
@@ -281,16 +322,23 @@ def _launch(phys, ops, shape):
             f"the rlz_analysis kernel takes nz <= {MAX_NZ} and nl <= {MAX_NL}; "
             f"got nz = {Z}, nl = {L}"
         )
+    if mode == "comp":
+        if phys.dtype != torch.float32:
+            raise ValueError(f"the comp mode runs in float32, got {phys.dtype}")
+        # the kernel reads hi then lo of each operator: the stack's first two
+        la, mask, an, az = ops
+        ops = (la[:2], mask, an[:2], az[:2])
     for t in (phys,) + tuple(ops):
         if not t.is_contiguous():
             raise ValueError("the rlz_analysis kernel needs contiguous tensors")
-    p = plan(phys.shape, B, phys.dtype)
+    p = plan(phys.shape, B, phys.dtype, mode)
     lib = load().lib
-    fn = (
-        lib.scythe_rlz_analysis_f32
-        if phys.dtype == torch.float32
-        else lib.scythe_rlz_analysis_f64
-    )
+    if mode == "comp":
+        fn = lib.scythe_rlz_analysis_comp
+    elif phys.dtype == torch.float32:
+        fn = lib.scythe_rlz_analysis_f32
+    else:
+        fn = lib.scythe_rlz_analysis_f64
     out = torch.empty((V, B, L, Z), dtype=phys.dtype, device=phys.device)
     with torch.cuda.device(phys.device):
         stream = torch.cuda.current_stream(phys.device).cuda_stream
@@ -302,7 +350,10 @@ def _launch(phys, ops, shape):
     if err != 0:
         msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
         raise RuntimeError(f"rlz_analysis kernel launch failed: {msg} ({err}); {p}")
-    launches += 1
+    if mode == "comp":
+        comp_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -318,45 +369,62 @@ def rlz_analysis_transposed(g, l_analysis, ring_mask, analysis_r, analysis_z):
     return torch.einsum("kl,vrkz->vrlz", l_analysis, ga)
 
 
+def _unsplit(op3):
+    """O_hi + O_lo of a [3, ...] operator stack: the operator the comp mode
+    approximates, to bf16x2 precision."""
+    return op3[0] + op3[1]
+
+
 class RLZAnalysisFn(torch.autograd.Function):
     """The analysis as a differentiable operation: on the CPU its plain
-    version, on a CUDA device the kernel; every rule below runs on both
-    devices the same way, so the CPU tests check the formulas the card uses.
+    version, on a CUDA device the kernel, in the mode given; every rule
+    below runs on both devices the same way, so the CPU tests check the
+    formulas the card uses.
 
-    * jvp: the map is linear in phys, so the kernel on the tangents;
+    * jvp: the map is linear in phys (in comp mode, up to its splits'
+      rounding), so the kernel on the tangents, in the same mode;
     * vmap: the batch folded into V, with analysis_r and analysis_z
       repeated along it, one launch for all members;
-    * backward: the transposed chain (rlz_analysis_transposed), as einsums.
+    * backward: the transposed chain (rlz_analysis_transposed), as einsums;
+      in comp mode of the operators O_hi + O_lo, in f32 (the JAX package's
+      jax.grad through its compensated _mm rounds the cotangents to bf16 at
+      its casts: tests/test_torch_compensated.py holds the two apart at
+      the tolerance that gives).
 
     The operators get no gradient: they are the grid's, fixed at its build."""
 
     generate_vmap_rule = False
 
     @staticmethod
-    def forward(phys, l_analysis, ring_mask, analysis_r, analysis_z):
+    def forward(phys, l_analysis, ring_mask, analysis_r, analysis_z, mode):
         ops = (l_analysis, ring_mask, analysis_r, analysis_z)
         if phys.device.type == "cpu":
-            return rlz_analysis_plain(phys, *ops)
+            plain = rlz_analysis_comp_plain if mode == "comp" else rlz_analysis_plain
+            return plain(phys, *ops)
         if phys.device.type != "cuda":
             raise ValueError(f"rlz_analysis runs on cpu or cuda tensors, got {phys.device}")
         phys = phys.contiguous()
-        return _launch(phys, ops, _check(phys, ops))
+        return _launch(phys, ops, _check(phys, ops, mode), mode)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs[1:])
-        ctx.save_for_forward(*inputs[1:])
+        ctx.mode = inputs[5]
+        ctx.save_for_backward(*inputs[1:5])
+        ctx.save_for_forward(*inputs[1:5])
 
     @staticmethod
     def backward(ctx, g):
-        return (rlz_analysis_transposed(g, *ctx.saved_tensors),) + (None,) * 4
+        la, mask, an, az = ctx.saved_tensors
+        if ctx.mode == "comp":
+            la, an, az = _unsplit(la), _unsplit(an), _unsplit(az)
+        return (rlz_analysis_transposed(g, la, mask, an, az),) + (None,) * 5
 
     @staticmethod
     def jvp(ctx, phys_t, *_):
-        return RLZAnalysisFn.apply(phys_t, *ctx.saved_tensors)
+        return RLZAnalysisFn.apply(phys_t, *ctx.saved_tensors, ctx.mode)
 
     @staticmethod
-    def vmap(info, in_dims, phys, l_analysis, ring_mask, analysis_r, analysis_z):
+    def vmap(info, in_dims, phys, l_analysis, ring_mask, analysis_r, analysis_z, mode):
         if any(d is not None for d in in_dims[1:]):
             raise NotImplementedError(
                 "the RLZ analysis applies the grid's operators to every member; "
@@ -364,18 +432,22 @@ class RLZAnalysisFn(torch.autograd.Function):
             )
         if in_dims[0] is None:
             return RLZAnalysisFn.apply(phys, l_analysis, ring_mask, analysis_r,
-                                       analysis_z), None
+                                       analysis_z, mode), None
         x = phys.movedim(in_dims[0], 0)
         n, V = x.shape[:2]
+        # the variable axis of analysis_r / analysis_z (after a comp stack's)
+        rep = (1, n, 1, 1) if mode == "comp" else (n, 1, 1)
         out = RLZAnalysisFn.apply(x.reshape(n * V, *x.shape[2:]), l_analysis, ring_mask,
-                                  analysis_r.repeat(n, 1, 1), analysis_z.repeat(n, 1, 1))
+                                  analysis_r.repeat(*rep), analysis_z.repeat(*rep), mode)
         return out.reshape(n, V, *out.shape[1:]), 0
 
 
-def rlz_analysis(phys, l_analysis, ring_mask, analysis_r, analysis_z):
+def rlz_analysis(phys, l_analysis, ring_mask, analysis_r, analysis_z, mode="plain"):
     """Physical ``[V, rDim, nl, nz]`` -> spectral ``[V, b_rDim, nl, nz]``
     with the RLZ grid's operators (``Grid.l_analysis``, ``ring_mask``,
-    ``analysis_r``, ``analysis_z``), through RLZAnalysisFn."""
+    ``analysis_r``, ``analysis_z``), through RLZAnalysisFn.  ``mode``:
+    "plain" (operators in phys' dtype) or "comp" (a compensated grid's
+    [3, ...] operator stacks, float32)."""
     ops = (l_analysis, ring_mask, analysis_r, analysis_z)
-    _check(phys, ops)
-    return RLZAnalysisFn.apply(phys, *ops)
+    _check(phys, ops, mode)
+    return RLZAnalysisFn.apply(phys, *ops, mode)

@@ -114,7 +114,8 @@ def test_fused_column_solve_differentiates_on_the_cpu():
     x.requires_grad_(True)
     ops = (o.col_filter, o.col_deriv, o.hinv, o.synth, o.dsynth)
     assert torch.autograd.gradcheck(
-        lambda a: column_solve.fused_column_solve(a, w, *ops, 0.25, 9.0e4), (x,))
+        lambda a: column_solve.fused_column_solve(a, w, *ops, 0.25, 9.0e4, mode="plain"),
+        (x,))
 
 
 def test_analysis_gradcheck_jvp_vmap(analysis_ops):

@@ -13,7 +13,15 @@ operator (compose_column_operator) against the chain, the plan's tiles, and
 a block-by-block emulation of the kernel's decomposition (column tiles, N
 parts, K slabs, the packed fragment order and the 3xTF32 split) against the
 chain: f64 within 1e-13 of max|ref|, f32 at most 4x the f32 chain's own
-error against the f64 chain (the rule chip_smoke.py applies on the card)."""
+error against the f64 chain (the rule chip_smoke.py applies on the card).
+
+The comp mode (the TPU function's default, ``_kernel_comp``: bf16x3 products,
+here of the composed M) against the Pallas kernel in interpret mode with
+mode="comp" at tests/test_pallas_semiimplicit.py's comp bar (atol 1e-2 of
+max|ref|, rtol 1e-4) and against the f64 chain; its packing (M's bf16
+split, the JAX package's _split bit for bit) and the same emulation with
+the bf16 split of the activations against its plain version, and its
+autograd rules."""
 
 import itertools
 
@@ -26,6 +34,7 @@ from scythe_tpu import timeintegration as jti
 from scythe_tpu.ops.pallas_semiimplicit import fused_column_solve as pallas_solve
 from scythe_tpu_torch import timeintegration as tti
 from scythe_tpu_torch.ops import column_solve
+from scythe_tpu_torch.ops.bf16x3 import bf16_round
 
 torch.set_num_threads(2)
 
@@ -104,7 +113,7 @@ def test_wrapper_on_cpu_takes_plain_and_counts_nothing():
     w = torch.from_numpy(rng.normal(size=(37, 24)))
     ops = (ot.col_filter, ot.col_deriv, ot.hinv, ot.synth, ot.dsynth)
     before = column_solve.launches
-    got = column_solve.fused_column_solve(x, w, *ops, 0.125, 1.0e5)
+    got = column_solve.fused_column_solve(x, w, *ops, 0.125, 1.0e5, mode="plain")
     ref = column_solve.fused_column_solve_plain(x, w, *ops, 0.125, 1.0e5)
     assert column_solve.launches == before
     for a, b in zip(got, ref):
@@ -236,7 +245,8 @@ def test_composed_operator_with_profile_matches_chain_f64(nz, stage):
     out = torch.cat([x, w], dim=1) @ m.T
     assert _max_rel((out[:, :nz], out[:, nz:]), ref) <= 1e-13
     # the TPU function's counterpart takes the profile too (plain on the CPU)
-    got = column_solve.fused_column_solve(x, w, *ops, ts_term, torch.from_numpy(ot.pxi_bar))
+    got = column_solve.fused_column_solve(x, w, *ops, ts_term, torch.from_numpy(ot.pxi_bar),
+                                          mode="plain")
     assert _max_rel(got, ref) <= 1e-15
 
 
@@ -355,7 +365,7 @@ def test_plan_meets_its_goals_at_the_main_path_shapes():
 _tf32 = column_solve.tf32_round
 
 
-def _emulate(x, w, packed, p):
+def _emulate(x, w, packed, p, rnd=None):
     """The kernel's decomposition, block by block in its order: for each
     persistent block and row group, its column tiles; for each tile the K
     slabs
@@ -364,7 +374,9 @@ def _emulate(x, w, packed, p):
     hi(a) lo(b) each into its own accumulator, one for even and one for odd
     K steps of a slab; hi(a) hi(b) summed over the two K steps of a trip
     and added to a third; each product summed in f64 and rounded to f32).
+    ``rnd``: the activations' split (the comp kernel's: the bf16 one).
     Returns (w, xi) and how often each padded output was written."""
+    rnd = rnd or _tf32
     ncols, nz = x.shape
     kh = _ceil(nz, 8) * 8
     K = 2 * kh
@@ -393,8 +405,8 @@ def _emulate(x, w, packed, p):
                         continue
                     b_hi = bk[:2].reshape(8, K).double()
                     b_lo = bk[2:].reshape(8, K).double()
-                    a_hi = _tf32(ak)
-                    a_lo = _tf32(ak - a_hi).double()
+                    a_hi = rnd(ak)
+                    a_lo = rnd(ak - a_hi).double()
                     a_hi = a_hi.double()
                     q = (kb - kb0) % 2
                     lh[q] = (lh[q].double() + a_lo @ b_hi).float()
@@ -514,3 +526,120 @@ def test_composed_path_matches_pallas_interpret(nz, ncols, tile, stage):
     for g, ref in zip(got, (wk, xk)):
         ref = np.asarray(ref)
         np.testing.assert_allclose(g.numpy(), ref, atol=2e-4 * np.abs(ref).max(), rtol=1e-7)
+
+
+# ---- the comp mode: bf16x3 of the composed M
+
+
+@pytest.mark.parametrize("nz,ncols", [(40, 96), (24, 37), (13, 37)])
+@pytest.mark.parametrize("stage", ["t1", "ab"])
+def test_comp_matches_pallas_comp_interpret(nz, ncols, stage):
+    """fused_column_solve at its default mode (comp: the bf16x3 product of
+    the composed M, on the CPU its plain version) against the TPU kernel's
+    _kernel_comp in interpret mode (five operators each split) at the JAX
+    test's comp bar, and against the f64 chain within 5e-5 of max|ref|
+    (bf16x3 grade; the Pallas comp kernel is 1.1e-5 to 1.6e-5 from it at
+    nz 40)."""
+    ts, pxi = 0.2, 9.0e4
+    oj, ot = _ops(nz, ts, pxi)
+    ts_term, hj, ht = ((0.5 * ts, oj.hinv_t1, ot.hinv_t1) if stage == "t1"
+                       else (1.25 * ts, oj.hinv, ot.hinv))
+    x, w = _columns(ncols, nz, ncols + 1)
+    wk, xk = pallas_solve(
+        jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), oj.col_filter, oj.col_deriv, hj,
+        oj.synth, oj.dsynth, ts_term, pxi, interpret=True, mode="comp")
+    ops = (ot.col_filter, ot.col_deriv, ht, ot.synth, ot.dsynth)
+    before = column_solve.comp_launches
+    got = column_solve.fused_column_solve(x.float(), w.float(), *(o.float() for o in ops),
+                                          ts_term, pxi)
+    assert column_solve.comp_launches == before  # the CPU takes the plain version
+    ref = column_solve.fused_column_solve_plain(x, w, *ops, ts_term, pxi)
+    for g, k, r in zip(got, (wk, xk), ref):
+        k = np.asarray(k)
+        np.testing.assert_allclose(g.double().numpy(), k, atol=1e-2 * np.abs(k).max(),
+                                   rtol=1e-4)
+        assert _rel_err(g.double(), r) <= 5e-5
+
+
+def test_comp_pack_operator_is_the_bf16_split():
+    """The comp packing holds M's bf16 split in the fragment order: hi and
+    lo bf16 values, hi equal to the JAX package's _split of float32(M) bit
+    for bit, hi + lo within 2^-16 of float32(M)."""
+    from scythe_tpu.ops.pallas_semiimplicit import _split
+
+    m = torch.from_numpy(np.random.default_rng(8).normal(size=(26, 26)))
+    p32 = column_solve.pack_operator(m, torch.float32, "bf16")
+    tf = column_solve.pack_operator(m, torch.float32)
+    f64 = column_solve.pack_operator(m, torch.float64)
+    hi, lo = p32[..., :2], p32[..., 2:]
+    assert torch.equal(hi, bf16_round(hi))
+    assert torch.equal(lo, bf16_round(lo))
+    assert ((hi.double() + lo.double()) - f64.float().double()).abs().max() <= (
+        2.0 ** -16 * m.abs().max())
+    assert not torch.equal(p32, tf)
+    jh, jl = _split(jnp.asarray(m.numpy()))
+    idx = f64.double()  # the slot of M[n][k] holds n, k as in the plain packing
+    mh = column_solve.pack_operator(torch.from_numpy(np.asarray(jh, np.float64)),
+                                    torch.float64)
+    ml = column_solve.pack_operator(torch.from_numpy(np.asarray(jl, np.float64)),
+                                    torch.float64)
+    assert idx.shape == mh.shape
+    assert torch.equal(hi.double(), mh) and torch.equal(lo.double(), ml)
+
+
+@pytest.mark.parametrize("ncols,nz", [(37, 13), (1200, 24), (9216, 48), (300, 128)])
+def test_comp_decomposition_matches_plain_comp(ncols, nz):
+    """The comp kernel's decomposition (the plain kernel's, with the bf16
+    split of M's packing and of the activations) against its plain version
+    (apply_column_operator_comp_plain): the same products summed in another
+    order, so within 1e-6 of max|ref| (f32 round-off); every output once."""
+    ot = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, 9.0e4, 0.15, torch.float64,
+                                    "cpu")
+    op = column_solve.column_operator(ot.solve.M, torch.float32, "cpu", "comp")
+    assert op.comp and torch.equal(op.packed, column_solve.pack_operator(
+        ot.solve.M, torch.float32, "bf16"))
+    x, w = (t.float() for t in _columns(ncols, nz, ncols + nz + 1))
+    p = column_solve.plan(ncols, nz, torch.float32)
+    got, hits = _emulate(x, w, op.packed, p, rnd=bf16_round)
+    ref = column_solve.apply_column_operator_comp_plain(x, w, op.M)
+    assert torch.equal(hits, torch.ones_like(hits)), p
+    assert _max_rel(got, tuple(r.double() for r in ref)) <= 1e-6
+
+
+def test_comp_mode_is_float32_only():
+    m = torch.eye(26, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        column_solve.column_operator(m, torch.float64, "cpu", "comp")
+    x = torch.zeros((8, 13), dtype=torch.float64)
+    op = torch.eye(13, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        column_solve.fused_column_solve(x, x.clone(), op, op, op, op, op, 0.1, 1.0)
+    with pytest.raises(ValueError, match="mode"):
+        column_solve.fused_column_solve(x, x.clone(), op, op, op, op, op, 0.1, 1.0,
+                                        mode="bf16")
+
+
+def test_comp_autograd_rules_take_the_comp_map():
+    """A comp operator's backward is the comp map of M^T on the cotangents,
+    its jvp the comp map on the tangents, its vmap the members folded into
+    the columns (the CPU runs the formulas the card runs)."""
+    ot = tti.build_semiimplicit_ops(16, 0.0, 10000.0, None, 9.0e4, 0.15, torch.float64,
+                                    "cpu")
+    op = column_solve.column_operator(ot.solve.M, torch.float32, "cpu", "comp")
+    x, w = (t.float() for t in _columns(5, 16, 3))
+    gw, gx = (t.float() for t in _columns(5, 16, 4))
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = column_solve.apply_column_operator(xs, ws, op)
+    assert type(out[0].grad_fn).__name__ == "ColumnSolveFnBackward"
+    ga, gb = torch.autograd.grad(out, (xs, ws), (gw, gx))
+    want = column_solve.apply_column_operator_comp_plain(gw, gx, op.M.T.contiguous())
+    assert torch.equal(ga, want[0]) and torch.equal(gb, want[1])
+    _, tang = torch.func.jvp(lambda a, b: column_solve.apply_column_operator(a, b, op),
+                             (x, w), (gw, gx))
+    want = column_solve.apply_column_operator_comp_plain(gw, gx, op.M)
+    assert torch.equal(tang[0], want[0]) and torch.equal(tang[1], want[1])
+    xb, wb = torch.stack([x, 2 * x]), torch.stack([w, -w])
+    vm = torch.func.vmap(lambda a, b: column_solve.apply_column_operator(a, b, op))(xb, wb)
+    for i in range(2):
+        one = column_solve.apply_column_operator(xb[i], wb[i], op)
+        assert torch.equal(vm[0][i], one[0]) and torch.equal(vm[1][i], one[1])

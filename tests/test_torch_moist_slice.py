@@ -279,19 +279,52 @@ def test_options_ported_with_the_tc_slice_run(case, options):
     "kw", [{"l_factored": True}, {"deriv_single": True}], ids=lambda k: next(iter(k))
 )
 def test_unported_grid_switches_raise(kw):
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
-        tx.GridParameters(geometry="RLZ", num_cells=4, zDim=8, **kw)
+    """The two grid switches that raised before the port had them now run
+    and match scythe_tpu on this slice's grid: l_factored=True (the factored
+    DFT, plain f64: every slot 1e-12) and deriv_single=True (a compensated
+    f32 grid with the fast derivative slots: the value slot 3e-5 of its max,
+    the derivative slots one bf16 pass, 1e-2)."""
+    import dataclasses
+
+    gpj, gpt = (dataclasses.replace(_grid_params(p), **kw) for p in (jx, tx))
+    if "l_factored" in kw:
+        gj = jx.create_grid(gpj, jnp.float64, matmul="plain")
+        gt = tx.create_grid(gpt, torch.float64, device="cpu")
+        dtype, rel, rel_deriv = np.float64, 1e-12, 1e-12
+        assert gt.l_fact is not None and gt.kDim == gj.kDim
+    else:
+        gj = jx.create_grid(gpj, jnp.float32, matmul="compensated")
+        gt = tx.create_grid(gpt, torch.float32, matmul="compensated", device="cpu")
+        dtype, rel, rel_deriv = np.float32, 3e-5, 1e-2
+        assert gt.fast and gj.fast
+    phys = np.random.default_rng(0).normal(size=(9,) + gj.spatial_shape).astype(dtype)
+    sj = np.asarray(gj.analysis(jnp.asarray(phys)))
+    _assert_per_var(gt.analysis(torch.from_numpy(phys)), sj, rel)
+    oj, ot = gj.synthesis(jnp.asarray(sj)), gt.synthesis(torch.from_numpy(sj))
+    for k in oj:
+        _assert_per_var(ot[k], oj[k], rel if k == "val" else rel_deriv)
 
 
 def test_unported_geometry_and_matmul_raise():
-    """What the port still refuses: a periodic axis past the dense DFT (the
-    factored DFT is not ported), the bf16x3 matmul mode, an unknown
-    equation set."""
-    with pytest.raises(NotImplementedError, match="factored DFT"):
-        tx.create_grid(tx.GridParameters(geometry="XYZ", num_cells=4, lDim=4096,
-                                         ymax=1.0, zDim=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="compensated"):
-        tx.create_grid(_grid_params(tx), matmul="compensated", device="cpu")
+    """What the port refused before it had the factored DFT and the bf16x3
+    mode now runs and matches scythe_tpu: a periodic axis past the dense DFT
+    (the XYZ box at lDim 4096, factored: operators and a round trip at
+    1e-12) and matmul="compensated" (this slice's grid: analysis 3e-5 of
+    each field's max); an unknown equation set still raises."""
+    from test_torch_xyz import assert_grids_match, assert_round_trip_matches
+
+    kw = dict(geometry="XYZ", num_cells=4, lDim=4096, ymax=1.0, zmax=1.0, zDim=8)
+    gj = jx.create_grid(jx.GridParameters(**kw), jnp.float64)
+    gt = tx.create_grid(tx.GridParameters(**kw), torch.float64, device="cpu")
+    assert gt.l_fact is not None
+    assert_grids_match(gj, gt)
+    assert_round_trip_matches(gj, gt)
+    gj = jx.create_grid(_grid_params(jx), jnp.float32, matmul="compensated")
+    gt = tx.create_grid(_grid_params(tx), matmul="compensated", device="cpu")
+    assert gt.comp and gt.dtype == torch.float32
+    phys = np.random.default_rng(1).normal(size=(9,) + gj.spatial_shape).astype(np.float32)
+    _assert_per_var(gt.analysis(torch.from_numpy(phys)),
+                    gj.analysis(jnp.asarray(phys)), 3e-5)
     with pytest.raises(KeyError, match="MoistEulerXYZ"):
         from scythe_tpu_torch.equations.common import get_equation_set
 

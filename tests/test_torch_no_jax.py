@@ -3,7 +3,8 @@ a fresh interpreter with sys.modules['jax'] = None imports the package (its
 kernels' modules and every example included), runs 3 steps of the moist
 RLZ core, of the flagship two-way slab model and of Williamson case 2 on the
 SL sphere on the CPU, writes NetCDF output, and registers all 21 equation
-sets, importing no triton.  It differentiates the moist core through
+sets, importing no triton; a compensated grid and a factored one (nl 4096)
+build and transform.  It differentiates the moist core through
 adjoint.make_simulator and runs a two-member integrate_ensemble, and each
 kernel wrapper's output carries its Function's grad_fn when its input needs
 a gradient (the wrappers once returned outputs with no graph)."""
@@ -39,6 +40,8 @@ SCRIPT = textwrap.dedent(
     from scythe_tpu_torch.equations import sphere  # noqa: F401
     from scythe_tpu_torch.physics import turbulence  # noqa: F401
     from scythe_tpu_torch import diagnostics  # noqa: F401
+    from scythe_tpu_torch.basis import fourier_factored  # noqa: F401
+    from scythe_tpu_torch.ops import bf16x3  # noqa: F401
     from scythe_tpu_torch.equations.common import REGISTRY, get_equation_set
 
     tmp = tempfile.mkdtemp()
@@ -114,6 +117,12 @@ SCRIPT = textwrap.dedent(
     assert ens.shape == (2, 9, 12, 8, 8) and np.isfinite(ens).all()
     assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
+    # the compensated mode and the factored DFT build and transform
+    cg = tx.create_grid(gp, matmul="compensated", device="cpu")
+    assert cg.comp and cg.fast and torch.isfinite(cg.analysis(ph.detach().float())).all()
+    fg4 = tx.create_grid(tx.GridParameters(geometry="RL", num_cells=2, xmax=1.0, lDim=4096,
+                                           vars=("h",)), torch.float64, device="cpu")
+    assert fg4.l_fact is not None and fg4.kDim == fourier_factored.FactoredDFT(4096).K
     print("NOJAX_OK", sorted(os.listdir(os.path.join(tmp, "out"))))
     """
 )

@@ -3,8 +3,12 @@ against the JAX package: its plain version against the fused Pallas kernel
 run as tests/test_pallas_transforms.py runs it (interpret mode on a
 ``matmul="compensated"`` f32 grid: bf16x3 operators, so agreement is at f32
 round-off, bound 1e-4 of max|ref|), and against the JAX plain-mode float64
-``grid.analysis`` (1e-12 of max|ref|).  The CUDA kernel itself runs only on
-the card: chip_smoke.py holds it against this plain version there."""
+``grid.analysis`` (1e-12 of max|ref|); its comp mode (the TPU kernel's own
+bf16x3 arithmetic, on a compensated port grid) against the same Pallas
+kernel at tests/test_pallas_transforms.py's 1e-5.  The plan is swept and
+its decomposition emulated block by block in both modes.  The CUDA kernel
+itself runs only on the card: chip_smoke.py holds it against these plain
+versions there."""
 
 import itertools
 
@@ -17,6 +21,7 @@ import scythe_tpu as jx
 from scythe_tpu.ops import pallas_transforms as pt
 import scythe_tpu_torch as tx
 from scythe_tpu_torch.ops import rlz_analysis as ra
+from scythe_tpu_torch.ops.bf16x3 import comp_einsum
 
 torch.set_num_threads(2)
 
@@ -51,6 +56,25 @@ def test_plain_matches_pallas_interpret(nvars, cells, nl, nz):
     got = ra.rlz_analysis_plain(torch.from_numpy(phys.astype(np.float64)), *_ops(gt))
     assert got.shape == want.shape
     assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("nvars,cells,nl,nz", SHAPES + [(9, 8, 16, 16)])
+def test_comp_plain_matches_pallas_interpret(nvars, cells, nl, nz):
+    """The comp mode's plain chain, on a compensated port grid, against the
+    TPU kernel run in interpret mode on the JAX compensated grid (the same
+    bf16 operator halves, the activation split before each contraction):
+    1e-5 of max|ref|, tests/test_pallas_transforms.py's bar."""
+    gj = jx.create_grid(_params(jx, nvars, cells, nl, nz), jnp.float32,
+                        matmul="compensated")
+    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float32,
+                        matmul="compensated", device="cpu")
+    phys = np.random.default_rng(7).normal(size=(nvars,) + gt.spatial_shape).astype(
+        np.float32)
+    want = np.asarray(pt.build_rlz_analysis(gj, interpret=True)(jnp.asarray(phys)))
+    got = ra.rlz_analysis(torch.from_numpy(phys), *_ops(gt), mode="comp")
+    assert torch.equal(got, gt.analysis(torch.from_numpy(phys)))
+    assert got.shape == want.shape
+    assert _rel(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("nvars,cells,nl,nz", SHAPES + [(9, 8, 16, 16)])
@@ -118,15 +142,15 @@ PLAN_VRB = ((3, 21, 10), (9, 36, 15), (9, 72, 27), (9, 144, 51), (9, 300, 103),
             (8, 192, 67), (1, 600, 203))
 
 
-@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
-@pytest.mark.parametrize("nz", PLAN_NZ)
-def test_plan_fits_the_card_and_covers_the_output(dtype, nz):
+def _check_plans(dtype, nz, mode):
     es = torch.empty((), dtype=dtype).element_size()
+    nops = 2 if mode == "comp" else 1
     for nl, (V, R, B) in itertools.product(PLAN_NL, PLAN_VRB):
-        p = ra.plan((V, R, nl, nz), B, dtype)
-        where = (dtype, V, R, nl, nz, B, p)
+        p = ra.plan((V, R, nl, nz), B, dtype, mode)
+        where = (dtype, mode, V, R, nl, nz, B, p)
         assert p.smem <= 232_448, where
-        acc, stage, epilogue = ra.smem_layout(nz, es, p.kt, p.bt, p.c, p.rc, p.lc, p.zc, p.st)
+        acc, stage, epilogue = ra.smem_layout(nz, es, p.kt, p.bt, p.c, p.rc, p.lc, p.zc, p.st,
+                                              nops=nops)
         assert p.smem == ra.BARRIER_BYTES + acc + max(stage, epilogue), where
         assert 2 <= p.st <= ra.MAX_ST, where
         assert 1 <= p.c <= 8 and p.c <= R and p.grid[0] % p.c == 0, where
@@ -141,6 +165,25 @@ def test_plan_fits_the_card_and_covers_the_output(dtype, nz):
         assert (_ceil(nl, p.kt) - 1) * p.kt < nl and (_ceil(B, p.bt) - 1) * p.bt < B
         assert p.c * _ceil(p.bt * p.kt, p.c) >= p.bt * p.kt
         assert (p.c - 1) * _ceil(R, p.c) < R or p.c == 1, where
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("nz", PLAN_NZ)
+def test_plan_fits_the_card_and_covers_the_output(dtype, nz):
+    _check_plans(dtype, nz, "plain")
+
+
+@pytest.mark.parametrize("nz", PLAN_NZ)
+def test_comp_plan_fits_the_card_and_covers_the_output(nz):
+    """The comp mode's plans (each operator tile staged as hi and lo, three
+    FMAs a product) under the same checks; its layout is the plain one's
+    with the operator tiles doubled, and the mode is float32 only."""
+    _check_plans(torch.float32, nz, "comp")
+    with pytest.raises(ValueError, match="float32"):
+        ra.plan((9, 144, 64, 48), 51, torch.float64, "comp")
+    p, q = ra.plan((9, 144, 64, 48), 51, torch.float32, "comp"), ra.plan(
+        (9, 144, 64, 48), 51, torch.float32)
+    assert p.smem > 0 and (p.kt, p.bt) == (q.kt, q.bt)
 
 
 def test_plan_meets_its_goals_at_the_main_path_shapes():
@@ -164,14 +207,16 @@ def test_plan_meets_its_goals_at_the_main_path_shapes():
     assert ra.plan((9, 144, 64, 48), 51, torch.float64).kt == 4
 
 
-def _emulate(phys, la, mask, an, az, p):
+def _emulate(phys, la, mask, an, az, p, mm=torch.einsum):
     """The plan's decomposition executed block by block, in the kernel's
     order: per-r-slice partials over r-chunks and l-chunks, a rank-order
     reduction of each block's share of the (b, k) rows, and the vertical
-    stage in chunks of analysis_z rows.  Returns the output and how often each (b, k) row
-    was written."""
+    stage in chunks of analysis_z rows.  ``mm``: each product (comp_einsum
+    with the comp mode's [3, ...] operator stacks: the activation split
+    before it).  Returns the output and how often each (b, k) row was
+    written."""
     V, R, L, Z = phys.shape
-    B = an.shape[1]
+    B = an.shape[-2]
     out = torch.full((V, B, L, Z), float("nan"), dtype=phys.dtype)
     hits = torch.zeros((B, L), dtype=torch.int64)
     rs, share = _ceil(R, p.c), _ceil(p.bt * p.kt, p.c)
@@ -187,10 +232,10 @@ def _emulate(phys, la, mask, an, az, p):
                 a = torch.zeros((V, r1 - r0, nk, Z), dtype=phys.dtype)
                 for l0 in range(0, L, p.lc):
                     l1 = min(l0 + p.lc, L)
-                    a = a + torch.einsum("kl,vrlz->vrkz", la[k0:k0 + nk, l0:l1],
-                                         phys[:, r0:r1, l0:l1])
+                    a = a + mm("kl,vrlz->vrkz", la[..., k0:k0 + nk, l0:l1],
+                               phys[:, r0:r1, l0:l1])
                 a = a * mask[r0:r1, k0:k0 + nk, None]
-                acc = acc + torch.einsum("vbr,vrkz->vbkz", an[:, b0:b0 + nb, r0:r1], a)
+                acc = acc + mm("vbr,vrkz->vbkz", an[..., :, b0:b0 + nb, r0:r1], a)
             partials.append(acc.reshape(V, nb * nk, Z))
         for j in range(p.c):
             q0 = min(nb * nk, j * share)
@@ -200,8 +245,8 @@ def _emulate(phys, la, mask, an, az, p):
                 red = red + part[:, q0:q1]
             res = torch.empty_like(red)
             for K0 in range(0, Z, p.zc):  # analysis_z in chunks of rows
-                res[..., K0:K0 + p.zc] = torch.einsum("vKz,vqz->vqK",
-                                                      az[:, K0:K0 + p.zc], red)
+                res[..., K0:K0 + p.zc] = mm("vKz,vqz->vqK", az[..., :, K0:K0 + p.zc, :],
+                                            red)
             q = torch.arange(q0, q1)
             b, k = b0 + q // nk, k0 + q % nk
             out[:, b, k] = res
@@ -238,3 +283,23 @@ def test_plan_decomposition_matches_plain_f64(name, plan_dtype):
     ref = ra.rlz_analysis_plain(phys, *_ops(gt))
     assert torch.equal(hits, torch.ones_like(hits)), p  # every output once
     assert _rel(got, ref) <= 1e-13, p
+
+
+@pytest.mark.parametrize("name", ["moist3d", "tc", "shower", "jw06", "pallas_test_a",
+                                  "large_nl", "ragged"])
+def test_comp_plan_decomposition_matches_plain_comp(name):
+    """The comp mode's decomposition, block by block with its bf16 splits,
+    against its plain version (rlz_analysis_comp_plain) in f32: 2e-5 of
+    max|ref| (measured up to 3.4e-6: the blocked sums round in another
+    order, so a split may round an f32-rounded intermediate's hi part the
+    other way, a bf16x2-sized step), and every output once."""
+    nvars, cells, nl, nz = EMULATED[name]
+    gt = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float32,
+                        matmul="compensated", device="cpu")
+    phys = torch.from_numpy(np.random.default_rng(cells).normal(
+        size=(nvars,) + gt.spatial_shape).astype(np.float32))
+    p = ra.plan(phys.shape, gt.params.b_rDim, torch.float32, "comp")
+    got, hits = _emulate(phys, *_ops(gt), p, mm=comp_einsum)
+    ref = ra.rlz_analysis_comp_plain(phys, *_ops(gt))
+    assert torch.equal(hits, torch.ones_like(hits)), p
+    assert _rel(got, ref) <= 2e-5, (p, _rel(got, ref))

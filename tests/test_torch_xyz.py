@@ -125,14 +125,25 @@ def test_grid_matches_jax(ny, nz):
     "kw,exc,match",
     [({"lDim": 15}, ValueError, "even lDim"), ({"lDim": 0}, ValueError, "even lDim"),
      ({"ymax": 0.0}, ValueError, "ymax > ymin"),
-     ({"lDim": 4096}, NotImplementedError, "8c"),
+     ({"lDim": 4096}, None, None),
      ({"zDim": 3}, ValueError, "zDim")],
     ids=["odd-lDim", "no-lDim", "empty-y", "factored-nl", "short-z"],
 )
 def test_grid_refuses_what_jax_refuses(kw, exc, match):
+    """The port refuses what the JAX package refuses; lDim 4096
+    (factored-nl) it no longer refuses: the factored DFT is ported, and auto
+    takes it there, as in the JAX package, whose grid it matches."""
     import dataclasses
 
     gp = dataclasses.replace(xyz_params(tx, vars_map=("a",)), **kw)
+    if exc is None:
+        gj = jx.create_grid(dataclasses.replace(xyz_params(jx, vars_map=("a",)), **kw),
+                            jnp.float64)
+        gt = tx.create_grid(gp, torch.float64, device="cpu")
+        assert gt.l_fact is not None and gj.l_fact is not None
+        assert_grids_match(gj, gt)
+        assert_round_trip_matches(gj, gt)
+        return
     with pytest.raises(exc, match=match):
         tx.create_grid(gp, torch.float64, device="cpu")
     if exc is ValueError:  # the JAX package refuses it alike
