@@ -42,7 +42,9 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    in each dtype, the plan and its block count printed; then the f32 kernel
    and plain chain timed at the moist3d, transform and TC shapes, and f64 at
    moist3d, in turns, each as device time (the calls queued behind a sleep
-   kernel, so host time between launches does not count) and back to back;
+   kernel, so host time between launches does not count) and back to back,
+   beside the library call (one torch.einsum over the whole chain, TF32 off;
+   the port never calls it);
 5. tendency-stage probe (Triton) against its plain version at
    [9, 144, 3072] f32 (rel err 1e-5 of max|ref|), timed in turns, then its
    entry point (python -m scythe_tpu_torch.ops.elementwise_probe) run once;
@@ -160,7 +162,8 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    computes bf16x3 with an f32 output); the analysis in mode="comp" on
    compensated grids at the moist3d, TC, transform, shower, SLZ test and
    JW06 production shapes, the same checks (1e-5 of max against its plain
-   version) and timing;
+   version) and timing, beside the library call (one torch.einsum over the
+   chain on the unsplit operators O_hi + O_lo in true f32);
 28. moist3d at full width on compensated grids (create_grid's
    matmul="compensated" under integrate_model, deriv_single auto: on, the
    JAX package's TPU production numerics), 120 steps: 121 comp analysis launches, none of the plain
@@ -627,6 +630,16 @@ def analysis_bound(shape, b_rdim):
         "f32 products")
 
 
+def analysis_library(torch, x, la, mask, an, az):
+    """The yardstick of both analysis rows: one torch.einsum over the whole
+    chain (lambda DFT, ring mask, radial and vertical operators) in x's
+    dtype, TF32 off (true f32 products); the port never calls it."""
+    def library():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return torch.einsum("kl,vrlz,rk,vbr,vKz->vbkK", la, x, mask, an, az)
+    return library
+
+
 def per_field_rel(got, ref):
     """max|got - ref| / max|ref| per leading-axis field (fields whose ref is
     identically zero are compared absolutely and reported as such)."""
@@ -836,8 +849,8 @@ ANALYSIS_GEOMETRY = {"shower": "XYZ", "slz_test": "SLZ", "jw06": "SLZ",
 
 def phase_analysis(tx, torch, ra):
     """Phase 4; returns (max_abs_err at the TC shape f32, {"moist3d" |
-    "transform" | "tc" | "moist3d_f64": (ms, plain_ms[, bound_ms, bound_by])}),
-    device times, the bound for the f32 shapes."""
+    "transform" | "tc" | "moist3d_f64" | ...: (ms, plain_ms, library_ms[,
+    bound_ms, bound_by])}), device times, the bound for the f32 shapes."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
     lines, tc_err = [], None
@@ -882,21 +895,24 @@ def phase_analysis(tx, torch, ra):
         x = torch.from_numpy(rng.normal(size=(nv,) + g.spatial_shape)).to("cuda", dtype)
         plain = lambda: ra.rlz_analysis_plain(x, *ops)  # noqa: E731
         kernel = lambda: ra.rlz_analysis(x, *ops)  # noqa: E731
-        kt, pt = in_turns(plain, kernel, 100, timer=queued_time_ms)
-        kb, pb = in_turns(plain, kernel, 100)
-        times[name] = (min(kt), min(pt))
+        library = analysis_library(torch, x, *ops)
+        kt, pt, lt = in_turns(plain, kernel, 100, timer=queued_time_ms, library=library)
+        kb, pb, lb = in_turns(plain, kernel, 100, library=library)
+        times[name] = (min(kt), min(pt), min(lt))
         note = ""
         if dtype == torch.float32:
             bound, by = analysis_bound(tuple(x.shape), g.params.b_rDim)
             times[name] += (bound, by)
             note = (f"; bound {bound:.5f} ms ({by}), kernel at "
                     f"{100.0 * bound / min(kt):.1f}% of it")
-        print(f"  analysis {name} {list(x.shape)}: device time kernel {kt} ms, plain {pt} ms; "
-              f"back to back kernel {kb} ms, plain {pb} ms{note}", flush=True)
+        print(f"  analysis {name} {list(x.shape)}: device time kernel {kt} ms, plain {pt} ms, "
+              f"library {lt} ms; back to back kernel {kb} ms, plain {pb} ms, library {lb} "
+              f"ms{note}", flush=True)
     say("analysis-timing", t0,
-        "100 calls a run, min device ms kernel vs plain (f32 unless named; then the bound): "
-        + ", ".join(f"{k} {t[0]:.5f} vs {t[1]:.5f}"
-                    + (f" ({t[2]:.5f} {t[3]})" if len(t) > 2 else "")
+        "100 calls a run, min device ms kernel vs plain vs library (one torch.einsum over "
+        "the chain, TF32 off; f32 unless named; then the bound): "
+        + ", ".join(f"{k} {t[0]:.5f} vs {t[1]:.5f} vs {t[2]:.5f}"
+                    + (f" ({t[3]:.5f} {t[4]})" if len(t) > 3 else "")
                     for k, t in times.items()))
     return tc_err, times
 
@@ -1493,12 +1509,14 @@ CS_COMP_NCOLS = (37, 9216)
 # of its max: the same bf16 products summed in another order (the CPU
 # emulations of the kernels' decompositions, tests/test_torch_column_solve.py
 # and tests/test_torch_rlz_analysis.py, measure up to 1e-6 and 3.4e-6; the
-# card up to 1.68e-6 and 3.27e-6, an H100 80GB HBM3 at 700 W); and
+# card up to 1.68e-6 and 3.27e-6, and the analysis' tensor-core body up to
+# 3.9e-6, an H100 80GB HBM3 at 700 W); and
 # its error against f64 within COMP_ERR_RATIO of its plain version's, from
 # below too, so that a body on any other arithmetic than bf16x3 fails: plain
 # f32 is ~1e-5 of max from bf16x3 and ~100x nearer f64, f32 products by
 # O_hi + O_lo (the activations left unsplit) 0.5x its error on the CPU; the
-# kernels measured 0.96x to 1.07x on an H100 80GB HBM3 at 700 W
+# kernels measured 0.96x to 1.07x on an H100 80GB HBM3 at 700 W (the
+# analysis' tensor-core body 0.90x to 1.19x)
 COMP_DIRECT = {"column_solve": 4e-6, "rlz_analysis": 1e-5}
 COMP_ERR_RATIO = (0.75, 4.0)
 # the comp analysis at phase 4's timed shapes
@@ -1553,8 +1571,8 @@ def phase_comp_kernels(tx, tti, torch, cs, ra, columns):
     """The comp (bf16x3) kernels against their plain versions and f64, then
     timed; returns ({"column_solve" | "rlz_analysis": max_abs_err against the
     plain version at moist3d, and "..._vs_f64" against f64}, {label: (ms, plain_ms, library_ms, bound_ms, bound_by)} of the
-    column solve, {name: (ms, plain_ms, bound_ms, bound_by)} of the
-    analysis), device times."""
+    column solve, {name: (ms, plain_ms, bound_ms, bound_by, library_ms)} of
+    the analysis), device times."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(5)
     zmax, ts, pxi, _ = columns["moist3d"]
@@ -1671,19 +1689,24 @@ def phase_comp_kernels(tx, tti, torch, cs, ra, columns):
                      f"{ep / scale:.2e} ({ek / ep:.2f}x); {pc} {pc.ctas} blocks")
         plain_fn = lambda: ra.rlz_analysis_comp_plain(x32, *opsc)  # noqa: E731
         kernel_fn = lambda: ra.rlz_analysis(x32, *opsc, mode="comp")  # noqa: E731
-        kt, pt = in_turns(plain_fn, kernel_fn, 100, timer=queued_time_ms)
+        # the library call on the unsplit operators O_hi + O_lo, in true f32
+        library = analysis_library(torch, x32, ra._unsplit(gc.l_analysis), gc.ring_mask,
+                                   ra._unsplit(gc.analysis_r), ra._unsplit(gc.analysis_z))
+        el = float((library().double() - ref).abs().max())
+        kt, pt, lt = in_turns(plain_fn, kernel_fn, 100, timer=queued_time_ms, library=library)
         bound, by = analysis_comp_bound(tuple(x.shape), g64.params.b_rDim)
-        ra_times[name] = (min(kt), min(pt), bound, by)
+        ra_times[name] = (min(kt), min(pt), bound, by, min(lt))
         print(f"  comp analysis {name} {list(x.shape)}: device time kernel {kt} ms, plain "
-              f"{pt} ms; bound {bound:.5f} ms ({by}), kernel at "
-              f"{100.0 * bound / min(kt):.1f}% of it", flush=True)
+              f"{pt} ms, library (one torch.einsum on O_hi + O_lo in true f32) {lt} ms; "
+              f"bound {bound:.5f} ms ({by}), kernel at {100.0 * bound / min(kt):.1f}% of it; "
+              f"library rel err against f64 {el / scale:.2e}", flush=True)
     say("comp-analysis-vs-plain-and-timing", t0,
         f"mode='comp' on compensated grids: the kernel within "
         f"{COMP_DIRECT['rlz_analysis']} of max|ref| of its plain comp chain on the same "
         f"inputs; against the f64 plain chain its error {COMP_ERR_RATIO}x the plain comp "
         f"chain's and <= 1e-4 of max|ref|; two calls bitwise equal, Grid.analysis equal to "
-        f"it; 100 calls a run, min device ms kernel vs plain (bound): "
-        + ", ".join(f"{k} {t[0]:.5f} vs {t[1]:.5f} ({t[2]:.5f} {t[3]})"
+        f"it; 100 calls a run, min device ms kernel vs plain vs library (bound): "
+        + ", ".join(f"{k} {t[0]:.5f} vs {t[1]:.5f} vs {t[4]:.5f} ({t[2]:.5f} {t[3]})"
                     for k, t in ra_times.items()) + " | " + " | ".join(lines))
     return errs, cs_times, ra_times
 
@@ -2430,22 +2453,17 @@ def main(argv=None):
             "max_abs_err": ra_err,
             "ms": ra_times["moist3d"][0],
             "plain_ms": ra_times["moist3d"][1],
-            "bound_ms": ra_times["moist3d"][2],
-            "bound_by": ra_times["moist3d"][3],
-            "library_ms": None,
-            "tc_ms": ra_times["tc"][0],
-            "tc_plain_ms": ra_times["tc"][1],
-            "tc_bound_ms": ra_times["tc"][2],
-            "tc_bound_by": ra_times["tc"][3],
-            "transform_ms": ra_times["transform"][0],
-            "transform_plain_ms": ra_times["transform"][1],
-            "transform_bound_ms": ra_times["transform"][2],
-            "transform_bound_by": ra_times["transform"][3],
+            "bound_ms": ra_times["moist3d"][3],
+            "bound_by": ra_times["moist3d"][4],
+            "library_ms": ra_times["moist3d"][2],
+            "library_call": "torch.einsum over the chain in true f32 (f64 for the f64 row)",
             "moist3d_f64_ms": ra_times["moist3d_f64"][0],
             "moist3d_f64_plain_ms": ra_times["moist3d_f64"][1],
+            "moist3d_f64_library_ms": ra_times["moist3d_f64"][2],
             **{f"{name}_{k}": ra_times[name][i]
-               for name in ("shower", "slz_test", "jw06", "jw06_production")
-               for i, k in enumerate(("ms", "plain_ms", "bound_ms", "bound_by"))},
+               for name in ("tc", "transform", "shower", "slz_test", "jw06", "jw06_production")
+               for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by"))},
         },
         {
             "name": "fused_column_solve_comp",
@@ -2484,10 +2502,13 @@ def main(argv=None):
             "plain_ms": ra_comp_times["moist3d"][1],
             "bound_ms": ra_comp_times["moist3d"][2],
             "bound_by": ra_comp_times["moist3d"][3],
-            "library_ms": None,
+            "library_ms": ra_comp_times["moist3d"][4],
+            "library_call": "torch.einsum over the chain on O_hi + O_lo in true f32: no "
+                            "single PyTorch call computes bf16x3 with an f32 output",
             **{f"{name}_{k}": ra_comp_times[name][i]
                for name in ANALYSIS_COMP_SHAPES if name != "moist3d"
-               for i, k in enumerate(("ms", "plain_ms", "bound_ms", "bound_by"))},
+               for i, k in enumerate(("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms"))},
         },
         {
             "name": "probe_expr",

@@ -70,14 +70,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = COLUMN_SOLVE_ARGTYPES
         fn.restype = i32
-    for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64",
-                 "scythe_rlz_analysis_comp"):
+    for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64"):
         fn = getattr(lib, name)
-        # x, l_analysis, ring_mask, analysis_r, analysis_z, out (comp: each
-        # operator its [hi, lo] pair, stacked); V R L Z B; the plan
-        # (ops/rlz_analysis.py): KT BT C RC LC ZC ST, threads, smem
+        # x, l_analysis, ring_mask, analysis_r, analysis_z, out; V R L Z B;
+        # the plan (ops/rlz_analysis.py): KT BT C RC LC ZC ST, threads, smem
         fn.argtypes = [ptr] * 6 + [i32] * 5 + [i32] * 9 + [ptr]
         fn.restype = i32
+    # the comp mode: x, the packed l_analysis, ring_mask, the packed
+    # analysis_r and analysis_z, out; V R L Z B and the packed operators'
+    # variables; the comp plan: KT BT C RC RP LC ST, threads, smem
+    lib.scythe_rlz_analysis_comp.argtypes = [ptr] * 6 + [i32] * 6 + [i32] * 9 + [ptr, ptr]
+    lib.scythe_rlz_analysis_comp.restype = i32
     for name in (
         "scythe_column_solve_max_nz",
         "scythe_rlz_analysis_max_nz",

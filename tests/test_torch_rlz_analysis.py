@@ -144,21 +144,45 @@ PLAN_VRB = ((3, 21, 10), (9, 36, 15), (9, 72, 27), (9, 144, 51), (9, 300, 103),
 
 def _check_plans(dtype, nz, mode):
     es = torch.empty((), dtype=dtype).element_size()
-    nops = 2 if mode == "comp" else 1
     for nl, (V, R, B) in itertools.product(PLAN_NL, PLAN_VRB):
         p = ra.plan((V, R, nl, nz), B, dtype, mode)
         where = (dtype, mode, V, R, nl, nz, B, p)
         assert p.smem <= 232_448, where
-        acc, stage, epilogue = ra.smem_layout(nz, es, p.kt, p.bt, p.c, p.rc, p.lc, p.zc, p.st,
-                                              nops=nops)
-        assert p.smem == ra.BARRIER_BYTES + acc + max(stage, epilogue), where
+        if mode == "comp":
+            # two regions: the coefficients (then the reduced rows) and the
+            # ring of x (with the partial sums over it, or after it)
+            region_a, region_b = ra.comp_smem_layout(nz, R, p.kt, p.bt, p.c, p.rc, p.rp, p.lc,
+                                                     p.st)
+            assert p.smem == ra.BARRIER_BYTES + region_a + region_b, where
+        else:
+            acc, stage, epilogue = ra.smem_layout(nz, es, p.kt, p.bt, p.c, p.rc, p.lc, p.zc,
+                                                  p.st)
+            assert p.smem == ra.BARRIER_BYTES + acc + max(stage, epilogue), where
         assert 2 <= p.st <= ra.MAX_ST, where
         assert 1 <= p.c <= 8 and p.c <= R and p.grid[0] % p.c == 0, where
         assert 1 <= p.kt <= min(nl, ra.MAX_KT) and 1 <= p.bt <= B, where
-        assert 1 <= p.rc <= ra.MAX_RC and 1 <= p.lc <= nl and 1 <= p.zc <= nz, where
-        # one lambda tile (4 k x 4 z) a consumer thread at most
-        assert p.rc * ra.lanes_a_row(p.kt, nz) <= p.threads - 32, where
-        assert p.threads in ra.THREADS
+        assert 1 <= p.lc <= nl and 1 <= p.zc <= nz, where
+        if mode == "comp":
+            # tensor-core tiles: k-tiles of 8 or 16 (or all of nl), b-tiles
+            # of 16-row A tiles (or all of b_rDim), r-slices on 16 rows
+            # (none empty) as one chunk or in chunks of 16-64 rows, each in
+            # pieces of rp rows; l-pieces of 16-deep k-steps (or all of nl),
+            # analysis_z staged whole; the lambda m-tiles fit the warps'
+            # registers
+            rs = ra.comp_slice_rows(R, p.c)
+            assert p.kt % 8 == 0 or p.kt == nl, where
+            assert p.bt % 16 == 0 or p.bt == B, where
+            assert p.rc % 16 == 0 and p.rc % p.rp == 0 and p.rp % 2 == 0, where
+            assert p.rc == rs <= ra.COMP_MAX_RC or 16 <= p.rc <= 64, where
+            assert p.lc % 16 == 0 or p.lc == nl, where
+            assert p.zc == nz and p.threads in ra.COMP_THREADS, where
+            assert rs == _ceil(_ceil(R, p.c), 16) * 16 and (p.c - 1) * rs < R, where
+            assert ra.comp_items_fit(nz, p.kt, p.rp, p.threads), where
+        else:
+            assert 1 <= p.rc <= ra.MAX_RC, where
+            # one lambda tile (4 k x 4 z) a consumer thread at most
+            assert p.rp == p.rc and p.rc * ra.lanes_a_row(p.kt, nz) <= p.threads - 32, where
+            assert p.threads in ra.THREADS
         # the grid's tiles cover every (b, k) once; the cluster's shares
         # cover every row of a tile
         assert p.grid == (p.c, _ceil(nl, p.kt) * _ceil(B, p.bt), V), where
@@ -175,15 +199,18 @@ def test_plan_fits_the_card_and_covers_the_output(dtype, nz):
 
 @pytest.mark.parametrize("nz", PLAN_NZ)
 def test_comp_plan_fits_the_card_and_covers_the_output(nz):
-    """The comp mode's plans (each operator tile staged as hi and lo, three
-    FMAs a product) under the same checks; its layout is the plain one's
-    with the operator tiles doubled, and the mode is float32 only."""
+    """The comp mode's plans (its own tensor-core body: pieces of x in f32,
+    the operators' bf16 fragments, the coefficients split into bf16 hi and
+    lo, f32 partial sums) under the same checks and the tensor-core
+    tiling's own; the mode is float32 only."""
     _check_plans(torch.float32, nz, "comp")
     with pytest.raises(ValueError, match="float32"):
         ra.plan((9, 144, 64, 48), 51, torch.float64, "comp")
-    p, q = ra.plan((9, 144, 64, 48), 51, torch.float32, "comp"), ra.plan(
-        (9, 144, 64, 48), 51, torch.float32)
-    assert p.smem > 0 and (p.kt, p.bt) == (q.kt, q.bt)
+    # moist3d: r split over a cluster, x read at most 16 times (k-tiles by
+    # b-tiles), one block of 15 consumer warps an SM
+    p = ra.plan((9, 144, 64, 48), 51, torch.float32, "comp")
+    assert p.c > 1 and p.threads == 512, p
+    assert _ceil(64, p.kt) * _ceil(51, p.bt) <= 16, p
 
 
 def test_plan_meets_its_goals_at_the_main_path_shapes():
@@ -209,17 +236,22 @@ def test_plan_meets_its_goals_at_the_main_path_shapes():
 
 def _emulate(phys, la, mask, an, az, p, mm=torch.einsum):
     """The plan's decomposition executed block by block, in the kernel's
-    order: per-r-slice partials over r-chunks and l-chunks, a rank-order
-    reduction of each block's share of the (b, k) rows, and the vertical
-    stage in chunks of analysis_z rows.  ``mm``: each product (comp_einsum
-    with the comp mode's [3, ...] operator stacks: the activation split
-    before it).  Returns the output and how often each (b, k) row was
-    written."""
+    order: per-r-slice partials over r-chunks and l-chunks (each l-piece's
+    product summed apart and added in f32, each r-chunk's likewise into
+    the accumulator), a rank-order reduction of each block's share of the
+    (b, k) rows, and the vertical stage in chunks of analysis_z rows.
+    ``mm``: each product (comp_einsum with the comp mode's [3, ...] operator
+    stacks: the activation split before it, as the comp kernel splits x as
+    it reads it, the masked coefficients at the end of an r-chunk's
+    l-pieces and the reduced rows; its r-slices start on 16 rows).  Returns
+    the output and how often each (b, k) row was written."""
     V, R, L, Z = phys.shape
     B = an.shape[-2]
     out = torch.full((V, B, L, Z), float("nan"), dtype=phys.dtype)
     hits = torch.zeros((B, L), dtype=torch.int64)
     rs, share = _ceil(R, p.c), _ceil(p.bt * p.kt, p.c)
+    if mm is comp_einsum:  # the comp kernel's r-slices start on 16 rows
+        rs = _ceil(rs, 16) * 16
     for k0, b0 in itertools.product(range(0, L, p.kt), range(0, B, p.bt)):
         nk, nb = min(p.kt, L - k0), min(p.bt, B - b0)
         partials = []
@@ -303,3 +335,93 @@ def test_comp_plan_decomposition_matches_plain_comp(name):
     ref = ra.rlz_analysis_comp_plain(phys, *_ops(gt))
     assert torch.equal(hits, torch.ones_like(hits)), p
     assert _rel(got, ref) <= 2e-5, (p, _rel(got, ref))
+
+
+# ---- the comp kernel's packed operators (pure Python, on the CPU)
+
+
+def _unpack_pairs(words):
+    """int32 pairs of bf16 -> float32 [..., 2n] (the low half first)."""
+    lo = (words & 0xFFFF).to(torch.int16)
+    hi = ((words >> 16) & 0xFFFF).to(torch.int16)
+    bits = torch.stack([lo, hi], dim=-1).reshape(*words.shape[:-1], -1)
+    return bits.view(torch.bfloat16).float()
+
+
+def _unpack_b(frags, n, k, lambda_order):
+    """[..., K16/16, N8/8, 32, 2] B fragments back to [..., N, K]."""
+    v = _unpack_pairs(frags)  # [..., ks, nt, 32, 4]: (g, t), (r, e)
+    *lead, ks, nt = v.shape[:-2]
+    d = len(lead)
+    v = v.reshape(*lead, ks, nt, 8, 4, 2, 2)  # ks, nt, g, t, r, e
+    if lambda_order:  # K within a step = t + 4 e + 8 r
+        v = v.permute(*range(d), d + 1, d + 2, d, d + 4, d + 5, d + 3)
+    else:  # 8 r + 2 t + e
+        v = v.permute(*range(d), d + 1, d + 2, d, d + 4, d + 3, d + 5)
+    return v.reshape(*lead, nt * 8, ks * 16)[..., :n, :k]
+
+
+def _unpack_a(frags, m, k):
+    """[..., M16/16, K16/16, 32, 4] A fragments back to [..., M, K]."""
+    v = _unpack_pairs(frags)  # [..., mt, ks, 32, 8]: (g, t), (c, h, e)
+    *lead, mt, ks = v.shape[:-2]
+    d = len(lead)
+    v = v.reshape(*lead, mt, ks, 8, 4, 2, 2, 2)  # mt, ks, g, t, c, h, e
+    v = v.permute(*range(d), d, d + 5, d + 2, d + 1, d + 4, d + 3, d + 6)
+    return v.reshape(*lead, mt * 16, ks * 16)[..., :m, :k]
+
+
+PACKED = {"pallas_test_a": (4, 16, 64, 20), "tc": (9, 100, 4, 24), "ragged": (3, 7, 12, 13),
+          "moist3d": (9, 48, 64, 48)}
+
+
+@pytest.mark.parametrize("name", PACKED)
+def test_comp_packing_round_trips_the_grid_stacks_bit_for_bit(name):
+    """pack_comp_operators holds each operator's bf16 hi and lo exactly:
+    unpacked, they equal the grid's [3, ...] stacks' O_hi and O_lo bit for
+    bit, the padding is zero in both parts, and the fragments' shapes are
+    the kernel's (16-deep k-steps, 8-wide n-tiles, 16-row m-tiles)."""
+    nvars, cells, nl, nz = PACKED[name]
+    g = tx.create_grid(_params(tx, nvars, cells, nl, nz), torch.float32,
+                       matmul="compensated", device="cpu")
+    V, B, R = g.analysis_r.shape[1:]
+    packed = ra.pack_comp_operators(g.l_analysis, g.analysis_r, g.analysis_z)
+    assert packed.nvars == V
+    assert packed.la.shape == (_ceil(nl, 16), _ceil(nl, 8), 32, 4)
+    assert packed.an.shape == (V, _ceil(B, 16), _ceil(R, 16), 2, 32, 4)
+    assert packed.az.shape == (V, _ceil(nz, 16), _ceil(nz, 8), 32, 4)
+    assert all(t.dtype == torch.int32 and t.is_contiguous() for t in packed[:3])
+    for p in (0, 1):  # hi, lo
+        la = _unpack_b(packed.la[..., 2 * p:2 * p + 2], _ceil(nl, 8) * 8, _ceil(nl, 16) * 16,
+                       True)
+        an = _unpack_a(packed.an[..., p, :, :], _ceil(B, 16) * 16, _ceil(R, 16) * 16)
+        az = _unpack_b(packed.az[..., 2 * p:2 * p + 2], _ceil(nz, 8) * 8, _ceil(nz, 16) * 16,
+                       False)
+        for got, want in ((la, g.l_analysis[p]), (an, g.analysis_r[p]), (az, g.analysis_z[p])):
+            n, k = want.shape[-2:]
+            assert torch.equal(got[..., :n, :k].view(torch.int32), want.view(torch.int32))
+            assert not got[..., n:, :].any() and not got[..., :, k:].any()
+
+
+def test_comp_packing_is_made_once_per_grid():
+    """comp_operators packs a grid's operators at its first call and hands
+    the same tensors back after (the wrapper asks on every launch: no
+    launch a call for the packing); an operator changed in place is packed
+    again."""
+    g = tx.create_grid(_params(tx, 2, 8, 16, 12), torch.float32, matmul="compensated",
+                       device="cpu")
+    ops = (g.l_analysis, g.analysis_r, g.analysis_z)
+    before = ra.packs
+    first = ra.comp_operators(*ops)
+    assert ra.packs == before + 1
+    again = ra.comp_operators(*ops)
+    assert ra.packs == before + 1
+    assert all(a is b for a, b in zip(first[:3], again[:3]))
+    # another grid's operators are packed for themselves
+    g2 = tx.create_grid(_params(tx, 2, 8, 16, 12), torch.float32, matmul="compensated",
+                        device="cpu")
+    ra.comp_operators(g2.l_analysis, g2.analysis_r, g2.analysis_z)
+    assert ra.packs == before + 2
+    g.analysis_z.mul_(1.0)  # a new version
+    ra.comp_operators(*ops)
+    assert ra.packs == before + 3
