@@ -141,7 +141,10 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    solve) and [9, 144, 64, 48] and [9, 144, 96, 24] (analysis) against
    torch.autograd and torch.func.jvp of its plain version (f64 1e-12, f32
    1e-5 and <= 4x the plain f32's error), timed in turns beside the plain
-   version, the library call (the column solve's backward: one matmul by M)
+   version, the library call (the column solve's backward: one matmul by M;
+   its jvp: one matmul of the stacked primal and tangent by M^T; the
+   analysis backward: one torch.einsum over the transposed chain; its jvp:
+   one torch.einsum with primal and tangent stacked on the variable axis)
    and the bound;
 25-26. make_simulator on the SLZ test grid, 20 semi-implicit f64 steps with
    rain seeded everywhere: the gradient of a weighted sum of the final
@@ -152,7 +155,9 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    (1e-9), the loss falling.
 27. the compensated (bf16x3) kernels, the TPU kernels' own arithmetic: the
    column solve in mode="comp" (the bf16 split of the composed M and of the
-   activations) at nz {13, 24, 48, 128} x ncols {37, 9216} and at 9216 x 48,
+   activations; a body of its own on the bf16 tensor cores, its plan and
+   ptxas' registers and spills printed) at nz {13, 24, 48, 128} x ncols
+   {37, 9216} and at 9216 x 48,
    1200 x 24, 2304 x 32 and 13,824 x 24, both stages, against its plain
    version (the torch bf16x3 map) on the same inputs (4e-6 of max) and the
    f64 chain (0.75x to 4x the plain version's error, and 1e-4; bitwise
@@ -173,6 +178,9 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    from the CPU); then fused_column_solve at its default (comp) on the run's
    final xi and w columns, both stages: 2 comp launches, against its plain
    version on the same composed M (4e-6) and the plain-mode kernel (1e-4);
+   and semiimplicit_adjustment on build_semiimplicit_ops(..., use_pallas=True)
+   (the JAX option's counterpart) on the same columns at t = 1 and 3: 2 comp
+   launches, against the same corrector on the CPU (its plain version, 4e-6);
 29. the flagship workflow at full width on compensated grids with the fast
    derivative slots (tools/validate_fastderiv.py's configuration): inside
    phase 9's bands, no kernel launched;
@@ -1353,20 +1361,25 @@ def phase_kernel_gradients(tx, tti, torch, cs, ra, columns):
                           (x32, w32), (xt32, wt32))
         p_j = lambda: jvp(lambda a, b: cs.apply_column_operator_plain(a, b, op.M),  # noqa: E731
                           (x32, w32), (xt32, wt32))
+        # the jvp's library call: one matmul of the stacked primal and tangent
+        stacked = torch.cat([torch.cat([x32, w32], 1), torch.cat([xt32, wt32], 1)], 0)
+        m_t = op.M.T
+        l_j = lambda: torch.matmul(stacked, m_t)  # noqa: E731
         kb, pb, lb = in_turns(p_b, k_b, 100, timer=queued_time_ms, library=l_b)
-        kj, pj = in_turns(p_j, k_j, 100, timer=queued_time_ms)
+        kj, pj, lj = in_turns(p_j, k_j, 100, timer=queued_time_ms, library=l_j)
         bound_b = column_solve_bound(ncols, nz, "float32")
         bound_j = column_solve_bound(2 * ncols, nz, "float32")
         times[f"column_solve {label}"] = {
             "backward": (min(kb), min(pb), min(lb)) + bound_b,
-            "jvp": (min(kj), min(pj), None) + bound_j}
+            "jvp": (min(kj), min(pj), min(lj)) + bound_j}
         lines.append(
             f"column solve {label}: backward rel err f64 {e64['backward']:.2e}, f32 "
             f"{e32['backward']:.2e} (plain f32 {e32['backward_plain']:.2e}); jvp f64 "
             f"{e64['jvp']:.2e}, f32 {e32['jvp']:.2e} (plain f32 {e32['jvp_plain']:.2e}); "
             f"device ms backward kernel {min(kb):.5f} vs autograd of the plain map "
             f"{min(pb):.5f} vs library {min(lb):.5f} (bound {bound_b[0]:.5f} {bound_b[1]}); "
-            f"jvp kernel {min(kj):.5f} vs plain {min(pj):.5f} (bound {bound_j[0]:.5f})")
+            f"jvp kernel {min(kj):.5f} vs plain {min(pj):.5f} vs library (one matmul of the "
+            f"stacked primal and tangent) {min(lj):.5f} (bound {bound_j[0]:.5f})")
 
     for name in ("moist3d", "jw06_production"):
         nv = ANALYSIS_SHAPES[name][0]
@@ -1406,21 +1419,33 @@ def phase_kernel_gradients(tx, tti, torch, cs, ra, columns):
         k_j = lambda: jvp(lambda p: ra.rlz_analysis(p, *ops32), (x32,), (xt32,))  # noqa: E731
         p_j = lambda: jvp(lambda p: ra.rlz_analysis_plain(p, *ops32), (x32,),  # noqa: E731
                           (xt32,))
-        kb, pb = in_turns(p_b, k_b, 100, timer=queued_time_ms)
-        kj, pj = in_turns(p_j, k_j, 100, timer=queued_time_ms)
+        # the library calls: one torch.einsum over the transposed chain (the
+        # backward), one over the chain with primal and tangent stacked on the
+        # variable axis (the jvp), TF32 off
+        la, mask, an, az = ops32
+        stack = lambda o: torch.cat([o, o], 0) if o.shape[0] > 1 else o  # noqa: E731
+        x2, an2, az2 = torch.cat([x32, xt32], 0), stack(an), stack(az)
+        l_b = lambda: torch.einsum("vbkK,kl,rk,vbr,vKz->vrlz", g32, la, mask, an, az)  # noqa: E731
+        l_j = analysis_library(torch, x2, la, mask, an2, az2)
+        lib_b = l_b()
+        assert float((lib_b.double() - ref_grad).abs().max()) <= 1e-4 * float(
+            ref_grad.abs().max()), (name, "the backward's library call")
+        kb, pb, lb = in_turns(p_b, k_b, 100, timer=queued_time_ms, library=l_b)
+        kj, pj, lj = in_turns(p_j, k_j, 100, timer=queued_time_ms, library=l_j)
         shape = tuple(x.shape)
         bound_b = analysis_bound(shape, B)
         bound_j = analysis_bound((2 * shape[0],) + shape[1:], B)
-        times[f"rlz_analysis {name}"] = {"backward": (min(kb), min(pb), None) + bound_b,
-                                         "jvp": (min(kj), min(pj), None) + bound_j}
+        times[f"rlz_analysis {name}"] = {"backward": (min(kb), min(pb), min(lb)) + bound_b,
+                                         "jvp": (min(kj), min(pj), min(lj)) + bound_j}
         lines.append(
             f"analysis {name} {list(shape)}: backward (the transposed einsum chain) rel err "
             f"f64 {e64['backward']:.2e}, f32 {e32['backward']:.2e} (plain f32 "
             f"{e32['backward_plain']:.2e}); jvp f64 {e64['jvp']:.2e}, f32 {e32['jvp']:.2e} "
             f"(plain f32 {e32['jvp_plain']:.2e}); device ms backward {min(kb):.5f} vs "
-            f"autograd of the plain chain {min(pb):.5f} (bound {bound_b[0]:.5f} "
-            f"{bound_b[1]}); jvp kernel {min(kj):.5f} vs plain {min(pj):.5f} (bound "
-            f"{bound_j[0]:.5f})")
+            f"autograd of the plain chain {min(pb):.5f} vs library (one einsum over the "
+            f"transposed chain) {min(lb):.5f} (bound {bound_b[0]:.5f} {bound_b[1]}); jvp "
+            f"kernel {min(kj):.5f} vs plain {min(pj):.5f} vs library (one einsum, primal and "
+            f"tangent stacked) {min(lj):.5f} (bound {bound_j[0]:.5f})")
     for ln in lines:
         print("  " + ln, flush=True)
     say("kernel-backward-and-jvp", t0,
@@ -1567,6 +1592,20 @@ def comp_stage(torch, cs, o64, x, w, stage):
     return op, ref, tuple(o.float() for o in ops64), ts_term
 
 
+def ptxas_of(log, word):
+    """ptxas' registers, spills and shared memory of the kernels whose
+    mangled names hold ``word``, from the build's log."""
+    lines, on = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            on = word in ln
+            if on and "Compiling entry function" in ln:
+                lines.append(ln.split("'")[1] if "'" in ln else ln.strip())
+        elif on and ("registers" in ln or "spill" in ln):
+            lines.append(ln.split(":", 1)[-1].strip())
+    return lines
+
+
 def phase_comp_kernels(tx, tti, torch, cs, ra, columns):
     """The comp (bf16x3) kernels against their plain versions and f64, then
     timed; returns ({"column_solve" | "rlz_analysis": max_abs_err against the
@@ -1620,6 +1659,11 @@ def phase_comp_kernels(tx, tti, torch, cs, ra, columns):
         f"fused_column_solve at its default mode {worst['counterpart']:.3e}; two calls "
         f"bitwise equal")
 
+    from scythe_tpu_torch.ops import _build
+
+    log = _build.load().log
+    ptx = ptxas_of(log, "column_solve_comp_kernel") if log else ["library reused, not built"]
+    print("  comp column-solve body (ptxas): " + " | ".join(ptx), flush=True)
     t0 = time.perf_counter()
     cs_times = {}
     for label, ncols, nz, src in CS_COMP_TIMED:
@@ -1641,7 +1685,9 @@ def phase_comp_kernels(tx, tti, torch, cs, ra, columns):
         kb, pb, lb = in_turns(plain, kernel, 200, library=library)
         bound, by = column_solve_comp_bound(ncols, nz)
         cs_times[label] = (min(kt), min(pt), min(lt), bound, by)
-        print(f"  comp column solve {label}: device time kernel {kt} ms, plain {pt} ms, "
+        pc = cs.plan_comp(ncols, nz)
+        print(f"  comp column solve {label}: {pc}, modelled {cs.comp_cost_us(ncols, nz, pc):.3f} "
+              f"us; device time kernel {kt} ms, plain {pt} ms, "
               f"library (torch.matmul in true f32) {lt} ms; back to back kernel {kb} ms, plain "
               f"{pb} ms, library {lb} ms; bound {bound:.5f} ms ({by}), kernel at "
               f"{100.0 * bound / min(kt):.1f}% of it; rel err against the f64 chain: kernel "
@@ -1807,12 +1853,46 @@ def phase_comp_moist3d(tx, tmodel, tti, torch, cs, ra, tmp, card, out_dir):
     assert max(direct) <= COMP_DIRECT["column_solve"], direct
     assert max(errs) <= 1e-4, errs
     res["column_solve_comp_launches"] = path_launches
+
+    # semiimplicit_adjustment on use_pallas=True operators (the JAX option's
+    # counterpart: each stage a comp operator) on the same columns, as the
+    # step's corrector, the startup stage (t = 1) and AB3 (t = 3), with the
+    # run's xi, w as xi^{n+1}, w^{n+1} and tendencies from a seed; the
+    # counts reset just before it
+    op_p = tti.build_semiimplicit_ops(48, 0.0, zmax, None, pxi, model.ts, torch.float32,
+                                      "cuda", use_pallas=True)
+    assert op_p.solve.comp and op_p.solve_t1.comp
+    rng = np.random.default_rng(11)
+    tend = [torch.from_numpy(rng.normal(size=tuple(xi.shape)) * 1e-3).float().cuda()
+            for _ in range(6)]
+    zero_counts(cs, ra)
+    adj = [tti.semiimplicit_adjustment(op_p, w, xi, *tend, t) for t in (1, 3)]
+    torch.cuda.synchronize()
+    adj_launches = cs.comp_launches
+    assert (adj_launches, cs.launches) == (2, 0), (adj_launches, cs.launches)
+    # its plain version: the same corrector on the CPU, which takes the comp
+    # map's plain version (apply_column_operator_comp_plain) on the same inputs
+    op_cpu = tti.build_semiimplicit_ops(48, 0.0, zmax, None, pxi, model.ts, torch.float32,
+                                        "cpu", use_pallas=True)
+    adj_direct = []
+    for out, t in zip(adj, (1, 3)):
+        ref = tti.semiimplicit_adjustment(op_cpu, w.cpu(), xi.cpu(), *(q.cpu() for q in tend),
+                                          t)
+        assert all(torch.isfinite(o).all() for o in out)
+        adj_direct.append(rel_errs(tuple(o.cpu() for o in out),
+                                   tuple(r.double() for r in ref))[0])
+    assert max(adj_direct) <= COMP_DIRECT["column_solve"], adj_direct
+    res["use_pallas_adjustment_launches"] = adj_launches
     say("comp-column-solve-path", t0,
         f"fused_column_solve(..., mode='comp' by default) on the compensated moist3d's "
         f"[9216, 48] columns, both stages: comp kernel launches {path_launches}; against "
         f"its plain version (the same composed M, torch bf16x3) rel err "
         f"{[f'{e:.2e}' for e in direct]} (tol {COMP_DIRECT['column_solve']}); against the "
-        f"plain-mode kernel {[f'{e:.2e}' for e in errs]} (tol 1e-4)")
+        f"plain-mode kernel {[f'{e:.2e}' for e in errs]} (tol 1e-4); "
+        f"semiimplicit_adjustment on build_semiimplicit_ops(..., use_pallas=True) at t = 1 "
+        f"and 3 on the same columns: comp kernel launches {adj_launches}, against its plain "
+        f"version rel err {[f'{e:.2e}' for e in adj_direct]} (tol "
+        f"{COMP_DIRECT['column_solve']})")
     return res
 
 
@@ -2473,6 +2553,8 @@ def main(argv=None):
             "launches": cm3d["column_solve_comp_launches"],
             "launches_by_path": {"fused_column_solve_default_on_comp_moist3d":
                                  cm3d["column_solve_comp_launches"],
+                                 "semiimplicit_adjustment_use_pallas_on_comp_moist3d":
+                                 cm3d["use_pallas_adjustment_launches"],
                                  "comp_moist3d_model": cm3d["launches"]["column_solve_comp"]},
             "max_abs_err": comp_errs["column_solve"],
             "max_abs_err_vs_f64": comp_errs["column_solve_vs_f64"],

@@ -58,18 +58,22 @@ def _nvcc() -> str:
     return found
 
 
-# scythe_column_solve_f32 / _f64 / _comp: x, w, packed M, w_out, xi_out; ncols nz;
-# the plan (ops/column_solve.py): RG KSLAB ST, threads, smem, blocks; stream
+# scythe_column_solve_f32 / _f64: x, w, packed M, w_out, xi_out; ncols nz;
+# the plan (ops/column_solve.py plan): RG KSLAB ST, threads, smem, blocks; stream
 COLUMN_SOLVE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# scythe_column_solve_comp: the same but its plan (ops/column_solve.py
+# plan_comp): SPAN NSPLIT RG NTW, threads, smem, blocks
+COLUMN_SOLVE_COMP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("scythe_column_solve_f32", "scythe_column_solve_f64",
-                 "scythe_column_solve_comp"):
+    for name in ("scythe_column_solve_f32", "scythe_column_solve_f64"):
         fn = getattr(lib, name)
         fn.argtypes = COLUMN_SOLVE_ARGTYPES
         fn.restype = i32
+    lib.scythe_column_solve_comp.argtypes = COLUMN_SOLVE_COMP_ARGTYPES
+    lib.scythe_column_solve_comp.restype = i32
     for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64"):
         fn = getattr(lib, name)
         # x, l_analysis, ring_mask, analysis_r, analysis_z, out; V R L Z B;

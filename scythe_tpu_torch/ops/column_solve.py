@@ -45,12 +45,16 @@ the bf16x3 product, float32 only.  The port's chain is one composed M, so
 the comp mode splits the composed M (and the activations [x* | w*]) into
 bf16 hi/lo parts, rounded to nearest even, and forms hi·hi + lo·hi + hi·lo
 with f32 accumulation: ``column_operator(..., mode="comp")`` packs M's
-bf16 split (``pack_operator(M, float32, "bf16")``) and the kernel splits the
-activations by bf16 instead of TF32.  Splitting the composed M and not the
-five operators differs from the TPU kernel by bf16x3-sized rounding
-(tests/test_torch_column_solve.py holds it at the JAX test's comp bar).  On
-the CPU its plain version is the same map in f32 arithmetic
-(``apply_column_operator_comp_plain``).
+bf16 split in the bf16 tensor cores' fragment order (``pack_operator(M,
+float32, "bf16")``) and the comp kernel, a body of its own on ``mma.sync
+m16n8k16`` bf16 (``csrc/column_solve.cu``, its comp section), splits each
+16-column tile of the activations once.  Its tiles come from ``plan_comp``:
+a block a contiguous range of columns, row groups of warps taking its
+16-column tiles, bulk copies in, stores from the registers.  Splitting the
+composed M and not the five operators differs from the TPU kernel by
+bf16x3-sized rounding (tests/test_torch_column_solve.py holds it at the JAX
+test's comp bar).  On the CPU its plain version is the same map in f32
+arithmetic (``apply_column_operator_comp_plain``).
 Every wrapper checks its inputs and has no fallback: on a CUDA tensor it
 launches the kernel or raises.  Both wrappers go through ``ColumnSolveFn``,
 a ``torch.autograd.Function`` whose backward is the same kernel on M^T
@@ -64,12 +68,13 @@ kernel in each.  ``launches`` counts the plain kernel's launches with M,
 from __future__ import annotations
 
 import functools
+import itertools
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from .bf16x3 import bf16_round, comp_einsum, split_op
+from .bf16x3 import comp_einsum, split_op
 
 # largest nz the kernel takes (column_solve.cu kMaxNz): beyond what fits
 # beside the ring, M streams through shared memory in K slabs
@@ -94,6 +99,11 @@ PLAN_ERRORS = {
 }
 
 MODES = ("plain", "comp")
+
+# the comp kernel (column_solve.cu, its comp section)
+COMP_MAX_THREADS = 512  # a block (its launch bounds: 128 registers a thread)
+COMP_MAX_REGS = 128
+COMP_MAX_RG = 8  # row groups a block
 
 launches = 0  # forward (and jvp) launches: the operator M
 backward_launches = 0  # backward launches: M^T
@@ -203,6 +213,114 @@ def _plan(ncols: int, nz: int, dtype) -> Plan:
     return Plan(rg=rg, kslab=kslab, st=st, threads=threads, smem=smem, blocks=blocks)
 
 
+@dataclass(frozen=True)
+class CompPlan:
+    """One launch of the comp kernel.  Block b takes the contiguous columns
+    [span (b // nsplit), span (b // nsplit + 1)) and, with ``nsplit`` 2, only
+    w (b even) or xi (b odd) of them, with that half of M resident; its
+    16-column tiles go to ``rg`` row groups of ceil(N / nsplit / 8 / ntw)
+    warps (``ntw`` 8-wide output tiles a warp), group r taking tiles r, r +
+    rg, ..., one raw tile in flight at a time.  ``smem``: bytes of dynamic
+    shared memory a block, as the kernel lays them out."""
+
+    span: int
+    nsplit: int
+    rg: int
+    ntw: int
+    threads: int
+    smem: int
+    blocks: int
+
+
+def comp_smem_bytes(nz: int, nsplit: int, rg: int) -> int:
+    """The comp kernel's shared memory: BARRIER_BYTES, M's part (16-byte
+    fragment slots [K / 8 / nsplit][K / 16][32]), then per row group its
+    raw tile (x* and w*, [16][nz] f32 each) and its bf16 hi and lo A tiles
+    [16][K + 8]."""
+    K = 2 * _up8(nz)
+    m_bytes = (K // 8 // nsplit) * (K // 16) * 32 * 16
+    return BARRIER_BYTES + m_bytes + rg * (2 * TILE * nz * 4 + 2 * TILE * (K + 8) * 2)
+
+
+# the comp plan's cost model, fitted to the comp body's clock64 marks on an
+# H100 (PERF.md §6): a queued launch ~1.7 us; a block's set-up and its
+# first copies' landing ~1,700 clocks; then per tile of a row group the split
+# pass (~250 clocks and ~120 a quad of K a thread), the products (a warp's
+# 16-deep K steps at ~100 clocks and ~25 an output tile each, or the SM's
+# tensor cores at ~10 clocks an m16n8k16 over its 4 sub-partitions, whichever
+# is longer) and the outputs (~500); HBM at 3.35 TB/s for the card, ~1/66 of
+# it for one SM; ~1.9 GHz
+COMP_CLOCK_GHZ = 1.9
+COMP_LAUNCH_US = 1.7
+COMP_SETUP_CLOCKS = 1700
+HBM_GB_S = 3350.0
+SM_GB_S = HBM_GB_S / 66
+
+
+def comp_cost_us(ncols: int, nz: int, p: CompPlan) -> float:
+    """The comp kernel's time at this plan by the model above: launch, then
+    the larger of the HBM time (the card's, and the busiest SM's share: its
+    columns in and its outputs out, a read of the other N part's columns
+    counted as from HBM) and the busiest block's clocks (set-up, then its
+    row groups' tiles one after another, the groups side by side)."""
+    K = 2 * _up8(nz)
+    nb8 = K // 8 // p.nsplit
+    warps = _cdiv(nb8, p.ntw)
+    tg = 32 * warps
+    cols = min(p.span, ncols)
+    tiles = _cdiv(cols, TILE)
+    per_group = _cdiv(tiles, p.rg)
+    col_bytes = nz * 4 * (2 + 2 / p.nsplit)
+    t_hbm = max(ncols * p.nsplit * col_bytes / (HBM_GB_S * 1e3),
+                cols * col_bytes / (SM_GB_S * 1e3))
+    ks = K // 16
+    split = 250 + 120 * _cdiv(TILE * K // 4, tg)
+    chain = ks * (100 + 25 * p.ntw)
+    tensor = 10 * min(p.rg, tiles) * warps * ks * p.ntw * 3 / 4
+    clocks = COMP_SETUP_CLOCKS + per_group * (split + max(chain, tensor) + 500)
+    return COMP_LAUNCH_US + max(t_hbm, clocks / (COMP_CLOCK_GHZ * 1e3))
+
+
+def plan_comp(ncols: int, nz: int) -> CompPlan:
+    """The comp kernel's tiles at this shape; pure Python, the plan's only
+    home (cached).
+
+    * N whole or halved (nsplit 1 or 2; halved where M does not fit
+      beside a row group).
+    * A block's columns: a multiple of 4, so every tile but the very last
+      is whole 16-byte units for the bulk copies, over at most 132 / nsplit
+      ranges, so no SM moves more than 4 columns over its share (the tail
+      16-column tiles would leave: 576 tiles over 132 SMs at 9216 columns).
+    * ntw 2 or 4 output tiles a warp (the last warp of a group may have
+      fewer).
+    * Row groups: up to one a tile of the block, within 512 threads and
+      shared memory.
+    Of the plans that fit, the one ``comp_cost_us`` ranks first."""
+    return _plan_comp(int(ncols), int(nz))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_comp(ncols: int, nz: int) -> CompPlan:
+    K = 2 * _up8(nz)
+    quads = _cdiv(ncols, 4)
+    best, best_cost = None, None
+    for nsplit, ntw in itertools.product((1, 2), (4, 2)):
+        nb8 = K // 8 // nsplit
+        tg = 32 * _cdiv(nb8, ntw)
+        span = 4 * _cdiv(quads, NUM_SMS // nsplit)
+        tiles = _cdiv(min(span, ncols), TILE)
+        for rg in range(1, min(COMP_MAX_RG, tiles, COMP_MAX_THREADS // tg) + 1):
+            smem = comp_smem_bytes(nz, nsplit, rg)
+            if smem > SMEM_MAX:
+                break
+            p = CompPlan(span=span, nsplit=nsplit, rg=rg, ntw=ntw, threads=rg * tg, smem=smem,
+                         blocks=nsplit * _cdiv(ncols, span))
+            cost = comp_cost_us(ncols, nz, p)
+            if best is None or cost < best_cost:
+                best, best_cost = p, cost
+    return best
+
+
 def compose_column_operator(F, Dz, Hinv, S, Ds, ts_term, pxi_bar) -> torch.Tensor:
     """The chain as one [2nz, 2nz] matrix M, ``[w | xi] = [x* | w*] M^T``.
 
@@ -238,27 +356,47 @@ def tf32_round(v: torch.Tensor) -> torch.Tensor:
 
 def pack_operator(M: torch.Tensor, dtype, split: str = "tf32") -> torch.Tensor:
     """M [2nz, 2nz] in the order the kernel's tensor-core fragments read it,
-    one 16-byte slot a lane: [K/8, K/8, 32, 2] float64 or [K/8, K/8, 32, 4]
-    float32 (K = 2 up8(nz), each half of M zero-padded to up8(nz)), indexed
-    [k-step kb, output tile nt, lane g*4 + t] -> M[8 nt + g][8 kb + t] and
-    M[8 nt + g][8 kb + 4 + t]; at float32 those two as hi = round(v) and
-    then lo = round(v - hi), v = float32(M), split once here: ``split``
-    "tf32" (tf32_round, the plain kernel) or "bf16" (bf16_round, the comp
-    kernel: the TPU kernel's bf16 split, as its __float2bfloat16_rn)."""
+    one 16-byte slot a lane (K = 2 up8(nz), each half of M zero-padded to
+    up8(nz)).
+
+    ``split`` "tf32" (the plain kernel): [K/8, K/8, 32, 2] float64 or
+    [K/8, K/8, 32, 4] float32, indexed [k-step kb, output tile nt, lane g*4
+    + t] -> M[8 nt + g][8 kb + t] and M[8 nt + g][8 kb + 4 + t] (m16n8k8's B
+    fragment); at float32 those two as hi = tf32_round(v) and then lo =
+    tf32_round(v - hi), v = float32(M), split once here.
+
+    ``split`` "bf16" (the comp kernel, float32 only): [K/8, K/16, 32, 8]
+    bfloat16, n-tile major (a block of the kernel reads a contiguous run of
+    output tiles), indexed [output tile nt, k-step ks, lane g*4 + t] -> M's
+    row n = 8 nt + g at k = 16 ks + (2t, 2t + 1, 2t + 8, 2t + 9) (m16n8k16's
+    B fragment b0, b1: two bf16 pairs), their hi = bf16(v), then their lo =
+    bf16(v - hi), each rounded to nearest even, as the TPU kernel's _split
+    (astype) and __float2bfloat16_rn.  K is a multiple of 16, so no padding
+    beyond the halves'; where up8(nz) is an odd multiple of 8 a 16-deep
+    step spans both halves, the padded layout the kernel's A tiles share."""
     nz = M.shape[0] // 2
     kh = _up8(nz)
     nt = 2 * kh // 8
     idx = torch.cat([torch.arange(nz), kh + torch.arange(nz)]).to(M.device)
     mp = torch.zeros((2 * kh, 2 * kh), dtype=torch.float64, device=M.device)
     mp[idx[:, None], idx[None, :]] = M.to(torch.float64)
+    if split == "bf16":
+        if dtype != torch.float32:
+            raise ValueError(f"the comp mode runs in float32, got {dtype}")
+        v = mp.to(torch.float32)
+        hi = v.to(torch.bfloat16)
+        lo = (v - hi.to(torch.float32)).to(torch.bfloat16)
+        # n = 8 nt + g, k = 16 ks + 8 h + 2 t + e  ->  [nt, ks, g, t, h, e]
+        frags = [o.view(nt, 8, nt // 2, 2, 4, 2).permute(0, 2, 1, 4, 3, 5).reshape(
+            nt, nt // 2, 32, 4) for o in (hi, lo)]
+        return torch.cat(frags, dim=-1).contiguous()
     # n = 8 nt + g, k = 8 kb + 4 h + t  ->  [kb, nt, g, t, h]
     frag = mp.view(nt, 8, nt, 2, 4).permute(2, 0, 1, 4, 3).reshape(nt, nt, 32, 2)
     if dtype == torch.float64:
         return frag.contiguous()
     v = frag.to(torch.float32)
-    rnd = {"tf32": tf32_round, "bf16": bf16_round}[split]
-    hi = rnd(v)
-    return torch.cat([hi, rnd(v - hi)], dim=-1).contiguous()
+    hi = tf32_round(v)
+    return torch.cat([hi, tf32_round(v - hi)], dim=-1).contiguous()
 
 
 class ColumnOperator(NamedTuple):
@@ -375,31 +513,37 @@ def _launch(xstar, wstar, packed, transposed=False, comp=False):
         )
     ncols, nz = xstar.shape
     nt = 2 * _up8(nz) // 8
-    want = (nt, nt, 32, 4 if xstar.dtype == torch.float32 else 2)
-    if (tuple(packed.shape) != want or packed.dtype != xstar.dtype
-            or packed.device != xstar.device or not packed.is_contiguous()):
-        raise ValueError(
-            f"packed must be pack_operator(M, {xstar.dtype}) on {xstar.device}, "
-            f"{list(want)}; got {packed.dtype} {list(packed.shape)} on {packed.device}"
-        )
     if comp and xstar.dtype != torch.float32:
         raise ValueError(f"the comp mode runs in float32, got {xstar.dtype}")
-    p = plan(ncols, nz, xstar.dtype)
+    if comp:
+        want, want_dtype, split = (nt, nt // 2, 32, 8), torch.bfloat16, ', "bf16"'
+    else:
+        want = (nt, nt, 32, 4 if xstar.dtype == torch.float32 else 2)
+        want_dtype, split = xstar.dtype, ""
+    if (tuple(packed.shape) != want or packed.dtype != want_dtype
+            or packed.device != xstar.device or not packed.is_contiguous()):
+        raise ValueError(
+            f"packed must be pack_operator(M, {xstar.dtype}{split}) on {xstar.device}, "
+            f"{want_dtype} {list(want)}; got {packed.dtype} {list(packed.shape)} on "
+            f"{packed.device}"
+        )
     lib = load().lib
     if comp:
+        p = plan_comp(ncols, nz)
         fn = lib.scythe_column_solve_comp
-    elif xstar.dtype == torch.float32:
-        fn = lib.scythe_column_solve_f32
+        fields = (p.span, p.nsplit, p.rg, p.ntw, p.threads, p.smem, p.blocks)
     else:
-        fn = lib.scythe_column_solve_f64
+        p = plan(ncols, nz, xstar.dtype)
+        fn = lib.scythe_column_solve_f32 if xstar.dtype == torch.float32 else (
+            lib.scythe_column_solve_f64)
+        fields = (p.rg, p.kslab, p.st, p.threads, p.smem, p.blocks)
     w_out = torch.empty_like(xstar)
     xi_out = torch.empty_like(xstar)
     with torch.cuda.device(xstar.device):
         stream = torch.cuda.current_stream(xstar.device).cuda_stream
         err = fn(
             xstar.data_ptr(), wstar.data_ptr(), packed.data_ptr(),
-            w_out.data_ptr(), xi_out.data_ptr(), ncols, nz,
-            p.rg, p.kslab, p.st, p.threads, p.smem, p.blocks, stream,
+            w_out.data_ptr(), xi_out.data_ptr(), ncols, nz, *fields, stream,
         )
     if err != 0:
         msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()

@@ -116,7 +116,7 @@ class SemiImplicitOps(NamedTuple):
 
 
 def build_semiimplicit_ops(
-    nz, zmin, zmax, bdim, pxi_bar, ts, dtype, device: Any
+    nz, zmin, zmax, bdim, pxi_bar, ts, dtype, device: Any, use_pallas: bool | None = None
 ) -> SemiImplicitOps:
     """Operators built in float64, composed per stage in float64, then cast
     to ``dtype`` on ``device`` (the grid's: no default).  ``pxi_bar`` is the
@@ -125,7 +125,21 @@ def build_semiimplicit_ops(
     then take the local coefficient.  Either way each stage is one composed
     operator, so the kernel computes both modes; the JAX package refuses a
     profile on its Pallas path and takes its einsum chain for it, where the
-    port takes its kernel by design."""
+    port takes its kernel by design.
+
+    ``use_pallas`` mirrors the JAX package's: True builds each stage as a
+    comp operator (``column_solve.column_operator(..., mode="comp")``), so
+    ``semiimplicit_adjustment`` applies the bf16x3 product of the TPU
+    function's default mode (the comp kernel on the card, its plain version
+    on the CPU; float32 only); as in JAX it refuses a Pxi profile.  None
+    (the default) means False: the plain operator."""
+    if use_pallas and np.ndim(pxi_bar) > 0:
+        raise ValueError(
+            "the fused column solve's comp mode (use_pallas=True) supports only "
+            "the constant-coefficient mode (scalar pxi), as the JAX package's "
+            "Pallas path; si_mode='variable' uses the plain operator"
+        )
+    mode = "comp" if use_pallas else "plain"
     if np.ndim(pxi_bar) > 0:
         pxi_bar = np.asarray(pxi_bar, np.float64)
         if pxi_bar.shape != (nz,):
@@ -152,7 +166,7 @@ def build_semiimplicit_ops(
             f64["col_filter"], f64["col_deriv"], hinv, f64["synth"], f64["dsynth"],
             ts_term, pxi_bar,
         )
-        return column_solve.column_operator(m, dtype, device)
+        return column_solve.column_operator(m, dtype, device, mode)
 
     return SemiImplicitOps(
         **{k: v.to(dtype=dtype, device=device) for k, v in f64.items()},

@@ -18,10 +18,12 @@ error against the f64 chain (the rule chip_smoke.py applies on the card).
 The comp mode (the TPU function's default, ``_kernel_comp``: bf16x3 products,
 here of the composed M) against the Pallas kernel in interpret mode with
 mode="comp" at tests/test_pallas_semiimplicit.py's comp bar (atol 1e-2 of
-max|ref|, rtol 1e-4) and against the f64 chain; its packing (M's bf16
-split, the JAX package's _split bit for bit) and the same emulation with
-the bf16 split of the activations against its plain version, and its
-autograd rules."""
+max|ref|, rtol 1e-4) and against the f64 chain, directly and through
+semiimplicit_adjustment with use_pallas=True (the JAX option's counterpart);
+its packing (M's bf16 split in the m16n8k16 fragment order, the JAX
+package's _split bit for bit), its plan (plan_comp: fits, covers every
+column once) and an emulation of its own body block by block against its
+plain version, and its autograd rules."""
 
 import itertools
 
@@ -365,7 +367,7 @@ def test_plan_meets_its_goals_at_the_main_path_shapes():
 _tf32 = column_solve.tf32_round
 
 
-def _emulate(x, w, packed, p, rnd=None):
+def _emulate(x, w, packed, p):
     """The kernel's decomposition, block by block in its order: for each
     persistent block and row group, its column tiles; for each tile the K
     slabs
@@ -374,9 +376,7 @@ def _emulate(x, w, packed, p, rnd=None):
     hi(a) lo(b) each into its own accumulator, one for even and one for odd
     K steps of a slab; hi(a) hi(b) summed over the two K steps of a trip
     and added to a third; each product summed in f64 and rounded to f32).
-    ``rnd``: the activations' split (the comp kernel's: the bf16 one).
     Returns (w, xi) and how often each padded output was written."""
-    rnd = rnd or _tf32
     ncols, nz = x.shape
     kh = _ceil(nz, 8) * 8
     K = 2 * kh
@@ -405,8 +405,8 @@ def _emulate(x, w, packed, p, rnd=None):
                         continue
                     b_hi = bk[:2].reshape(8, K).double()
                     b_lo = bk[2:].reshape(8, K).double()
-                    a_hi = rnd(ak)
-                    a_lo = rnd(ak - a_hi).double()
+                    a_hi = _tf32(ak)
+                    a_lo = _tf32(ak - a_hi).double()
                     a_hi = a_hi.double()
                     q = (kb - kb0) % 2
                     lh[q] = (lh[q].double() + a_lo @ b_hi).float()
@@ -561,46 +561,114 @@ def test_comp_matches_pallas_comp_interpret(nz, ncols, stage):
         assert _rel_err(g.double(), r) <= 5e-5
 
 
+def _unpack_comp(packed):
+    """(B_hi, B_lo) [K, N] float64, B[k][n] = M[n][k] padded, from the comp
+    packing: slot [nt, ks, g*4 + t] holds (hi, lo) x (h, e) of k = 16 ks +
+    8 h + 2 t + e, n = 8 nt + g."""
+    nt, ks = packed.shape[:2]
+    f = packed.double().reshape(nt, ks, 8, 4, 2, 2, 2)  # nt ks g t part h e
+    b = f.permute(4, 1, 5, 3, 6, 0, 2).reshape(2, 16 * ks, 8 * nt)
+    return b[0], b[1]
+
+
 def test_comp_pack_operator_is_the_bf16_split():
-    """The comp packing holds M's bf16 split in the fragment order: hi and
-    lo bf16 values, hi equal to the JAX package's _split of float32(M) bit
-    for bit, hi + lo within 2^-16 of float32(M)."""
+    """The comp packing holds M's bf16 split in the m16n8k16 B-fragment
+    order, n-tile major: hi and lo equal to the JAX package's _split of
+    float32(M) bit for bit, each half of M zero-padded to up8(nz), hi + lo
+    within 2^-16 of float32(M).  nz 13 (up8 16) and nz 20 (up8 24: a 16-deep
+    K step spans the x*/w* seam)."""
     from scythe_tpu.ops.pallas_semiimplicit import _split
 
-    m = torch.from_numpy(np.random.default_rng(8).normal(size=(26, 26)))
+    for nz in (13, 20):
+        kh = _ceil(nz, 8) * 8
+        m = torch.from_numpy(np.random.default_rng(8).normal(size=(2 * nz, 2 * nz)))
+        p32 = column_solve.pack_operator(m, torch.float32, "bf16")
+        assert p32.dtype == torch.bfloat16 and p32.shape == (kh // 4, kh // 8, 32, 8)
+        bh, bl = _unpack_comp(p32)
+        jh, jl = (torch.from_numpy(np.asarray(o, np.float64)) for o in _split(jnp.asarray(
+            m.numpy())))
+        idx = torch.cat([torch.arange(nz), kh + torch.arange(nz)])
+        for b, j in ((bh, jh), (bl, jl)):
+            want = torch.zeros((2 * kh, 2 * kh), dtype=torch.float64)
+            want[idx[:, None], idx[None, :]] = j.T
+            assert torch.equal(b, want)
+        hi, lo = bh[idx[:, None], idx[None, :]].T, bl[idx[:, None], idx[None, :]].T
+        assert torch.equal(hi, bf16_round(hi.float()).double())
+        assert ((hi + lo) - m.float().double()).abs().max() <= 2.0 ** -16 * m.abs().max()
+    # the slot of lane g*4 + t: b0 = M[n][16 ks + 2t, +1], b1 = M[n][16 ks + 2t + 8,
+    # +9], hi then lo (integers to 1024: hi + lo is exact)
+    m = torch.arange(1.0, 1025.0, dtype=torch.float64).reshape(32, 32)
     p32 = column_solve.pack_operator(m, torch.float32, "bf16")
-    tf = column_solve.pack_operator(m, torch.float32)
-    f64 = column_solve.pack_operator(m, torch.float64)
-    hi, lo = p32[..., :2], p32[..., 2:]
-    assert torch.equal(hi, bf16_round(hi))
-    assert torch.equal(lo, bf16_round(lo))
-    assert ((hi.double() + lo.double()) - f64.float().double()).abs().max() <= (
-        2.0 ** -16 * m.abs().max())
-    assert not torch.equal(p32, tf)
-    jh, jl = _split(jnp.asarray(m.numpy()))
-    idx = f64.double()  # the slot of M[n][k] holds n, k as in the plain packing
-    mh = column_solve.pack_operator(torch.from_numpy(np.asarray(jh, np.float64)),
-                                    torch.float64)
-    ml = column_solve.pack_operator(torch.from_numpy(np.asarray(jl, np.float64)),
-                                    torch.float64)
-    assert idx.shape == mh.shape
-    assert torch.equal(hi.double(), mh) and torch.equal(lo.double(), ml)
+    for nt, ks, lane in itertools.product(range(4), range(2), range(32)):
+        g, t = divmod(lane, 4)
+        n, k = 8 * nt + g, 16 * ks + 2 * t
+        got = p32[nt, ks, lane].double()
+        assert (got[:4] + got[4:]).tolist() == [
+            m[n, k].item(), m[n, k + 1].item(), m[n, k + 8].item(), m[n, k + 9].item()]
 
 
-@pytest.mark.parametrize("ncols,nz", [(37, 13), (1200, 24), (9216, 48), (300, 128)])
+def _emulate_comp(x, w, packed, p):
+    """The comp kernel's body, block by block in its order: for each block
+    (its column range and N part) and row group, its 16-column tiles; each
+    tile's [x* | w*] split once into bf16 hi and lo (the padded layout, zero
+    past nz and past the tile's rows), then for each 16-deep K step, with B
+    read from the packed fragments: hi·hi from zero (summed in f64, rounded
+    to f32, as the tensor cores' product of one instruction) added to its
+    f32 sum in round to nearest; lo·hi and hi·lo each accumulated in an f32
+    accumulator of its own; out = hh + (lh + hl).  Returns (w, xi) and how
+    often each output was written."""
+    ncols, nz = x.shape
+    kh = _ceil(nz, 8) * 8
+    K = 2 * kh
+    nb = K // p.nsplit
+    a_all = torch.zeros((ncols, K), dtype=torch.float32)
+    a_all[:, :nz], a_all[:, kh:kh + nz] = x, w
+    out = torch.full((ncols, K), float("nan"), dtype=torch.float32)
+    hits = torch.zeros((ncols, K), dtype=torch.int64)
+    bh, bl = _unpack_comp(packed)
+    for b in range(p.blocks):
+        part = b % p.nsplit
+        lo = (b // p.nsplit) * p.span
+        hi = min(ncols, lo + p.span)
+        n_cols = slice(part * nb, (part + 1) * nb)
+        for r in range(p.rg):
+            for tile in range(r, _ceil(hi - lo, 16), p.rg):
+                rows = slice(lo + 16 * tile, min(hi, lo + 16 * (tile + 1)))
+                a = torch.zeros((16, K), dtype=torch.float32)
+                a[: rows.stop - rows.start] = a_all[rows]
+                a_hi = bf16_round(a)
+                a_lo = bf16_round(a - a_hi).double()
+                a_hi = a_hi.double()
+                hh, lh, hl = (torch.zeros((16, nb), dtype=torch.float32) for _ in range(3))
+                for ks in range(K // 16):
+                    k = slice(16 * ks, 16 * (ks + 1))
+                    hh = hh + (a_hi[:, k] @ bh[k, n_cols]).float()
+                    lh = (lh.double() + a_lo[:, k] @ bh[k, n_cols]).float()
+                    hl = (hl.double() + a_hi[:, k] @ bl[k, n_cols]).float()
+                n = rows.stop - rows.start
+                out[rows, n_cols] = (hh + (lh + hl))[:n]
+                hits[rows, n_cols] += 1
+    return (out[:, :nz], out[:, kh:kh + nz]), hits[:, torch.cat(
+        [torch.arange(nz), kh + torch.arange(nz)])]
+
+
+@pytest.mark.parametrize("ncols,nz", [(37, 13), (1200, 24), (9216, 48), (300, 128),
+                                     (37, 20), (1201, 20), (13824, 24)])
 def test_comp_decomposition_matches_plain_comp(ncols, nz):
-    """The comp kernel's decomposition (the plain kernel's, with the bf16
-    split of M's packing and of the activations) against its plain version
-    (apply_column_operator_comp_plain): the same products summed in another
-    order, so within 1e-6 of max|ref| (f32 round-off); every output once."""
+    """The comp kernel's decomposition (its own plan, plan_comp, and its
+    m16n8k16 packing, emulated block by block: _emulate_comp) against its
+    plain version (apply_column_operator_comp_plain): the same products
+    summed in another order, so within 1e-6 of max|ref| (f32 round-off);
+    every output once.  nz 20: a 16-deep K step spans the x*/w* seam; nz
+    128: N split in two; 1201 columns: a last tile not whole 16-byte units."""
     ot = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, 9.0e4, 0.15, torch.float64,
                                     "cpu")
     op = column_solve.column_operator(ot.solve.M, torch.float32, "cpu", "comp")
     assert op.comp and torch.equal(op.packed, column_solve.pack_operator(
         ot.solve.M, torch.float32, "bf16"))
     x, w = (t.float() for t in _columns(ncols, nz, ncols + nz + 1))
-    p = column_solve.plan(ncols, nz, torch.float32)
-    got, hits = _emulate(x, w, op.packed, p, rnd=bf16_round)
+    p = column_solve.plan_comp(ncols, nz)
+    got, hits = _emulate_comp(x, w, op.packed, p)
     ref = column_solve.apply_column_operator_comp_plain(x, w, op.M)
     assert torch.equal(hits, torch.ones_like(hits)), p
     assert _max_rel(got, tuple(r.double() for r in ref)) <= 1e-6
@@ -643,3 +711,123 @@ def test_comp_autograd_rules_take_the_comp_map():
     for i in range(2):
         one = column_solve.apply_column_operator(xb[i], wb[i], op)
         assert torch.equal(vm[0][i], one[0]) and torch.equal(vm[1][i], one[1])
+
+
+PLAN_COMP_NCOLS = (1, 37, 1200, 9216, 13824)
+
+
+@pytest.mark.parametrize("ncols", PLAN_COMP_NCOLS)
+def test_comp_plan_fits_the_card_and_covers_every_column(ncols):
+    """plan_comp at nz 3-128: its shared memory is the kernel's layout and
+    fits 232,448 bytes, its threads the register budget (128 a thread, one
+    block an SM, one wave), its barriers their 256 bytes, and its blocks and
+    row groups cover every column of every N part once, no block more than
+    4 columns over its share."""
+    for nz in range(3, column_solve.MAX_NZ + 1):
+        p = column_solve.plan_comp(ncols, nz)
+        where = (ncols, nz, p)
+        nb8 = 2 * _ceil(nz, 8) // p.nsplit
+        assert p.smem == column_solve.comp_smem_bytes(nz, p.nsplit, p.rg), where
+        assert p.smem <= column_solve.SMEM_MAX, where
+        assert p.nsplit in (1, 2) and p.ntw in (2, 4) and p.span % 4 == 0, where
+        assert p.threads == p.rg * 32 * _ceil(nb8, p.ntw) <= column_solve.COMP_MAX_THREADS
+        assert p.threads * column_solve.COMP_MAX_REGS <= column_solve.REGS_SM, where
+        assert 1 + p.rg <= column_solve.BARRIER_BYTES // 8, where
+        assert 1 <= p.rg <= min(column_solve.COMP_MAX_RG, _ceil(min(p.span, ncols), 16))
+        assert p.blocks == p.nsplit * _ceil(ncols, p.span) <= column_solve.NUM_SMS, where
+        ranges = column_solve.NUM_SMS // p.nsplit
+        assert p.span <= (ncols + 3) / ranges + 4, where
+        hits = np.zeros((ncols, p.nsplit), dtype=np.int64)
+        for b in range(p.blocks):
+            lo = (b // p.nsplit) * p.span
+            hi = min(ncols, lo + p.span)
+            for r in range(p.rg):
+                for tile in range(r, _ceil(hi - lo, 16), p.rg):
+                    hits[lo + 16 * tile:min(hi, lo + 16 * (tile + 1)), b % p.nsplit] += 1
+        assert (hits == 1).all(), where
+
+
+def test_comp_plan_at_the_main_path_shapes():
+    """The timed shapes: one block a contiguous run of columns, 72 at
+    moist3d (128 blocks, against 576 tiles of 16 over 132 SMs), M resident
+    and N whole, a row group for every tile; nz 128 splits N in two."""
+    moist3d = column_solve.plan_comp(9216, 48)
+    assert (moist3d.span, moist3d.blocks, moist3d.nsplit) == (72, 128, 1)
+    assert moist3d.rg == 5
+    jw06 = column_solve.plan_comp(13824, 24)
+    assert jw06.span == 108 and jw06.rg == 7
+    assert column_solve.plan_comp(9216, 128).nsplit == 2
+
+
+def _adjust_args(nz, ncols, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(ncols, nz)) for _ in range(8)]
+
+
+@pytest.mark.parametrize("t", [1, 2, 5])
+@pytest.mark.parametrize("nz,ncols", [(24, 37), (40, 96)])
+def test_use_pallas_adjustment_matches_pallas_comp_interpret(monkeypatch, nz, ncols, t):
+    """build_semiimplicit_ops(..., use_pallas=True): semiimplicit_adjustment
+    applies the comp map (on the CPU the comp kernel's plain version) and
+    matches the JAX package's adjustment with use_pallas=True, whose Pallas
+    comp kernel runs here in interpret mode, at the JAX test's comp bar
+    (atol 1e-2 of max|ref|, rtol 1e-4), and the f64 chain within 5e-5 of
+    max|ref| (as test_comp_matches_pallas_comp_interpret)."""
+    import functools
+
+    from scythe_tpu.ops import pallas_semiimplicit
+
+    monkeypatch.setattr(pallas_semiimplicit, "fused_column_solve",
+                        functools.partial(pallas_solve, interpret=True))
+    ts, pxi = 0.2, 9.0e4
+    oj = jti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, jnp.float32,
+                                    use_pallas=True)
+    ot = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float32, "cpu",
+                                    use_pallas=True)
+    o64 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float64, "cpu")
+    assert oj.use_pallas and ot.solve.comp and ot.solve_t1.comp
+    args = _adjust_args(nz, ncols, nz + t)
+    wj, xj = jti.semiimplicit_adjustment(oj, *(jnp.asarray(a, jnp.float32) for a in args),
+                                         jnp.asarray(t))
+    before = column_solve.comp_launches
+    got = tti.semiimplicit_adjustment(ot, *(torch.from_numpy(a).float() for a in args), t)
+    assert column_solve.comp_launches == before  # the CPU takes the plain version
+    ref = tti.semiimplicit_adjustment(o64, *map(torch.from_numpy, args), t)
+    plain32 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float32,
+                                         "cpu")
+    plain = tti.semiimplicit_adjustment(plain32, *(torch.from_numpy(a).float() for a in args), t)
+    for g, k, r, q in zip(got, (wj, xj), ref, plain):
+        k = np.asarray(k)
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.double().numpy(), k, atol=1e-2 * np.abs(k).max(),
+                                   rtol=1e-4)
+        assert _rel_err(g.double(), r) <= 5e-5
+        assert not torch.equal(g, q)  # the comp map, not the plain operator
+
+
+def test_use_pallas_refuses_a_profile():
+    """As the JAX package: the comp route takes a scalar Pxi only."""
+    with pytest.raises(ValueError, match="scalar pxi"):
+        tti.build_semiimplicit_ops(16, 0.0, 1.0e4, None, _profile(16), 0.2, torch.float32,
+                                   "cpu", use_pallas=True)
+    with pytest.raises(ValueError, match="scalar pxi"):
+        jti.build_semiimplicit_ops(16, 0.0, 1.0e4, None, _profile(16), 0.2, jnp.float32,
+                                   use_pallas=True)
+
+
+@pytest.mark.parametrize("use_pallas", [None, False])
+def test_use_pallas_default_takes_the_plain_operator(use_pallas):
+    """None (the default) and False build the plain operators, so default
+    runs are unchanged: the adjustment equals the one built without the
+    keyword, bit for bit."""
+    kw = {} if use_pallas is None else {"use_pallas": use_pallas}
+    o = tti.build_semiimplicit_ops(24, 0.0, 1.0e4, None, 9.0e4, 0.2, torch.float32, "cpu",
+                                   **kw)
+    base = tti.build_semiimplicit_ops(24, 0.0, 1.0e4, None, 9.0e4, 0.2, torch.float32, "cpu")
+    for op in (o.solve, o.solve_t1):
+        assert not op.comp
+        assert torch.equal(op.packed, column_solve.pack_operator(op.M.double(), torch.float32))
+    args = [torch.from_numpy(a).float() for a in _adjust_args(24, 37, 4)]
+    for a, b in zip(tti.semiimplicit_adjustment(o, *args, 5),
+                    tti.semiimplicit_adjustment(base, *args, 5)):
+        assert torch.equal(a, b)
