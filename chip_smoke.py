@@ -15,7 +15,8 @@ Phases, each printing PASS, its wall time and its numbers on a line:
 3. column solve against its plain PyTorch version on the card: nz in
    {13, 24, 40, 48, 100, 128} x ncols in {37, 1200, 9216} x both stages,
    then the variable-coefficient operator (the moist3d sounding's Pxi_prof)
-   at 9216 x 48 and the shower's scalar and profile operators at 2304 x 32,
+   at 9216 x 48, the shower's scalar and profile operators at 2304 x 32 and
+   a moist3d shard's 2304 x 48 (phase 31),
    the stage's operator applied as the main path applies it
    (apply_column_operator) and the TPU function's counterpart
    (fused_column_solve, composed per call, mode="plain"): f64 kernel vs f64
@@ -26,7 +27,8 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    shape; then timed at 9216 x 48 and 1200 x 24 f32 and 9216 x 48 f64 in
    turns (plain, kernel, kernel, plain, library), each as device time and
    back to back, beside its bound and each one's error, and the profile
-   operator, both shower operators and JW06's (13,824 x 24) the same way;
+   operator, both shower operators, JW06's (13,824 x 24) and the shard's
+   (2304 x 48) the same way;
    the library call is one
    torch.matmul of [x* | w*] by M^T, which the port never calls;
 4. RLZ analysis against its plain version on the card: moist3d
@@ -191,10 +193,26 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    box at lDim 4096 (factored) 10 f64 steps with 0 analysis launches (the
    factored grid takes the einsum chain by design) against the CPU (1e-9).
 
+31. radial domain decomposition (scythe_tpu_torch.parallel) on the one
+   card: moist3d at full width on 4 thread-shards of 12 cells (a ThreadMesh
+   on cuda:0), 20 f64 steps by psum, halo (gather) and halo-pcr against
+   one device (1e-12 of each field's max), 20 f32 steps by psum against
+   one device in f32 (SHARDED_F32_BOUND, from the CPU), each with 4 x 20
+   column-solve launches (2,304 x 48 columns a shard), one analysis-kernel
+   launch (set-up) and no call of a kernel's plain version; the flagship
+   on 4 psum shards of 25 cells, 50 f64 steps (1e-12, wb
+   SHARDED_FLAGSHIP_BOUND); integrate_sharded on
+   4 halo shards, 10 steps with a checkpoint, resumed for 10 more, against
+   20 continuous steps on one device (1e-13); a DistMesh over a world of
+   one NCCL rank (FileStore), 10 psum steps (1e-12); the flagship's 16
+   members over an ensemble mesh of 4 against the unsharded ensemble
+   (1e-13); steps/s and launches a step of one device and of 4 psum and 4
+   halo shards, in turns (the cost of 4 shards on one card, not scaling).
+
 ``--only`` runs some phase groups alone (kernels: 3-5; paths: 6-18; jw06:
 19-21; ensembles: 22-23; gradients: 24-26; comp_kernels: 27; comp_moist3d:
-28; comp_flagship: 29; factored: 30); only a run of all prints the
-kernels line and the closing line.  No phase catches its own failure: any
+28; comp_flagship: 29; factored: 30; sharded: 31); only a run of all
+prints the kernels line and the closing line.  No phase catches its own failure: any
 failed check raises and the script exits non-zero.  Without a CUDA device
 it exits 2 and prints no result.
 The last lines of standard output are the card's name and power limit, a
@@ -289,7 +307,8 @@ CS_NCOLS = (37, 1200, 9216)
 # operator at the moist3d shape, both of the shower's (48 x 16 columns x 32)
 CS_MORE = (("9216x48 profile", 9216, 48, "moist3d", True),
            ("2304x32", 2304, 32, "shower", False),
-           ("2304x32 profile", 2304, 32, "shower", True))
+           ("2304x32 profile", 2304, 32, "shower", True),
+           ("2304x48", 2304, 48, "moist3d", False))  # a moist3d shard of 12 cells
 # (label, ncols, nz, reference state, per-level Pxi, dtype) of the timed calls
 CS_TIMED = (("9216x48 f32", 9216, 48, "moist3d", False, "float32"),
             ("1200x24 f32", 1200, 24, "moist3d", False, "float32"),
@@ -297,7 +316,8 @@ CS_TIMED = (("9216x48 f32", 9216, 48, "moist3d", False, "float32"),
             ("9216x48 f32 profile", 9216, 48, "moist3d", True, "float32"),
             ("2304x32 f32", 2304, 32, "shower", False, "float32"),
             ("2304x32 f32 profile", 2304, 32, "shower", True, "float32"),
-            ("13824x24 f32", 13824, 24, "jw06", False, "float32"))
+            ("13824x24 f32", 13824, 24, "jw06", False, "float32"),
+            ("2304x48 f32", 2304, 48, "moist3d", False, "float32"))
 
 
 def zero_counts(*mods):
@@ -2015,8 +2035,261 @@ def phase_factored(tx, tmodel, torch, cs, ra, tmp):
     return times
 
 
+SHARDS = 4  # the sharded phase's thread-shards on the one card
+# float32 moist3d on 4 psum shards against one device after 20 steps: the
+# shards sum the projection in another order; the same comparison on the CPU
+# measured at most 4.95e-6 of a field's max (tools/torch_sharded_reference.py;
+# PERF.md), so about 3x that
+SHARDED_F32_BOUND = 1.5e-5
+# the flagship on 4 psum shards against one device after 50 f64 steps: 1e-12
+# of each field's max, except wb: it is diagnosed each step from derivatives
+# of ub and vb, so their round-off shows in it undamped (as in
+# FLAGSHIP_F32_BOUND); it read 1.75e-12 on the card and 2.02e-12 on the CPU
+# (tools/torch_sharded_reference.py --parts flagship; PERF.md), so 1e-11,
+# about 5x the larger
+SHARDED_FLAGSHIP_BOUND = {"wb": 1e-11}
+# the plain versions a sharded path on the card must never call
+PLAIN_VERSIONS = (("column_solve", "apply_column_operator_plain"),
+                  ("column_solve", "apply_column_operator_comp_plain"),
+                  ("column_solve", "fused_column_solve_plain"),
+                  ("rlz_analysis", "rlz_analysis_plain"),
+                  ("rlz_analysis", "rlz_analysis_comp_plain"))
+
+
+@contextlib.contextmanager
+def plain_version_calls(cs, ra):
+    """The names of the kernels' plain versions called inside the block."""
+    from unittest import mock
+
+    calls = []
+    mods = {"column_solve": cs, "rlz_analysis": ra}
+    with contextlib.ExitStack() as stack:
+        for mod, name in PLAIN_VERSIONS:
+            fn = getattr(mods[mod], name)
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                calls.append(_name)
+                return _fn(*a, **k)
+
+            stack.enter_context(mock.patch.object(mods[mod], name, counted))
+        yield calls
+
+
+def sharded_run(tx, torch, model, dtype, device, shard):
+    """(grid, step, state) of ``model`` on one device (``shard`` None) or
+    on a ThreadMesh of ``shard = (n, method, interface)`` on ``device``."""
+    from scythe_tpu_torch import model as tmodel
+    from scythe_tpu_torch.parallel import sharding as psh
+
+    if shard is None:
+        grid, ctx, state = tmodel.initialize(model, dtype, device=device)
+        return grid, tmodel.build_step(model, grid, ctx, dtype), state
+    n, method, interface = shard
+    mesh = psh.make_mesh(n, device=device)
+    grid, ctx, state = psh.initialize_sharded(model, mesh, dtype, method, device=device)
+    return grid, psh.build_sharded_step(model, grid, ctx, dtype, mesh, method,
+                                        interface), state
+
+
+def canonical_fields(grid, spec, shard):
+    """The final physical fields [nvars, *spatial] (numpy) of a run's
+    spectral state, gathered and, on the halo path, made canonical."""
+    from scythe_tpu_torch.parallel import sharding as psh
+
+    spec = psh.gather_global(spec)
+    if shard is not None and shard[1] == "halo":
+        spec = psh.blocks_to_spec(spec, shard[0], grid.params.num_cells // shard[0])
+    return grid.synthesis(spec)["val"].cpu().numpy()
+
+
+def sharded_fields(tx, torch, model, dtype, device, shard):
+    """The final fields of ``model.num_ts`` steps (``sharded_run``)."""
+    from scythe_tpu_torch import model as tmodel
+
+    grid, step, state = sharded_run(tx, torch, model, dtype, device, shard)
+    return canonical_fields(grid, tmodel.make_scan(step, model.num_ts)(state).spec, shard)
+
+
+def sharded_flagship_rel(tx, torch, device, n_steps=50, shards=SHARDS):
+    """Per-field max|sharded - one device| / max|one device| of the
+    flagship at full width (100 cells x 256) after ``n_steps`` f64 steps on
+    one device and on ``shards`` psum thread-shards of ``device``."""
+    from scythe_tpu_torch import model as tmodel
+    from scythe_tpu_torch.examples import cha_bell_initialization as cb
+    from scythe_tpu_torch.parallel import sharding as psh
+
+    f64 = torch.float64
+    fm = cb.flagship_model(100, 256).with_(integration_time=150.0, output_interval=150.0)
+    g = tx.create_grid(fm.grid_params, f64, device=device)
+    ctx = tmodel.build_context(fm, g, f64)
+    st0 = cb.vortex_state(g, f64)
+    ref = g.synthesis(tmodel.make_scan(tmodel.build_step(fm, g, ctx, f64), n_steps)(st0).spec)
+    mesh = psh.make_mesh(shards, device=device)
+    step = psh.build_sharded_step(fm, g, ctx, f64, mesh, "psum")
+    got = tmodel.make_scan(step, n_steps)(psh.shard_state(st0, mesh, "psum"))
+    return per_field_rel(canonical_fields(g, got.spec, (shards, "psum", "gather")),
+                         ref["val"].cpu().numpy())
+
+
+def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
+    """Phase 31: radial domain decomposition (scythe_tpu_torch.parallel) on
+    the one card: moist3d and the flagship split into 4 thread-shards, the
+    integrate_sharded with a checkpoint and its resume, a world of one NCCL
+    rank, the ensemble mesh, and the cost of 4 shards on one card."""
+    import torch.distributed as dist
+    from scythe_tpu_torch.parallel import mesh as pmesh
+    from scythe_tpu_torch.parallel import sharding as psh
+
+    f64, f32 = torch.float64, torch.float32
+    out = {"launches": {}}
+    # ---- 31a: moist3d at full width, 4 thread-shards on cuda:0, each path
+    t0 = time.perf_counter()
+    m20 = moist3d(tx, tmp, n_steps=20, out_every=20, name="sharded")
+    zero_counts(cs, ra)
+    ref64 = sharded_fields(tx, torch, m20, f64, "cuda:0", None)
+    assert (cs.launches, ra.launches) == (20, 21), (cs.launches, ra.launches)
+    rels = {}
+    with plain_version_calls(cs, ra) as plain:
+        for label, shard in (("psum", (SHARDS, "psum", "gather")),
+                             ("halo", (SHARDS, "halo", "gather")),
+                             ("halo_pcr", (SHARDS, "halo", "pcr"))):
+            zero_counts(cs, ra)
+            got = sharded_fields(tx, torch, m20, f64, "cuda:0", shard)
+            counts = (cs.launches, ra.launches)
+            # the column solve once a step a shard; the analysis kernel only
+            # at set-up (initialize_sharded's whole-field analysis)
+            assert counts == (SHARDS * 20, 1), (label, counts)
+            out["launches"][f"sharded_moist3d_{label}"] = counts
+            rels[label] = per_field_rel(got, ref64)
+            assert max(rels[label]) <= 1e-12, (label, rels[label])
+        ref32 = sharded_fields(tx, torch, m20, f32, "cuda:0", None)
+        zero_counts(cs, ra)
+        got32 = sharded_fields(tx, torch, m20, f32, "cuda:0", (SHARDS, "psum", "gather"))
+        out["launches"]["sharded_moist3d_f32_psum"] = (cs.launches, ra.launches)
+        assert out["launches"]["sharded_moist3d_f32_psum"] == (SHARDS * 20, 1)
+        rel32 = per_field_rel(got32, ref32)
+        print(f"  sharded moist3d f32 psum vs one device rel err {fmt_rel(rel32)}", flush=True)
+        assert np.isfinite(got32).all() and max(rel32) <= SHARDED_F32_BOUND, rel32
+        assert plain == [], sorted(set(plain))
+    out["moist3d_rel"] = {k: max(v) for k, v in rels.items()}
+    out["moist3d_f32_rel"] = max(rel32)
+    say("sharded-moist3d", t0,
+        f"moist3d [9, 144, 64, 48] on {SHARDS} thread-shards of 12 cells on cuda:0, 20 steps: "
+        f"f64 vs one device rel err per field (tol 1e-12) "
+        + "; ".join(f"{k} {fmt_rel(v)}" for k, v in rels.items())
+        + f"; f32 psum vs one device f32 {fmt_rel(rel32)} (tol {SHARDED_F32_BOUND}); "
+        f"(column-solve, analysis) launches {json.dumps(out['launches'])} (a solve of "
+        f"2,304 x 48 columns a step a shard; the analysis kernel once, at set-up); "
+        f"plain-version calls 0")
+
+    # ---- 31b: the flagship at full width, 4 psum shards of 25 cells
+    t0 = time.perf_counter()
+    zero_counts(cs, ra)
+    rel_fl = sharded_flagship_rel(tx, torch, "cuda:0")
+    out["launches"]["sharded_flagship_psum"] = (cs.launches, ra.launches)
+    assert out["launches"]["sharded_flagship_psum"] == (0, 0)
+    fl_bounds = [SHARDED_FLAGSHIP_BOUND.get(n, 1e-12) for n in FLAGSHIP_VARS]
+    assert all(r <= b for r, b in zip(rel_fl, fl_bounds)), (rel_fl, fl_bounds)
+    say("sharded-flagship", t0,
+        f"flagship [6, 300, 256] on {SHARDS} psum thread-shards of 25 cells, 50 f64 steps "
+        f"vs one device rel err per field {fmt_rel(rel_fl, FLAGSHIP_VARS)} (tol "
+        f"{SHARDED_FLAGSHIP_BOUND} else 1e-12); no hand-written kernel lies on this path "
+        f"and the counts say 0")
+
+    # ---- 31c: integrate_sharded (halo) through run_loop, checkpoint, resume
+    t0 = time.perf_counter()
+    full = moist3d(tx, tmp, n_steps=20, out_every=10, name="resume_full")
+    _, p_full = tx.integrate_model(full, dtype=f64, device="cuda:0", write_outputs=False)
+    first = moist3d(tx, tmp, n_steps=10, out_every=10, name="resume_first")
+    first = first.with_(options={**first.opts(), "checkpoint_interval": 10 * first.ts})
+    psh.integrate_sharded(first, SHARDS, f64, method="halo", device="cuda:0")
+    ckpt = os.path.join(first.output_dir, "checkpoint_1.5.npz")
+    outs = sorted(f for f in os.listdir(first.output_dir) if f.startswith("physical_out_"))
+    assert os.path.exists(ckpt) and len(outs) == 2, os.listdir(first.output_dir)
+    second = moist3d(tx, tmp, n_steps=10, out_every=10, name="resume_second")
+    _, p_res = psh.integrate_sharded(second, SHARDS, f64, method="halo", resume_from=ckpt,
+                                     write_outputs=False, device="cuda:0")
+    rel_res = per_field_rel(p_res, p_full)
+    assert max(rel_res) <= 1e-13, rel_res
+    say("sharded-resume", t0,
+        f"integrate_sharded moist3d on {SHARDS} halo shards, 10 f64 steps with a checkpoint "
+        f"({os.path.basename(ckpt)}, outputs {outs}), then 10 more resumed from it, vs 20 "
+        f"continuous steps on one device: rel err per field (tol 1e-13) {fmt_rel(rel_res)}")
+
+    # ---- 31d: a world of one NCCL rank over a FileStore
+    t0 = time.perf_counter()
+    m10 = moist3d(tx, tmp, n_steps=10, out_every=10, name="nccl")
+    ref10 = sharded_fields(tx, torch, m10, f64, "cuda:0", None)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "nccl_store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1, device="cuda:0")
+        assert isinstance(mesh, pmesh.DistMesh) and mesh.nccl, mesh
+        zero_counts(cs, ra)
+        grid, ctx, state = psh.initialize_sharded(m10, mesh, f64, "psum", device="cuda:0")
+        step = psh.build_sharded_step(m10, grid, ctx, f64, mesh, "psum")
+        fin = tmodel.make_scan(step, 10)(state)
+        out["launches"]["sharded_nccl_world_of_one"] = (cs.launches, ra.launches)
+        got = canonical_fields(grid, fin.spec, (1, "psum", "gather"))
+        e1 = psh.gather_global(fin.expdot_nm1)  # all_gather_into_tensor
+        assert e1.shape == (9,) + grid.spatial_shape and torch.isfinite(e1).all()
+    finally:
+        dist.destroy_process_group()
+    assert out["launches"]["sharded_nccl_world_of_one"] == (10, 1)
+    rel_nccl = per_field_rel(got, ref10)
+    assert max(rel_nccl) <= 1e-12, rel_nccl
+    say("sharded-nccl", t0,
+        f"DistMesh over one NCCL rank (FileStore): moist3d 10 psum f64 steps (all_reduce a "
+        f"step, all_gather_into_tensor for the histories) vs one device rel err per field "
+        f"(tol 1e-12) {fmt_rel(rel_nccl)}; launches {out['launches']['sharded_nccl_world_of_one']}")
+
+    # ---- 31e: the flagship's 16 members over an ensemble mesh of 4
+    t0 = time.perf_counter()
+    f20 = cb.flagship_model(100, 256).with_(integration_time=60.0, output_interval=60.0)
+    base = cb.vortex_phys(tx.create_grid(f20.grid_params, f64, device="cuda:0"))
+    ics = np.stack([base * (1.0 + i / 100.0) for i in range(FLAGSHIP_MEMBERS)])
+    _, e_ref = tmodel.integrate_ensemble(f20, ics, dtype=f64, device="cuda:0")
+    _, e_got = tmodel.integrate_ensemble(f20, ics, dtype=f64, device="cuda:0",
+                                         mesh=pmesh.make_ensemble_mesh(SHARDS, device="cuda:0"))
+    rel_ens = max(max(per_field_rel(e_got[i], e_ref[i])) for i in range(FLAGSHIP_MEMBERS))
+    assert e_got.shape == e_ref.shape and rel_ens <= 1e-13, rel_ens
+    say("sharded-ensemble", t0,
+        f"integrate_ensemble of the flagship's {FLAGSHIP_MEMBERS} members on an ensemble mesh "
+        f"of {SHARDS} thread-shards (4 members each), 20 f64 steps, vs the unsharded ensemble: "
+        f"max rel err of a member's field {rel_ens:.3e} (tol 1e-13)")
+
+    # ---- 31f: the cost of 4 shards on one card, in turns with one device
+    t0 = time.perf_counter()
+    runs = {}
+    for label, shard in (("one_device", None), ("psum_4", (SHARDS, "psum", "gather")),
+                         ("halo_4", (SHARDS, "halo", "gather"))):
+        grid, step, state = sharded_run(tx, torch, m20, f32, "cuda:0", shard)
+        state = tmodel.make_scan(step, 3)(state)  # warm-up
+        runs[label] = (step, state)
+    times = {k: [] for k in runs}
+    for label in ("one_device", "psum_4", "halo_4", "halo_4", "psum_4", "one_device"):
+        step, state = runs[label]
+        _, ms = run_steps(torch, tmodel, step, state, 20)
+        times[label].append(ms)
+    rates = {}
+    for label, (step, state) in runs.items():
+        per = launches_per_step(torch, lambda n: tmodel.make_scan(step, n)(state), 3, 8,
+                                tries=1)
+        rates[label] = {"steps_per_s": [1000.0 / ms for ms in times[label]],
+                        "ms_step": times[label],
+                        "launches_per_step": sum(per.values())}
+    out["times"] = rates
+    say("sharded-times", t0,
+        f"moist3d f32 on cuda:0, 20 steps by CUDA events, in turns: "
+        + "; ".join(f"{k}: {[round(v, 2) for v in r['steps_per_s']]} steps/s, "
+                    f"{r['launches_per_step']:.1f} launches a step (torch.profiler, 8 - 3 "
+                    f"steps)" for k, r in rates.items())
+        + f" on {card}; the cost of {SHARDS} shards on one card, not a scaling figure")
+    return out
+
+
 GROUPS = ("kernels", "paths", "jw06", "ensembles", "gradients", "comp_kernels",
-          "comp_moist3d", "comp_flagship", "factored")
+          "comp_moist3d", "comp_flagship", "factored", "sharded")
 
 
 def main(argv=None):
@@ -2448,6 +2721,8 @@ def main(argv=None):
             cfl = phase_comp_flagship(tx, torch, cs, ra, cb, tmp)
         if "factored" in groups:
             fact_times = phase_factored(tx, tmodel, torch, cs, ra, tmp)
+        if "sharded" in groups:
+            shd = phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2460,7 +2735,7 @@ def main(argv=None):
           f"{json.dumps(shower_runs)}; JW06 production: {json.dumps(jw)}; ensembles: "
           f"{json.dumps(ens)}; compensated moist3d: {json.dumps(cm3d)}; compensated "
           f"flagship: {json.dumps(cfl)}; factored DFT dense vs factored ms: "
-          f"{json.dumps(fact_times)}", flush=True)
+          f"{json.dumps(fact_times)}; sharded: {json.dumps(shd)}", flush=True)
     cs_main = cs_times["9216x48 f32"]
     n_probe = int(np.prod(ep.SHAPE))
     # seven slot tensors and rinv read, one output written; 21 FLOP an output
@@ -2483,7 +2758,8 @@ def main(argv=None):
                                  "jw06_production": jw["launches"][0],
                                  "flagship_ensemble": ens["flagship_launches"][0],
                                  "shower_ensemble": ens["shower_launches"][0],
-                                 "slz_gradient": grad["launches"][0]},
+                                 "slz_gradient": grad["launches"][0],
+                                 **{k: v[0] for k, v in shd["launches"].items()}},
             "backward_launches": grad["launches"][1],
             **grad_keys(kg_times, "column_solve 9216x48", ""),
             **grad_keys(kg_times, "column_solve 13824x24", "jw06_"),
@@ -2506,7 +2782,8 @@ def main(argv=None):
                for key, label in (("profile", "9216x48 f32 profile"),
                                   ("shower", "2304x32 f32"),
                                   ("shower_profile", "2304x32 f32 profile"),
-                                  ("jw06", "13824x24 f32"))
+                                  ("jw06", "13824x24 f32"),
+                                  ("sharded_moist3d_shard", "2304x48 f32"))
                for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by"))},
         },
@@ -2526,7 +2803,8 @@ def main(argv=None):
                                  "jw06_production": jw["launches"][1],
                                  "flagship_ensemble": ens["flagship_launches"][1],
                                  "shower_ensemble": ens["shower_launches"][1],
-                                 "slz_gradient": grad["launches"][2]},
+                                 "slz_gradient": grad["launches"][2],
+                                 **{k: v[1] for k, v in shd["launches"].items()}},
             "backward_route": "einsum (the transposed chain; no kernel)",
             **grad_keys(kg_times, "rlz_analysis moist3d", ""),
             **grad_keys(kg_times, "rlz_analysis jw06_production", "jw06_"),

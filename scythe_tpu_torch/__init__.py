@@ -18,6 +18,9 @@ Both kernels are ``torch.autograd.Function``s with backward, jvp and vmap
 rules, so the port differentiates (``adjoint.make_simulator``,
 ``fit_parameters``), batches ensembles (``model.integrate_ensemble``) and
 balances initial states (``balance.balance_zonal_state``) on the card.
+``parallel`` splits the radial axis over shards (``parallel.sharding``):
+threads of one process on one card or several, or the ranks of a
+torch.distributed group (NCCL or gloo).
 """
 
 from .config import BC, ZBC, GridParameters, ModelParameters

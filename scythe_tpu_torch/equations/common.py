@@ -40,6 +40,19 @@ class EqContext:
     var_index: Callable[[str], int]
     ref_state: Any = None  # physics.reference_state.ReferenceState or None
     extras: dict = field(default_factory=dict)
+    # the step's own transforms (model.build_step sets them): the grid's,
+    # or under sharding the shard's synthesis and the sharded analysis
+    analysis_fn: Callable | None = None
+    synthesis_fn: Callable | None = None
+
+    def analysis(self, phys):
+        """The step's analysis: the grid's own unless build_step was handed
+        another (a shard's grid holds only its rows and cannot analyse)."""
+        return (self.analysis_fn or self.grid.analysis)(phys)
+
+    def synthesis(self, spec):
+        """The step's synthesis, as ``analysis``."""
+        return (self.synthesis_fn or self.grid.synthesis)(spec)
 
     def p(self, key: str, default=None) -> float:
         if default is None:

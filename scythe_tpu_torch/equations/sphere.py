@@ -114,10 +114,16 @@ def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
     Vars: s xi mu u v w mu_c mu_r qss  (u eastward, v northward, w up).
     physical_params: K, K_v (default K), Omega (default Earth's).  Options
     as MoistEulerRLZ's, and options['hyperdiffusion_k4'] (a horizontal
-    del^4 from refitting the first Laplacian through the grid's analysis and
-    synthesis, with an explicit-stability guard).  The guard takes the
-    meridional spacing from the grid's rDim; the JAX package takes it from
-    the field's rows, which is the same on one device.
+    del^4 from refitting the first Laplacian through the step's analysis and
+    synthesis, with an explicit-stability guard).  Two divergences from
+    ``scythe_tpu/equations/sphere.py:248,256``, both about sharded runs: the
+    guard takes the meridional spacing from the grid's global rDim, where
+    the JAX package takes the field's rows (a shard's rows under
+    sharding); and the refit goes through the step's own transforms
+    (``EqContext.analysis`` / ``synthesis``: under sharding the sharded
+    analysis and the shard's synthesis), where the JAX package calls the
+    grid's, which a shard's grid cannot do.  On one device both are the
+    same.
     """
     K = ctx.p("K")
     Omega = ctx.p("Omega", 7.292e-5)
@@ -216,7 +222,7 @@ def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
                 f"(K4={k4:.2e}, dx_lat={dx_lat/1e3:.0f} km, ts={ctx.ts}); "
                 "reduce K4 or ts"
             )
-        f2 = ctx.grid.synthesis(ctx.grid.analysis(horiz))
+        f2 = ctx.synthesis(ctx.analysis(horiz))
         horiz2 = (
             f2["drr"] / aa
             + f2["dll"] / (aa * cosp * cosp)

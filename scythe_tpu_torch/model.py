@@ -22,11 +22,16 @@ filter (``modal_filter_tau``, ``modal_filter_order``, ``modal_filter_axes``),
 ``profile_dir`` on ``integrate_model`` writes a ``torch.profiler`` trace.
 ``integrate_ensemble`` runs members as a leading axis (``torch.func.vmap``
 over a member's run: each hand-written kernel launches once a step for all
-members).
+members), on one device or split over the shards of an ensemble mesh.
+``build_step`` takes the sharded builder's transforms and filter
+(``analysis_fn``, ``synthesis_fn``, ``modal_filter_fn``) and ``run_loop``
+its layout hooks (``to_canonical``, ``from_canonical``, ``gather``): the
+radial domain decomposition lives in ``parallel/``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time as _time
@@ -331,8 +336,21 @@ def build_implicit_vdiff(grid: Grid, dtype, exclude=("xi", "qss")):
     return apply
 
 
-def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
-    """Returns step(state) -> state."""
+def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype,
+               analysis_fn=None, synthesis_fn=None, modal_filter_fn=None):
+    """Returns step(state) -> state.
+
+    ``analysis_fn`` / ``synthesis_fn`` default to the grid's transforms; the
+    sharded builder (``parallel.sharding``) passes a shard's synthesis and a
+    sharded analysis (project, psum, solve; or the halo path's distributed
+    solve), and the equation set's own refits take them too
+    (``EqContext.analysis``).  ``modal_filter_fn`` replaces the per-step
+    modal filter built from the options: the sharded builder passes one
+    that knows its spectral layout (the halo path's windowed blocks)."""
+    if analysis_fn is not None or synthesis_fn is not None:
+        ctx = dataclasses.replace(ctx, analysis_fn=analysis_fn, synthesis_fn=synthesis_fn)
+    analysis_fn = analysis_fn or grid.analysis
+    synthesis_fn = synthesis_fn or grid.synthesis
     eqset = get_equation_set(model.equation_set)
     if getattr(eqset, "geometry", None) and eqset.geometry != grid.geometry:
         raise ValueError(
@@ -435,9 +453,9 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
             )
         rad_ref_dr = ctx.extras["radiation_ref_dr"]
 
-    modal_filter = None
+    modal_filter = modal_filter_fn
     mf_tau = float(opts.get("modal_filter_tau", 0.0) or 0.0)
-    if mf_tau > 0.0:
+    if modal_filter is None and mf_tau > 0.0:
         modal_filter = build_modal_filter(
             grid, mf_tau, int(opts.get("modal_filter_order", 4)), ts, dtype,
             axes=str(opts.get("modal_filter_axes", "rlz")),
@@ -465,7 +483,7 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
         )
 
     def step(state: ti.ModelState) -> ti.ModelState:
-        fields = grid.synthesis(state.spec)
+        fields = synthesis_fn(state.spec)
         res = eqset(fields, ctx)
         phys = fields["val"]
         if res.overrides:
@@ -526,9 +544,9 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype):
         if incremental:
             # the delta is taken against the synthesis value itself, not the
             # override-patched phys, for A(S spec) = spec to cancel
-            spec_new = state.spec + grid.analysis(var_np1 - fields["val"])
+            spec_new = state.spec + analysis_fn(var_np1 - fields["val"])
         else:
-            spec_new = grid.analysis(var_np1)
+            spec_new = analysis_fn(var_np1)
         if modal_filter is not None:
             spec_new = modal_filter(spec_new)
         return ti.ModelState(
@@ -672,11 +690,12 @@ class logged_run:
         self._prof = None
 
     def __enter__(self):
-        os.makedirs(self.model.output_dir, exist_ok=True)
-        self.handler = logging.FileHandler(
-            os.path.join(self.model.output_dir, "scythe_out.log")
-        )
-        log.addHandler(self.handler)
+        if _primary():  # rank 0 writes the log of a torch.distributed run
+            os.makedirs(self.model.output_dir, exist_ok=True)
+            self.handler = logging.FileHandler(
+                os.path.join(self.model.output_dir, "scythe_out.log")
+            )
+            log.addHandler(self.handler)
         log.setLevel(logging.INFO)
         if self.profile_dir:
             from torch.profiler import ProfilerActivity, profile
@@ -693,9 +712,17 @@ class logged_run:
             self._prof.__exit__(*exc)
             os.makedirs(self.profile_dir, exist_ok=True)
             self._prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
-        log.removeHandler(self.handler)
-        self.handler.close()
+        if self.handler is not None:
+            log.removeHandler(self.handler)
+            self.handler.close()
         return False
+
+
+def _primary() -> bool:
+    """Whether this process writes a run's files: rank 0 of an initialised
+    torch.distributed group, or the only process."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def run_loop(
@@ -709,16 +736,30 @@ def run_loop(
     write_outputs=True,
     resume_from=None,
     t_setup=None,
+    to_canonical=None,
+    from_canonical=None,
+    gather=None,
 ):
     """The output/checkpoint/watchdog time loop (ref run_model + model_loop,
     src/semiimplicit.jl:219-293).  Checkpoints (options['checkpoint_interval'],
     seconds) are written at output boundaries whose step count is a multiple
     of it, named ``checkpoint_<t>.npz`` as the JAX package names them, so
-    either package resumes from the other's."""
+    either package resumes from the other's.
+
+    ``integrate_sharded`` passes ``gather`` (a sharded tensor to the whole
+    tensor, ``parallel.sharding.gather_global``), ``to_canonical`` (the
+    gathered spectral state to the canonical coefficient array, e.g. from
+    the halo path's windowed blocks) and ``from_canonical`` (a canonical
+    state onto the shards), so outputs and checkpoints stay canonical and a
+    sharded run resumes from a single-device checkpoint and the other way
+    round.  In a torch.distributed run every rank gathers and rank 0 writes
+    the files."""
     t_setup = t_setup or _time.time()
     t_sim0 = 0.0
     if resume_from:
         state, t_sim0 = sio.load_checkpoint(resume_from, dtype, grid.device)
+        if from_canonical is not None:
+            state = from_canonical(state)
         log.info("Resumed from %s at t=%s (step %d)", resume_from, t_sim0, state.t)
     num_ts = model.num_ts
     output_int = max(1, min(model.output_int, num_ts))
@@ -732,18 +773,37 @@ def run_loop(
         grid.device,
     )
 
-    def fetch_phys(st):
-        return grid.synthesis(st.spec)["val"].cpu().numpy()
+    gather = gather or (lambda x: x)
+    write_outputs = write_outputs and _primary()
+
+    def canonical_spec(st):
+        spec = gather(st.spec)
+        if to_canonical is not None:
+            spec = to_canonical(spec)
+        return spec.to(grid.device)
+
+    def canonical(st):
+        return st._replace(
+            spec=canonical_spec(st),
+            **{k: gather(getattr(st, k)) for k in
+               ("expdot_nm1", "expdot_nm2", "impdot_nm1", "impdot_nm2")},
+        )
+
+    def fetch(st):
+        """The canonical spectral state and the physical fields on the host;
+        every rank gathers them, as a gather on a DistMesh is a collective."""
+        spec = canonical_spec(st)
+        return spec, grid.synthesis(spec)["val"].cpu().numpy()
 
     ckpt_interval = ctx.options.get("checkpoint_interval", 0.0)
     ckpt_int = int(round(ckpt_interval / model.ts)) if ckpt_interval else 0
     write_spec = bool(ctx.options.get("write_spectral"))
-    phys = fetch_phys(state)
+    spec, phys = fetch(state)
     if write_outputs and not resume_from:
         sio.check_cfl(grid, phys)
         sio.write_output(grid, model, t_sim0, phys)
         if write_spec:
-            sio.write_spectral(grid, model, t_sim0, state.spec)
+            sio.write_spectral(grid, model, t_sim0, spec)
     log.info("Setup in %.2fs; starting integration", _time.time() - t_setup)
 
     t_run = _time.time()
@@ -753,16 +813,18 @@ def run_loop(
         state = make_scan(step, n)(state)
         steps_done += n
         t_sim = t_sim0 + steps_done * model.ts
-        phys = fetch_phys(state)  # the host copy waits for the device
+        spec, phys = fetch(state)  # the host copy waits for the device
         sio.check_cfl(grid, phys)
         if write_outputs:
             sio.write_output(grid, model, t_sim, phys)
             if write_spec:
-                sio.write_spectral(grid, model, t_sim, state.spec)
+                sio.write_spectral(grid, model, t_sim, spec)
         if ckpt_int and steps_done % ckpt_int == 0:
-            path = os.path.join(model.output_dir, f"checkpoint_{round(t_sim, 2)}.npz")
-            sio.save_checkpoint(path, state, t_sim)
-            log.info("checkpoint: %s", path)
+            ckpt_state = canonical(state)
+            if _primary():
+                path = os.path.join(model.output_dir, f"checkpoint_{round(t_sim, 2)}.npz")
+                sio.save_checkpoint(path, ckpt_state, t_sim)
+                log.info("checkpoint: %s", path)
         log.info("ts: %s", t_sim)
     wall = _time.time() - t_run
     gps = grid.num_points * num_ts / wall if wall > 0 else float("inf")
@@ -791,28 +853,55 @@ def integrate_ensemble(model: ModelParameters, ics, dtype=None, mesh=None,
     variables).  As in the JAX package, the context is the model's own
     (no boundary references are set from the members' states).
 
-    ``mesh`` (members sharded over several cards, the JAX package's
-    ``parallel.sharding.make_ensemble_mesh``) is not ported: it raises
-    NotImplementedError (ROADMAP item 11)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "integrate_ensemble(mesh=...): members sharded across cards "
-            "(parallel/sharding.py) is not ported to scythe_tpu_torch "
-            "(ROADMAP item 11)"
-        )
+    ``mesh`` (``parallel.mesh.make_ensemble_mesh``): the members are split
+    into ``mesh.size`` blocks in order, each shard runs its block under the
+    same vmap on its own device (the mesh's devices take the place of
+    ``device``), and the blocks come back in rank order; members are
+    independent, so the shards never communicate.  ``n_members`` must be
+    divisible by the mesh's size."""
     dtype = dtype or torch.get_default_dtype()
-    grid = create_grid(model.grid_params, dtype, device=device)
-    ctx = build_context(model, grid, dtype)
-    step = build_step(model, grid, ctx, dtype)
-    num_ts = model.num_ts
-    imp_rows = imp_history_rows(model)
+    if mesh is not None and len(ics) % mesh.size:
+        raise ValueError(
+            f"n_members={len(ics)} must be divisible by the {mesh.size}-shard "
+            "ensemble mesh"
+        )
+    runners = {}
 
-    def member(phys0):
-        state = ti.initial_state(grid.analysis(phys0), phys0.shape, dtype, imp_rows=imp_rows)
-        return grid.synthesis(make_scan(step, num_ts)(state).spec)["val"]
+    def runner(dev):
+        """(grid, run) on ``dev``, built once a device."""
+        if dev not in runners:
+            grid = create_grid(model.grid_params, dtype, device=dev)
+            ctx = build_context(model, grid, dtype)
+            step = build_step(model, grid, ctx, dtype)
+            num_ts = model.num_ts
+            imp_rows = imp_history_rows(model)
 
-    arr = torch.as_tensor(np.asarray(ics), dtype=dtype, device=grid.device)
-    with torch.no_grad():
-        out = torch.func.vmap(member)(arr).cpu().numpy()
+            def member(phys0):
+                state = ti.initial_state(grid.analysis(phys0), phys0.shape, dtype,
+                                         imp_rows=imp_rows)
+                return grid.synthesis(make_scan(step, num_ts)(state).spec)["val"]
+
+            def run(arr):
+                with torch.no_grad():
+                    return torch.func.vmap(member)(arr)
+
+            runners[dev] = (grid, run)
+        return runners[dev]
+
+    arr = torch.as_tensor(np.asarray(ics), dtype=dtype)
+    if mesh is None:
+        grid, run = runner(torch.device(device))
+        out = run(arr.to(grid.device)).cpu().numpy()
+    else:
+        from .parallel.sharding import Sharded, gather_global
+
+        blocks = arr.chunk(mesh.size)
+        devs = [mesh.device_of(r) for r in mesh.local_ranks]
+        # built before the shards start, once a device
+        runs = [runner(dev)[1] for dev in devs]
+        parts = mesh.run(lambda blk, run: run(blk),
+                         [blocks[r].to(dev) for r, dev in zip(mesh.local_ranks, devs)], runs)
+        grid = runner(devs[0])[0]
+        out = gather_global(Sharded(parts, 0, mesh)).cpu().numpy()
     sio.check_cfl(grid, out.reshape((-1,) + grid.spatial_shape))
     return grid, out

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -131,9 +132,19 @@ def _compile(sources: list[Path], path: Path) -> str:
     return log
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> Built:
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel library; cached per process.
+    Shards running as threads may reach a kernel at once: one builds, the
+    others wait for it."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> Built:
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):

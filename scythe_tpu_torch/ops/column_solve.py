@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -109,6 +110,9 @@ launches = 0  # forward (and jvp) launches: the operator M
 backward_launches = 0  # backward launches: M^T
 comp_launches = 0  # the same two counts of the comp kernel
 comp_backward_launches = 0
+# shards running as threads launch at once: a count is read, added and
+# written back under this lock, so none is lost
+_COUNT_LOCK = threading.Lock()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -548,15 +552,16 @@ def _launch(xstar, wstar, packed, transposed=False, comp=False):
     if err != 0:
         msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
         raise RuntimeError(f"column_solve kernel launch failed: {msg} ({err}); {p}")
-    if comp:
-        if transposed:
-            comp_backward_launches += 1
+    with _COUNT_LOCK:
+        if comp:
+            if transposed:
+                comp_backward_launches += 1
+            else:
+                comp_launches += 1
+        elif transposed:
+            backward_launches += 1
         else:
-            comp_launches += 1
-    elif transposed:
-        backward_launches += 1
-    else:
-        launches += 1
+            launches += 1
     return w_out, xi_out
 
 

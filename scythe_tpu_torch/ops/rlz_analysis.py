@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -81,6 +82,9 @@ MODES = ("plain", "comp")
 
 launches = 0  # plain-mode launches
 comp_launches = 0  # comp-mode launches
+# shards running as threads launch at once: a count is read, added and
+# written back under this lock, so none is lost
+_COUNT_LOCK = threading.Lock()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -546,7 +550,8 @@ def comp_operators(l_analysis, analysis_r, analysis_z) -> CompOperators:
                 and versions == _versions(l_analysis, analysis_r, analysis_z)):
             return packed
     packed = pack_comp_operators(l_analysis, analysis_r, analysis_z)
-    packs += 1
+    with _COUNT_LOCK:
+        packs += 1
     _keep(analysis_r, l_analysis, analysis_z, packed)
     return packed
 
@@ -630,10 +635,11 @@ def _launch(phys, ops, shape, mode):
     if err != 0:
         msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
         raise RuntimeError(f"rlz_analysis kernel launch failed: {msg} ({err}); {p}")
-    if mode == "comp":
-        comp_launches += 1
-    else:
-        launches += 1
+    with _COUNT_LOCK:
+        if mode == "comp":
+            comp_launches += 1
+        else:
+            launches += 1
     return out
 
 

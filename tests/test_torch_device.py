@@ -24,6 +24,8 @@ from scythe_tpu_torch import timeintegration as tti
 from scythe_tpu_torch.examples import assimilate_4dvar, assimilate_enkf
 from scythe_tpu_torch.examples import cha_bell_initialization as cb
 from scythe_tpu_torch.examples import jw06_baroclinic_slz
+from scythe_tpu_torch.parallel import mesh as pmesh
+from scythe_tpu_torch.parallel import sharding as psh
 from scythe_tpu_torch.physics import reference_state as trs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,6 +48,11 @@ ENTRY_POINTS = {
     "examples.jw06_baroclinic_slz.balanced_delta": jw06_baroclinic_slz.balanced_delta,
     "examples.assimilate_4dvar.build_case": assimilate_4dvar.build_case,
     "examples.assimilate_enkf.build_case": assimilate_enkf.build_case,
+    "parallel.mesh.make_mesh": pmesh.make_mesh,
+    "parallel.mesh.make_ensemble_mesh": pmesh.make_ensemble_mesh,
+    "parallel.mesh.DistMesh": pmesh.DistMesh,
+    "parallel.sharding.initialize_sharded": psh.initialize_sharded,
+    "parallel.sharding.integrate_sharded": psh.integrate_sharded,
 }
 
 
@@ -121,6 +128,15 @@ def _calls_without_device(tmp):
         "make_simulator": lambda: tx.make_simulator(model, torch.float64)[1].synth_r,
         "examples.assimilate_4dvar.build_case":
             lambda: assimilate_4dvar.build_case(4, 8)[3],
+        "parallel.mesh.make_mesh":
+            lambda: torch.zeros(1, device=pmesh.make_mesh(1).device_of(0)),
+        "parallel.mesh.make_ensemble_mesh":
+            lambda: torch.zeros(1, device=pmesh.make_ensemble_mesh(1).device_of(0)),
+        "parallel.sharding.initialize_sharded":
+            lambda: psh.initialize_sharded(model, pmesh.make_mesh(1, device="cpu"),
+                                           torch.float64)[0].synth_r,
+        "parallel.sharding.integrate_sharded":
+            lambda: psh.integrate_sharded(model, 1, torch.float64)[0].synth_r,
     }
 
 

@@ -20,6 +20,7 @@ import scythe_tpu_torch as tx
 from scythe_tpu_torch import model as tmodel
 from scythe_tpu_torch.examples import cha_bell_initialization as cb
 from scythe_tpu_torch.ops import column_solve, rlz_analysis
+from scythe_tpu_torch.parallel.mesh import make_ensemble_mesh
 
 torch.set_num_threads(2)
 F64 = torch.float64
@@ -160,9 +161,17 @@ def test_integrate_ensemble_api():
 
 
 def test_mesh_is_not_ported(sounding):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmodel.integrate_ensemble(_model(tx, sounding, 1), _bubbles(2), dtype=F64,
-                                  mesh=object(), device="cpu")
+    """integrate_ensemble(mesh=...) on the moist core: two thread-shards, a
+    member each, equal the unsharded ensemble (1e-13 of the max), and a
+    member count the mesh does not divide raises."""
+    mesh = make_ensemble_mesh(2, device="cpu")
+    model = _model(tx, sounding, 2)
+    _, ref = tmodel.integrate_ensemble(model, _bubbles(2), dtype=F64, device="cpu")
+    _, out = tmodel.integrate_ensemble(model, _bubbles(2), dtype=F64, mesh=mesh,
+                                       device="cpu")
+    assert _rel(out, ref) <= 1e-13
+    with pytest.raises(ValueError, match="divisible"):
+        tmodel.integrate_ensemble(model, _bubbles(3), dtype=F64, mesh=mesh, device="cpu")
 
 
 

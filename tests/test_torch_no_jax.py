@@ -4,7 +4,8 @@ kernels' modules and every example included), runs 3 steps of the moist
 RLZ core, of the flagship two-way slab model and of Williamson case 2 on the
 SL sphere on the CPU, writes NetCDF output, and registers all 21 equation
 sets, importing no triton; a compensated grid and a factored one (nl 4096)
-build and transform.  It differentiates the moist core through
+build and transform.  It runs 3 steps of integrate_sharded on 2
+thread-shards by psum and by halo.  It differentiates the moist core through
 adjoint.make_simulator and runs a two-member integrate_ensemble, and each
 kernel wrapper's output carries its Function's grad_fn when its input needs
 a gradient (the wrappers once returned outputs with no graph)."""
@@ -123,6 +124,27 @@ SCRIPT = textwrap.dedent(
     fg4 = tx.create_grid(tx.GridParameters(geometry="RL", num_cells=2, xmax=1.0, lDim=4096,
                                            vars=("h",)), torch.float64, device="cpu")
     assert fg4.l_fact is not None and fg4.kDim == fourier_factored.FactoredDFT(4096).K
+    # integrate_sharded: 3 steps on 2 thread-shards by psum and by halo
+    from scythe_tpu_torch.parallel import mesh as pmesh, schur, sharding as psh  # noqa: F401
+    agp = tx.GridParameters(geometry="R", xmin=-8.0, xmax=8.0, num_cells=16,
+                            BCL={"u": tx.BC.PERIODIC}, BCR={"u": tx.BC.PERIODIC},
+                            vars={"u": 1})
+    ar = tx.create_grid(agp, torch.float64, device="cpu").r_mish
+    np.savetxt(os.path.join(tmp, "adv.csv"), np.stack([ar, np.exp(-ar ** 2)], 1),
+               delimiter=",", comments="", header="r,u")
+    am = tx.ModelParameters(
+        ts=0.05, integration_time=0.15, output_interval=0.15,
+        equation_set="LinearAdvection1D", initial_conditions=os.path.join(tmp, "adv.csv"),
+        output_dir=os.path.join(tmp, "adv_out"), grid_params=agp,
+        physical_params={"c_0": 1.0, "K": 0.1},
+    )
+    _, aref = tx.integrate_model(am, torch.float64, write_outputs=False, device="cpu")
+    for method in ("psum", "halo"):
+        _, aout = psh.integrate_sharded(am, 2, torch.float64, method=method,
+                                        write_outputs=False, device="cpu")
+        assert np.abs(aout - aref).max() < 1e-12, method
+    assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
+                   for m in sys.modules if sys.modules[m] is not None)
     print("NOJAX_OK", sorted(os.listdir(os.path.join(tmp, "out"))))
     """
 )
