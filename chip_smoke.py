@@ -123,8 +123,10 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    jw06_baroclinic_slz.py production_model: MoistEulerSLZ, 48 cells x 96 x
    24, ts 7.5 s, l_q 0, a 12 km top sponge, del^4, horizontal Smagorinsky,
    incremental analysis): balance_zonal_state on the card in f64 against
-   the CPU's at 12 cells x 20 levels (1e-9), then at full width on the card
-   (timed; the residual falls below 0.02 of its first value), 480 f32 steps
+   the CPU's at 12 cells x 20 levels (1e-9; the CPU's from the child process
+   below), then at full width on the card (timed, with phase 33's two CLI
+   processes beside it when both groups run; the residual falls below 0.02
+   of its first value), 480 f32 steps
    from the balanced state with the wind bump: the column solve once a step
    at 13,824 x 24, the analysis twice (the del^4 refit and the closing
    analysis) at [9, 144, 96, 24], steps/s, launches a step, the example's
@@ -209,10 +211,48 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    (1e-13); steps/s and launches a step of one device and of 4 psum and 4
    halo shards, in turns (the cost of 4 shards on one card, not scaling).
 
+32. the published benchmarks of scythe_tpu_torch/examples at their
+   published sizes, in f32 on the card through the examples' functions:
+   the column solve at their shapes (75 x 40, 192 x 64, 384 x 48, 450 x 24
+   and the BF02 gate's 96 x 40; both stages against the f64 chain; timed at
+   the four and at 192 x 64 in f64 beside its plain version and the library
+   call); the warm bubble (3,000 steps; its centroid band), Straka (128 x
+   48, 7,200 steps; tests/test_straka.py's bands), the SK94 wave (150 x 24,
+   4,000 steps; tests/test_inertia_gravity_wave.py's), BF02 at the JAX
+   test's 32 x 40 (4,000 steps; tests/test_bf02_published.py's) and at the
+   published 64 x 64 (10,000 steps; printed beside the published 14.3
+   m/s, held to BF02_PUBLISHED_W_BAND), each with exactly one column-solve
+   launch a step, no call of a kernel's plain version and its steps/s (the
+   SK94 gate in f64: PUBLISHED_F64);
+33. the CLI and the harness entry: python -m scythe_tpu_torch on
+   scythe_tpu_torch/models/linear_advection_1d.py in f64 as two
+   subprocesses at -d 1 and -d 4 (agree at 1e-12; started before phase 19
+   when the jw06 group runs too, so they run beside its balances); the
+   moist RLZ demo config
+   (models/moist_euler_rlz_demo.py, 16 cells x 32 x 40, 2,400 steps) in f32
+   through cli.main with 2,400 column-solve and 2,401 analysis launches
+   and no plain-version call; graft_entry.entry() one step and
+   graft_entry.dryrun_multichip(4) on the card (36 column-solve and 9
+   analysis launches), then both kernels at every shape that run gave
+   them, on its own models (graft_entry.dryrun_models): the column solve at
+   a shard's 48 x 12 (RLZ), 96 x 8 (SLZ) and 48 x 10 (XYZ), both stages, f64
+   and f32, as phase 3, and the analysis of each whole grid, as phase 4;
+34. the last phase, of the examples group: Galewsky in f64 at 128 x 512
+   for whole days, at least one and each further day that ends before
+   GALEWSKY_DEADLINE_S seconds of the script, each day's zonal-deviation
+   energy and u_max against the same run on the CPU (GALEWSKY_RTOL) and
+   beside the JAX example's table.
+
+Two CPU references need no card: the JW06 balance at 12 x 20 (phase 19)
+and fit_parameters' run (phase 26).  One child process of this script
+(``--cpu-reference``, CpuReferences) computes them in f64 on 4 threads from
+the start, beside the card's phases, and those phases wait for it.
+
 ``--only`` runs some phase groups alone (kernels: 3-5; paths: 6-18; jw06:
 19-21; ensembles: 22-23; gradients: 24-26; comp_kernels: 27; comp_moist3d:
-28; comp_flagship: 29; factored: 30; sharded: 31); only a run of all
-prints the kernels line and the closing line.  No phase catches its own failure: any
+28; comp_flagship: 29; factored: 30; sharded: 31; examples: 32 and 34; cli:
+33);
+only a run of all prints the kernels line and the closing line.  No phase catches its own failure: any
 failed check raises and the script exits non-zero.  Without a CUDA device
 it exits 2 and prints no result.
 The last lines of standard output are the card's name and power limit, a
@@ -318,6 +358,66 @@ CS_TIMED = (("9216x48 f32", 9216, 48, "moist3d", False, "float32"),
             ("2304x32 f32 profile", 2304, 32, "shower", True, "float32"),
             ("13824x24 f32", 13824, 24, "jw06", False, "float32"),
             ("2304x48 f32", 2304, 48, "moist3d", False, "float32"))
+
+
+# the CPU references that need no card, by the phase group that reads them:
+# one child process of this script computes them (--cpu-reference) while the
+# card runs the phases before those groups
+CPU_REFERENCES = {"jw06": "jw06_small", "gradients": "fit"}
+CPU_REFERENCE_THREADS = 4
+
+
+class CpuReferences:
+    """The CPU references ``names`` (of CPU_REFERENCES), computed by one child
+    process started here, beside the card's phases; ``get(name)`` waits for
+    the child and loads one; ``close()`` stops the child if it still runs."""
+
+    def __init__(self, names, tmp):
+        self.dir, self.names = tmp, list(names)
+        self.log = os.path.join(tmp, "cpu_references.log")
+        self.proc = None
+        if self.names:
+            with open(self.log, "w") as log:
+                self.proc = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--cpu-reference-dir", tmp,
+                     "--cpu-reference", *self.names],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+    def get(self, name):
+        assert name in self.names, (name, self.names)
+        rc = self.proc.wait(timeout=900)
+        with open(self.log) as log:
+            assert rc == 0, (rc, log.read()[-3000:])
+        return np.load(os.path.join(self.dir, f"cpu_reference_{name}.npz"))
+
+    def close(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def cpu_references(names, out_dir):
+    """The child of CpuReferences: each reference of ``names`` on the CPU in
+    f64, saved to ``out_dir``/cpu_reference_<name>.npz."""
+    import torch
+
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    sys.path.insert(0, ROOT)
+    import scythe_tpu_torch as tx
+    from scythe_tpu_torch import adjoint
+    from scythe_tpu_torch import model as tmodel
+    from scythe_tpu_torch.examples import calibrate_drag as cd
+    from scythe_tpu_torch.examples import jw06_baroclinic_slz as jwx
+
+    for name in names:
+        path = os.path.join(out_dir, f"cpu_reference_{name}.npz")
+        if name == "jw06_small":
+            _, _, _, phys, history, _ = jw06_small(tx, tmodel, jwx, torch, out_dir, "cpu")
+            np.savez(path, phys=phys, history=np.asarray(history))
+        else:
+            fit, history = fit_case(tx, torch, cd, adjoint, out_dir, "cpu")
+            np.savez(path, Cd=fit["Cd"], history=np.asarray(history))
+    return 0
 
 
 def zero_counts(*mods):
@@ -730,6 +830,45 @@ def check_stage(torch, cs, o64, o32, x, w, stage, pxi):
             "counterpart f64": rc64, "counterpart f32": rc32}, e32, el
 
 
+def time_column_solve(torch, tti, cs, rng, label, ncols, nz, column, profile, dname):
+    """The column solve at ``ncols`` x ``nz`` in ``dname`` on the stage
+    operator of ``column`` = (zmax, ts, Pxi_bar, Pxi_prof) (the profile
+    where ``profile``): kernel, plain chain and library call (one
+    torch.matmul of [x* | w*] by M^T) timed in turns as device time (200
+    calls queued behind a sleep kernel) and back to back, each one's error
+    against the f64 chain printed; returns (kernel ms, plain ms, library ms,
+    bound ms, bound_by), the least of each."""
+    dtype = getattr(torch, dname)
+    zmax_, ts_, bar, prof = column
+    p = prof if profile else bar
+    o = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, p, ts_, dtype, "cuda")
+    o64 = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, p, ts_, torch.float64, "cuda")
+    ops = (o.col_filter, o.col_deriv, o.hinv, o.synth, o.dsynth)
+    x64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+    w64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+    x, w = x64.to(dtype), w64.to(dtype)
+    xw = torch.cat([x, w], dim=1).contiguous()
+    m_t = o.solve.M.T
+    p_dev = torch.as_tensor(p, dtype=dtype, device="cuda") if profile else p
+    plain = lambda: cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts_, p_dev)  # noqa: E731
+    kernel = lambda: cs.apply_column_operator(x, w, o.solve)  # noqa: E731
+    library = lambda: torch.matmul(xw, m_t)  # noqa: E731
+    ref = cs.fused_column_solve_plain(x64, w64, o64.col_filter, o64.col_deriv, o64.hinv,
+                                      o64.synth, o64.dsynth, 1.25 * ts_, p)
+    lib_out = library()
+    err = {"kernel": rel_errs(kernel(), ref)[0], "plain": rel_errs(plain(), ref)[0],
+           "library": rel_errs((lib_out[:, :nz], lib_out[:, nz:]), ref)[0]}
+    kt, pt, lt = in_turns(plain, kernel, 200, timer=queued_time_ms, library=library)
+    kb, pb, lb = in_turns(plain, kernel, 200, library=library)
+    bound, by = column_solve_bound(ncols, nz, dname)
+    print(f"  column solve {label}: device time kernel {kt} ms, plain {pt} ms, library "
+          f"{lt} ms; back to back kernel {kb} ms, plain {pb} ms, library {lb} ms; bound "
+          f"{bound:.5f} ms ({by}), kernel at {100.0 * bound / min(kt):.1f}% of it; rel err "
+          f"against the f64 chain: kernel {err['kernel']:.3e}, plain {err['plain']:.3e}, "
+          f"library {err['library']:.3e}", flush=True)
+    return (min(kt), min(pt), min(lt), bound, by)
+
+
 def phase_column_solve(torch, tti, cs, columns):
     """Phase 3; ``columns`` maps "moist3d", "shower" and "jw06" to (zmax, ts,
     Pxi_bar, Pxi_prof) of their reference states.  Returns ({"kernel" | "library":
@@ -790,35 +929,8 @@ def phase_column_solve(torch, tti, cs, columns):
     t0 = time.perf_counter()
     times = {}
     for label, ncols, nz, src, profile, dname in CS_TIMED:
-        dtype = getattr(torch, dname)
-        zmax_, ts_, bar, prof = columns[src]
-        p = prof if profile else bar
-        o = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, p, ts_, dtype, "cuda")
-        o64 = tti.build_semiimplicit_ops(nz, 0.0, zmax_, None, p, ts_, torch.float64, "cuda")
-        ops = (o.col_filter, o.col_deriv, o.hinv, o.synth, o.dsynth)
-        x64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
-        w64 = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
-        x, w = x64.to(dtype), w64.to(dtype)
-        xw = torch.cat([x, w], dim=1).contiguous()
-        m_t = o.solve.M.T
-        p_dev = torch.as_tensor(p, dtype=dtype, device="cuda") if profile else p
-        plain = lambda: cs.fused_column_solve_plain(x, w, *ops, 1.25 * ts_, p_dev)  # noqa: E731
-        kernel = lambda: cs.apply_column_operator(x, w, o.solve)  # noqa: E731
-        library = lambda: torch.matmul(xw, m_t)  # noqa: E731
-        ref = cs.fused_column_solve_plain(x64, w64, o64.col_filter, o64.col_deriv, o64.hinv,
-                                          o64.synth, o64.dsynth, 1.25 * ts_, p)
-        lib_out = library()
-        err = {"kernel": rel_errs(kernel(), ref)[0], "plain": rel_errs(plain(), ref)[0],
-               "library": rel_errs((lib_out[:, :nz], lib_out[:, nz:]), ref)[0]}
-        kt, pt, lt = in_turns(plain, kernel, 200, timer=queued_time_ms, library=library)
-        kb, pb, lb = in_turns(plain, kernel, 200, library=library)
-        bound, by = column_solve_bound(ncols, nz, dname)
-        times[label] = (min(kt), min(pt), min(lt), bound, by)
-        print(f"  column solve {label}: device time kernel {kt} ms, plain {pt} ms, library "
-              f"{lt} ms; back to back kernel {kb} ms, plain {pb} ms, library {lb} ms; bound "
-              f"{bound:.5f} ms ({by}), kernel at {100.0 * bound / min(kt):.1f}% of it; rel err "
-              f"against the f64 chain: kernel {err['kernel']:.3e}, plain {err['plain']:.3e}, "
-              f"library {err['library']:.3e}", flush=True)
+        times[label] = time_column_solve(torch, tti, cs, rng, label, ncols, nz, columns[src],
+                                         profile, dname)
     say("column-solve-timing", t0,
         "200 calls a run, min device ms kernel vs plain vs library (bound, share): "
         + ", ".join(f"{k} {a:.5f} vs {b:.5f} vs {c:.5f} ({d:.5f} {e}, "
@@ -870,9 +982,39 @@ ANALYSIS_SHAPES = {
     "slz_test": (9, 12, 32, 24),
     "jw06": (9, 24, 96, 24),
     "jw06_production": (9, 48, 96, 24),
+    "moist_demo": (9, 16, 32, 40),  # the CLI's models/moist_euler_rlz_demo.py
 }
 ANALYSIS_GEOMETRY = {"shower": "XYZ", "slz_test": "SLZ", "jw06": "SLZ",
                      "jw06_production": "SLZ"}
+
+
+ANALYSIS_TOL = ("tol f64 1e-12, f32 vs f64 1e-5 of max|ref| and <= 4x the plain f32 "
+                "chain's error, two calls bitwise equal in each dtype")
+
+
+def check_analysis(torch, ra, name, g64, x, ops64, ops32):
+    """The analysis kernel on f64 ``x`` on the card against its plain chain,
+    in f64 (``ops64``) and f32 (``ops32``), to ANALYSIS_TOL; returns (the
+    f32 kernel's largest absolute error, a line with the errors and plans)."""
+    ref = ra.rlz_analysis_plain(x, *ops64)
+    plain32 = ra.rlz_analysis_plain(x.float(), *ops32)
+    k64, k64b = ra.rlz_analysis(x, *ops64), ra.rlz_analysis(x, *ops64)
+    k32, k32b = ra.rlz_analysis(x.float(), *ops32), ra.rlz_analysis(x.float(), *ops32)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    e64 = float((k64 - ref).abs().max())
+    e32 = float((k32.double() - ref).abs().max())
+    ep = float((plain32.double() - ref).abs().max())
+    assert torch.isfinite(k64).all() and torch.isfinite(k32).all()
+    assert e64 <= 1e-12 * scale, (name, "f64", e64, scale)
+    assert e32 <= 1e-5 * scale, (name, "f32", e32, scale)
+    assert e32 <= 4.0 * ep, (name, "f32 vs the plain f32 chain", e32, ep)
+    assert torch.equal(k64, k64b) and torch.equal(k32, k32b), (name, "not repeatable")
+    p64 = ra.plan(x.shape, g64.params.b_rDim, torch.float64)
+    p32 = ra.plan(x.shape, g64.params.b_rDim, torch.float32)
+    return e32, (f"{name} {g64.geometry} {list(x.shape)}->b_rDim {g64.params.b_rDim}: "
+                 f"rel err f64 {e64 / scale:.2e}, f32 {e32 / scale:.2e} (plain f32 "
+                 f"{ep / scale:.2e}); f32 {p32} {p32.ctas} blocks; f64 {p64} {p64.ctas} blocks")
 
 
 def phase_analysis(tx, torch, ra):
@@ -886,38 +1028,19 @@ def phase_analysis(tx, torch, ra):
         g64, ops64 = analysis_grid(tx, torch, name, torch.float64)
         _, ops32 = analysis_grid(tx, torch, name, torch.float32)
         x = torch.from_numpy(rng.normal(size=(nv,) + g64.spatial_shape)).cuda()
-        ref = ra.rlz_analysis_plain(x, *ops64)
-        plain32 = ra.rlz_analysis_plain(x.float(), *ops32)
-        k64, k64b = ra.rlz_analysis(x, *ops64), ra.rlz_analysis(x, *ops64)
-        k32, k32b = ra.rlz_analysis(x.float(), *ops32), ra.rlz_analysis(x.float(), *ops32)
-        torch.cuda.synchronize()
-        scale = float(ref.abs().max())
-        e64 = float((k64 - ref).abs().max())
-        e32 = float((k32.double() - ref).abs().max())
-        ep = float((plain32.double() - ref).abs().max())
-        assert torch.isfinite(k64).all() and torch.isfinite(k32).all()
-        assert e64 <= 1e-12 * scale, (name, "f64", e64, scale)
-        assert e32 <= 1e-5 * scale, (name, "f32", e32, scale)
-        assert e32 <= 4.0 * ep, (name, "f32 vs the plain f32 chain", e32, ep)
-        assert torch.equal(k64, k64b) and torch.equal(k32, k32b), (name, "not repeatable")
+        e32, line = check_analysis(torch, ra, name, g64, x, ops64, ops32)
         if name == "tc":
             tc_err = e32
-        p64 = ra.plan(x.shape, g64.params.b_rDim, torch.float64)
-        p32 = ra.plan(x.shape, g64.params.b_rDim, torch.float32)
-        lines.append(f"{name} {g64.geometry} {list(x.shape)}->b_rDim {g64.params.b_rDim}: "
-                     f"rel err f64 {e64 / scale:.2e}, f32 {e32 / scale:.2e} (plain f32 "
-                     f"{ep / scale:.2e}); "
-                     f"f32 {p32} {p32.ctas} blocks; f64 {p64} {p64.ctas} blocks")
-    say("analysis-vs-plain", t0,
-        "tol f64 1e-12, f32 vs f64 1e-5 of max|ref| and <= 4x the plain f32 chain's "
-        "error, two calls bitwise equal in each dtype; " + " | ".join(lines))
+        lines.append(line)
+    say("analysis-vs-plain", t0, ANALYSIS_TOL + "; " + " | ".join(lines))
 
     t0 = time.perf_counter()
     times = {}
     for name, dtype in (("moist3d", torch.float32), ("transform", torch.float32),
                         ("tc", torch.float32), ("moist3d_f64", torch.float64),
                         ("shower", torch.float32), ("slz_test", torch.float32),
-                        ("jw06", torch.float32), ("jw06_production", torch.float32)):
+                        ("jw06", torch.float32), ("jw06_production", torch.float32),
+                        ("moist_demo", torch.float32)):
         g, ops = analysis_grid(tx, torch, name.removesuffix("_f64"), dtype)
         nv = ANALYSIS_SHAPES[name.removesuffix("_f64")][0]
         x = torch.from_numpy(rng.normal(size=(nv,) + g.spatial_shape)).to("cuda", dtype)
@@ -1119,17 +1242,21 @@ def launches_per_step(torch, run, n_short, n_long, tries=3):
     return best
 
 
-def phase_jw06(tx, tmodel, tw, torch, cs, ra, tmp, card, out_dir):
-    """Phases 19-21: JW06 at its production recipe on the card."""
+def jw06_small(tx, tmodel, tw, torch, tmp, device):
+    """jw06_case at the balance check's reduced size (12 cells x 20 levels)
+    on ``device``."""
+    return jw06_case(tx, tmodel, tw, torch, os.path.join(tmp, f"jw06_small_{device}"), 20,
+                     device, cells=12, zdim=20)
+
+
+def phase_jw06(tx, tmodel, tw, torch, cs, ra, tmp, card, out_dir, refs):
+    """Phases 19-21: JW06 at its production recipe on the card; the CPU's
+    balance from ``refs`` (CpuReferences)."""
     # ---- 19: the balance on the card against the CPU's, at a reduced size
     t0 = time.perf_counter()
-    small = {}
-    for dev in ("cuda", "cpu"):
-        model_s, _, _, phys_s, hist_s, secs = jw06_case(
-            tx, tmodel, tw, torch, os.path.join(tmp, f"jw06_small_{dev}"), 20, dev, cells=12,
-            zdim=20)
-        small[dev] = (phys_s, hist_s, secs)
-    (p_gpu, h_gpu, s_gpu), (p_cpu, h_cpu, _) = small["cuda"], small["cpu"]
+    _, _, _, p_gpu, h_gpu, s_gpu = jw06_small(tx, tmodel, tw, torch, tmp, "cuda")
+    ref = refs.get("jw06_small")
+    p_cpu, h_cpu = ref["phys"], list(ref["history"])
     rel_bal = float(np.abs(p_gpu - p_cpu).max() / np.abs(p_cpu).max())
     assert len(h_gpu) == len(h_cpu), (h_gpu, h_cpu)
     rel_hist = max(abs(a - b) for a, b in zip(h_gpu, h_cpu)) / h_cpu[0]
@@ -1476,9 +1603,22 @@ def phase_kernel_gradients(tx, tti, torch, cs, ra, columns):
     return times
 
 
-def phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint):
+def fit_case(tx, torch, cd, adjoint, tmp, device):
+    """(fitted parameters, loss history) of fit_parameters on
+    calibrate_drag's case in f64 on ``device``, 3 Adam iterations."""
+    sim, grid, _ = tx.make_simulator(cd.drag_model(out_dir=os.path.join(tmp, f"drag_{device}")),
+                                     torch.float64, device=device)
+    p0 = cd.rankine_phys(grid)
+    with torch.no_grad():
+        obs = sim({"Cd": cd.CD_TRUE}, p0)[1:3]
+    return adjoint.fit_parameters(sim, {"Cd": cd.CD_INIT}, p0, obs, steps=3,
+                                  learning_rate=0.08, obs_slice=np.s_[1:3])
+
+
+def phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint, refs):
     """Phases 25-26: a whole gradient through both kernels on the card, and
-    fit_parameters on the card, each against the CPU."""
+    fit_parameters on the card, each against the CPU (fit_parameters' from
+    ``refs``, CpuReferences)."""
     # ---- 25: make_simulator on the SLZ test grid, 20 semi-implicit steps
     t0 = time.perf_counter()
     zm = slz_test_model(tx, tmp, 20, thermal=True)
@@ -1523,16 +1663,9 @@ def phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint):
 
     # ---- 26: fit_parameters on the card, calibrate_drag's case
     t0 = time.perf_counter()
-    fits = {}
-    for dev in ("cuda", "cpu"):
-        sim, grid, _ = tx.make_simulator(cd.drag_model(out_dir=os.path.join(tmp, "drag")),
-                                         torch.float64, device=dev)
-        p0 = cd.rankine_phys(grid)
-        with torch.no_grad():
-            obs = sim({"Cd": cd.CD_TRUE}, p0)[1:3]
-        fits[dev] = adjoint.fit_parameters(sim, {"Cd": cd.CD_INIT}, p0, obs, steps=3,
-                                              learning_rate=0.08, obs_slice=np.s_[1:3])
-    (f_g, h_g), (f_c, h_c) = fits["cuda"], fits["cpu"]
+    f_g, h_g = fit_case(tx, torch, cd, adjoint, tmp, "cuda")
+    ref = refs.get("fit")
+    f_c, h_c = {"Cd": float(ref["Cd"])}, list(ref["history"])
     rel_h = max(abs(a - b) / abs(b) for a, b in zip(h_g, h_c))
     rel_cd = abs(f_g["Cd"] - f_c["Cd"]) / f_c["Cd"]
     assert h_g[-1] < h_g[0] and rel_h <= 1e-9 and rel_cd <= 1e-9, (h_g, h_c, f_g, f_c)
@@ -2288,8 +2421,494 @@ def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
     return out
 
 
+# the published runs of scythe_tpu_torch/examples at their published sizes,
+# in f32 on the card, each held to its JAX test's bands (the warm bubble:
+# the centroid band of the JAX example's recorded run); the CPU f64 readings
+# of the same runs are in PERF.md (tools/torch_published_reference.py)
+WARM_BUBBLE_CENTROID_BAND = (2050.0, 2150.0)  # m; CPU f64 2086.87
+# tests/test_straka.py:62-81 (CPU f64 at 128 x 48: front 14,754.9 m,
+# theta'_min -9.103 K, front speed 14.37 m/s)
+STRAKA_BANDS = {"front_m": (13000.0, 17500.0), "theta_min_K": (-12.0, -5.0),
+                "front_speed_m_s": (8.0, 30.0)}
+STRAKA_Z_OF_MIN_MAX = 1500.0
+# tests/test_inertia_gravity_wave.py:49-70 (CPU f64: corr 0.8631)
+IGW_CORR_MIN = 0.84
+IGW_RATIO_BAND = (0.75, 1.25)
+IGW_CENTROID_TOL = 10000.0
+IGW_U_MEAN_TOL, IGW_U_DEV_MAX = 0.01, 0.2
+# tests/test_bf02_published.py:58-72, held on the test's own configuration
+# (Delta = 208 m: 32 cells x 40 levels, ts 0.25 s, 4,000 steps); the
+# published size (64 x 64, 10,000 steps) is driven too and its readings
+# printed beside the published 14.3 m/s
+BF02_GATE = {"num_cells": 32, "zdim": 40, "ts": 0.25, "t_end": 1000.0}
+BF02_W_BAND = (9.1, 12.4)
+BF02_THETA_E_DRIFT = 1.0  # K
+BF02_PUBLISHED_W = 14.3  # m/s, BF02's Delta = 100 m run
+# the published size's w_max after 1000 s: the JAX package and the port read
+# 16.1508 m/s in f64 on the CPU (tools/torch_published_reference.py and the
+# JAX example; PERF.md), the card 16.1436 in f32; the band is +-0.5 m/s
+# around the f64 reading (the test's own bands belong to its Delta = 208 m
+# configuration, and neither package meets them at 64 x 64 in f64)
+BF02_PUBLISHED_W_BAND = (15.65, 16.65)
+# Galewsky runs last: after day 1 (each day ~2,541 f64 steps at 128 x 512,
+# ~4 s on one H100) a day runs only if it would end before this many seconds
+# of the whole script, so a slow host cuts the roll-up and not the run
+GALEWSKY_DEADLINE_S = 760.0
+# Galewsky's (zonal-deviation energy m^2, u_max m/s) each day, from the same
+# f64 run on the CPU (tools/torch_published_reference.py --runs galewsky
+# --galewsky-days 6; PERF.md); the JAX example's own run reads day 1 alike
+# (6.03, 78.2).  Its docstring's table (examples/galewsky_instability.py:
+# 8-13; 78.0 m/s on day 1) is printed beside them: it does not match the
+# example's code to its digits in either package
+GALEWSKY_CPU_F64 = {1: (6.026674982561442, 78.19728159421253),
+                    2: (7.428239149356653, 76.58449365933264),
+                    3: (10.063670718218072, 75.47302613531623),
+                    4: (97.10594589261028, 75.55710191202644),
+                    5: (956.7427760428485, 75.06462757587238),
+                    6: (4143.315488045922, 74.56439548211551)}
+GALEWSKY_RTOL = 1e-6  # the card's f64 against the CPU's, each reading
+# the published runs whose gate runs in f64 on the card: the SK94 wave in
+# f32 reads a correlation of 0.70 and an energy centroid ~150 km from the
+# analytic one, on the card and on the CPU alike (its 0.01 K anomaly is 3e-5
+# of theta, a few f32 roundings; PERF.md, ROADMAP queue 3;
+# tools/torch_igw_f32_check.py), and in f64 it holds the test's bands
+PUBLISHED_F64 = ("igw",)
+# (label, example, ncols, nz) of the column solve on the published runs
+CS_PUBLISHED = (("75x40", "warm_bubble", 75, 40), ("192x64", "bf02", 192, 64),
+                ("384x48", "straka", 384, 48), ("450x24", "igw", 450, 24))
+
+
+def published_model(name, base):
+    """The published run ``name`` (warm_bubble, straka, igw, bf02, or
+    bf02_gate: the JAX test's BF02 configuration) at its size, its files
+    (sounding or reference file, ICs) written under ``base``."""
+    import torch
+    from scythe_tpu_torch import create_grid
+    from scythe_tpu_torch.examples import bf02_moist_benchmark as bf
+    from scythe_tpu_torch.examples import inertia_gravity_wave as igw
+    from scythe_tpu_torch.examples import straka_density_current as st
+    from scythe_tpu_torch.examples import warm_bubble as wb
+    from scythe_tpu_torch.model import build_context
+
+    out = os.path.join(base, name)
+    if name == "warm_bubble":
+        model = wb.build_model(out)
+        wb.write_ics(model)
+        return model
+    mod, model = {"straka": (st, lambda: st.build_model(out)),
+                  "igw": (igw, lambda: igw.build_model(out)),
+                  "bf02": (bf, lambda: bf.build_model(out)),
+                  "bf02_gate": (bf, lambda: bf.build_model(out, **BF02_GATE))}[name]
+    model = model()
+    grid = create_grid(model.grid_params, torch.float64, device="cpu")  # the ICs
+    mod.write_ics(model, grid, build_context(model, grid, torch.float64).ref_state)
+    return model
+
+
+def published_run(name, model, dtype, device):
+    """The readings of one published run of ``model`` on ``device``, the
+    examples' own functions (tools/torch_published_reference.py runs the
+    same on any device)."""
+    from scythe_tpu_torch import integrate_model
+    from scythe_tpu_torch.examples import bf02_moist_benchmark as bf
+    from scythe_tpu_torch.examples import inertia_gravity_wave as igw
+    from scythe_tpu_torch.examples import straka_density_current as st
+    from scythe_tpu_torch.examples import warm_bubble as wb
+
+    if name == "warm_bubble":
+        grid, phys = integrate_model(model, dtype=dtype, device=device)
+        assert np.isfinite(phys).all()
+        w_max, zc = wb.readings(grid, phys)
+        return {"w_max": w_max, "centroid_z_m": zc}
+    if name == "straka":
+        grid, ctx, runs = st.snapshots(model, 3, dtype, device)
+        return st.readings(grid, ctx.ref_state, runs)
+    if name == "igw":
+        grid, ctx, runs = st.snapshots(model, 1, dtype, device)
+        return igw.readings(grid, ctx.ref_state, runs[-1][1], model.integration_time)
+    _, _, rows = bf.simulate(model, dtype, device, report_every=model.integration_time)
+    keys = ("w_max", "trho_max", "trho_min", "theta_e_min", "theta_e_max")
+    return {"t0": dict(zip(keys, rows[0][1])), "t_end": dict(zip(keys, rows[-1][1]))}
+
+
+def check_published(name, r):
+    """The JAX test's bands of one published run's readings."""
+    if name == "warm_bubble":
+        lo, hi = WARM_BUBBLE_CENTROID_BAND
+        assert lo < r["centroid_z_m"] < hi and r["w_max"] > 0.0, r
+    elif name == "straka":
+        for key, (lo, hi) in STRAKA_BANDS.items():
+            val = r[key][-1] if isinstance(r[key], list) else r[key]
+            assert lo < val < hi, (key, r)
+        assert r["front_m"][0] < r["front_m"][1] < r["front_m"][2], r
+        assert r["z_of_min_m"] < STRAKA_Z_OF_MIN_MAX, r
+    elif name == "igw":
+        assert r["corr"] > IGW_CORR_MIN, r
+        for a, b in (("theta_max", "analytic_max"), ("theta_min", "analytic_min")):
+            assert IGW_RATIO_BAND[0] < r[a] / r[b] < IGW_RATIO_BAND[1], (a, r)
+        assert abs(r["centroid_m"] - r["analytic_centroid_m"]) < IGW_CENTROID_TOL, r
+        assert abs(r["u_mean"] - 20.0) < IGW_U_MEAN_TOL and r["u_dev_max"] < IGW_U_DEV_MAX, r
+    else:
+        t0, t1 = r["t0"], r["t_end"]
+        assert 1.8 < t0["trho_max"] < 2.1 and abs(t0["trho_min"]) < 0.15, r
+        assert t0["w_max"] == 0.0, r
+        if name == "bf02_gate":
+            assert BF02_W_BAND[0] < t1["w_max"] < BF02_W_BAND[1], r
+            assert t1["theta_e_min"] > t0["theta_e_min"] - BF02_THETA_E_DRIFT, r
+            assert t1["theta_e_max"] < t0["theta_e_max"] + BF02_THETA_E_DRIFT, r
+        else:
+            assert BF02_PUBLISHED_W_BAND[0] < t1["w_max"] < BF02_PUBLISHED_W_BAND[1], r
+
+
+def phase_examples(tx, tmodel, tti, torch, cs, ra, tmp, card):
+    """Phase 32: the column solve at the published runs' shapes against its
+    plain version and the library call; the published runs (warm bubble,
+    Straka, SK94 in f64, BF02 at the JAX test's size and at the published
+    one) in f32 through the examples' functions, each with its column-solve
+    launches (one a step) and no call of a kernel's plain version, its
+    steps/s by the host clock (set-up and snapshots included).  Galewsky is
+    phase 34, the last."""
+    out = {"launches": {}, "steps_per_s": {}, "readings": {}}
+    base = os.path.join(tmp, "published")
+    models = {}
+    # ---- 32a: the column solve at the published runs' shapes
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(32)
+    columns, lines, worst = {}, [], {}
+    for label, name, ncols, nz in CS_PUBLISHED + (("96x40", "bf02_gate", 96, 40),):
+        m = models[name] = published_model(name, base)
+        rs = tmodel.build_context(
+            m, tx.create_grid(m.grid_params, torch.float64, device="cpu"),
+            torch.float64).ref_state
+        assert (m.grid_params.rDim, m.grid_params.zDim) == (ncols, nz), (name, ncols, nz)
+        columns[name] = (m.grid_params.zmax, m.ts, float(rs.Pxi_bar),
+                         rs.Pxi_prof.numpy().astype(np.float64))
+        o64 = tti.build_semiimplicit_ops(nz, 0.0, m.grid_params.zmax, None, float(rs.Pxi_bar),
+                                         m.ts, torch.float64, "cuda")
+        o32 = tti.build_semiimplicit_ops(nz, 0.0, m.grid_params.zmax, None, float(rs.Pxi_bar),
+                                         m.ts, torch.float32, "cuda")
+        x = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        w = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        for stage in ("t1", "ab"):
+            errs, _, _ = check_stage(torch, cs, o64, o32, x, w, stage, float(rs.Pxi_bar))
+            for key, v in errs.items():
+                worst[key] = max(worst.get(key, 0.0), v)
+            lines.append(f"{label} {stage}: f64 {errs['f64']:.2e}, f32 {errs['f32']:.2e} "
+                         f"({errs['f32 / plain f32']:.2f}x the plain f32 chain's)")
+    print("  column-solve plans: " + " | ".join(
+        f"{ncols}x{nz}: f32 {cs.plan(ncols, nz, torch.float32)}; f64 "
+        f"{cs.plan(ncols, nz, torch.float64)}" for _, _, ncols, nz in CS_PUBLISHED), flush=True)
+    say("column-solve-published-vs-plain", t0,
+        "the published runs' operators (their soundings' Pxi_bar, ts and depth) at 75 x 40, "
+        "192 x 64, 384 x 48, 450 x 24 and the BF02 gate's 96 x 40, both stages, f64 and f32 "
+        "against the f64 chain (tol 1e-12; 1e-5 and 4x the plain f32 chain's error), two "
+        "calls bitwise equal: " + "; ".join(lines))
+    t0 = time.perf_counter()
+    times = {}
+    for label, name, ncols, nz in CS_PUBLISHED:
+        times[label] = time_column_solve(torch, tti, cs, rng, label + " f32", ncols, nz,
+                                         columns[name], False, "float32")
+    times["192x64 f64"] = time_column_solve(torch, tti, cs, rng, "192x64 f64", 192, 64,
+                                            columns["bf02"], False, "float64")
+    out["column_solve_times"] = times
+    say("column-solve-published-timing", t0,
+        "200 calls a run, min device ms kernel vs plain vs library (bound, share): "
+        + ", ".join(f"{k} {a:.5f} vs {b:.5f} vs {c:.5f} ({d:.5f} {e}, {100.0 * d / a:.1f}%)"
+                    for k, (a, b, c, d, e) in times.items()))
+
+    # ---- 32b: the published runs, the counts reset just before each
+    published = {"warm_bubble": "column solve of 75 x 40 a step",
+                 "straka": "column solve of 384 x 48 a step",
+                 "igw": "column solve of 450 x 24 a step",
+                 "bf02_gate": "column solve of 96 x 40 a step",
+                 "bf02": "column solve of 192 x 64 a step"}
+    for name, what in published.items():
+        t0 = time.perf_counter()
+        model = models[name]
+        dtype = torch.float64 if name in PUBLISHED_F64 else torch.float32
+        with plain_version_calls(cs, ra) as plain:
+            zero_counts(cs, ra)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            r = published_run(name, model, dtype, "cuda")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - h0
+            launches = (cs.launches, ra.launches)
+        assert launches == (model.num_ts, 0), (name, launches, model.num_ts)
+        assert plain == [], (name, sorted(set(plain)))
+        check_published(name, r)
+        out["launches"][name] = launches
+        out["steps_per_s"][name] = model.num_ts / seconds
+        out["readings"][name] = r
+        published_note = {
+            "warm_bubble": f"centroid band {WARM_BUBBLE_CENTROID_BAND} m",
+            "straka": "Straka et al. 1993 converged: front 15,537 m, theta'_min -9.77 K; "
+                      f"bands {STRAKA_BANDS}, z of the minimum < {STRAKA_Z_OF_MIN_MAX} m",
+            "igw": f"corr > {IGW_CORR_MIN}, extrema ratios in {IGW_RATIO_BAND}, centroid "
+                   f"within {IGW_CENTROID_TOL} m, u mean within {IGW_U_MEAN_TOL} of 20 m/s",
+            "bf02_gate": f"tests/test_bf02_published.py: w_max in {BF02_W_BAND} m/s, theta_e "
+                         f"extrema within {BF02_THETA_E_DRIFT} K",
+            "bf02": f"published (BF02 Delta = 100 m) w_max ~{BF02_PUBLISHED_W} m/s "
+                    f"(reproductions 13.9-14.6); band {BF02_PUBLISHED_W_BAND} m/s around "
+                    "both packages' CPU f64 reading, 16.1508"}[name]
+        say(f"published-{name}", t0,
+            f"{model.equation_set} {model.grid_params.num_cells} cells x "
+            f"{model.grid_params.zDim} levels, ts {model.ts} s, {model.num_ts} "
+            f"{str(dtype).removeprefix('torch.')} steps on cuda: {json.dumps(r)} "
+            f"({published_note}); (column-solve, analysis) launches {launches} ({what}); "
+            f"plain-version calls 0; {model.num_ts / seconds:.2f} steps/s by the host clock "
+            f"({seconds:.2f} s, set-up included) on {card}")
+
+    return out
+
+
+def phase_galewsky(torch, cs, ra, t_main):
+    """Phase 34: Galewsky in f64 at 128 x 512 for whole days, the last
+    phase: at least day 1, then each day that ends before
+    GALEWSKY_DEADLINE_S seconds from ``t_main``; each day's zonal-deviation
+    energy and u_max against the same run on the CPU (GALEWSKY_RTOL),
+    beside the JAX example's table."""
+    from scythe_tpu_torch.examples import galewsky_instability as gw
+
+    t0 = time.perf_counter()
+    gm = gw.build_model(128, 6)
+    zero_counts(cs, ra)
+    days, t_day = {}, None
+    for d, fields in gw.run_days(gm, 6, "cuda"):
+        energy, u_max, finite = gw.day_readings(fields)
+        e_ref, u_ref = GALEWSKY_CPU_F64[d]
+        rel = max(abs(energy - e_ref) / e_ref, abs(u_max - u_ref) / u_ref)
+        days[d] = {"dev_energy_m2": energy, "u_max_m_s": u_max, "rel_vs_cpu_f64": rel}
+        print(f"  galewsky day {d}: {json.dumps(days[d])}; CPU f64 {GALEWSKY_CPU_F64[d]}; "
+              f"the JAX example's table {gw.REFERENCE[d]}", flush=True)
+        assert finite and rel <= GALEWSKY_RTOL, (d, days[d], GALEWSKY_CPU_F64[d])
+        t_day = (time.perf_counter() - t0) / d
+        if time.perf_counter() - t_main + t_day > GALEWSKY_DEADLINE_S:
+            break
+    assert (cs.launches, ra.launches) == (0, 0), (cs.launches, ra.launches)
+    out = {"days": days, "seconds_a_day": t_day, "steps_a_day": int(round(86400.0 / gm.ts))}
+    say("published-galewsky", t0,
+        f"ShallowWaterSphere [3, 384, 512] f64 on cuda, ts {gm.ts} s, {len(days)} days of "
+        f"{out['steps_a_day']} steps: {json.dumps(days)} against the same run on the CPU in "
+        f"f64 (tol {GALEWSKY_RTOL}); the JAX example's table {json.dumps(gw.REFERENCE)}; "
+        f"{t_day:.2f} s a day; no hand-written kernel on this path, the counts say 0")
+    return out
+
+
+class CliLinearAdvection:
+    """Phase 33a's two processes, started here: python -m scythe_tpu_torch
+    --dtype f64 -d 1 and -d 4 on the port's models/linear_advection_1d.py,
+    each in a directory of its own with the IC file, side by side on the
+    card; ``beside`` names what else ran meanwhile."""
+
+    def __init__(self, tx, torch, tmp, beside=""):
+        from scythe_tpu_torch import io as sio
+
+        gp = tx.GridParameters(geometry="R", xmin=-50.0, xmax=50.0, num_cells=100,
+                               BCL={"u": tx.BC.PERIODIC}, BCR={"u": tx.BC.PERIODIC},
+                               vars={"u": 1})
+        self.r = tx.create_grid(gp, torch.float64, device="cpu").r_mish
+        self.beside = beside
+        cfg = os.path.join(ROOT, "scythe_tpu_torch", "models", "linear_advection_1d.py")
+        self.procs, self.dirs = {}, {}
+        self.t0 = time.perf_counter()
+        for d in (1, 4):
+            cwd = self.dirs[d] = os.path.join(tmp, f"cli_{d}")
+            os.makedirs(cwd)
+            sio._write_csv(os.path.join(cwd, "1d_linear_advection_test_ics.csv"), ["r", "u"],
+                           np.stack([self.r, np.exp(-(self.r / 20.0) ** 2)], 1))
+            with open(os.path.join(cwd, "stdout.txt"), "w") as log:
+                self.procs[d] = subprocess.Popen(
+                    [sys.executable, "-m", "scythe_tpu_torch", "--dtype", "f64", "-d", str(d),
+                     cfg], cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
+                    env={**os.environ, "PYTHONPATH": ROOT})
+
+    def close(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_cli(tx, tmodel, tti, torch, cs, ra, tmp, cli_la):
+    """Phase 33: the CLI (python -m scythe_tpu_torch) on the card: the port's
+    models/linear_advection_1d.py as a subprocess at -d 1 and -d 4 in f64
+    (``cli_la``, the CliLinearAdvection that started them; agree at 1e-12);
+    the moist RLZ demo config in f32 through cli.main with exact launch
+    counts; graft_entry.entry() one step; graft_entry.dryrun_multichip(4)."""
+    from scythe_tpu_torch import cli, graft_entry
+
+    out = {}
+    models = os.path.join(ROOT, "scythe_tpu_torch", "models")
+    # ---- 33a: the linear advection config at -d 1 and -d 4
+    t0 = time.perf_counter()
+    from scythe_tpu_torch import io as sio
+
+    finals = {}
+    for d, proc in cli_la.procs.items():
+        rc = proc.wait(timeout=600)
+        with open(os.path.join(cli_la.dirs[d], "stdout.txt")) as f:
+            stdout = f.read()
+        assert rc == 0, stdout[-3000:]
+        assert "All done!" in stdout and "available device(s), using" in stdout
+        _, finals[d] = sio._read_csv(os.path.join(cli_la.dirs[d], "linearAdvection1D_out",
+                                                  "physical_out_100.0.csv"))
+    secs = time.perf_counter() - cli_la.t0
+    r = cli_la.r
+    rel = float(np.abs(finals[4] - finals[1]).max() / np.abs(finals[1]).max())
+    assert np.isfinite(finals[1]).all() and rel <= 1e-12, rel
+    l2 = float(np.sqrt(np.sum((finals[1][:, 1] - np.exp(-(r / 20.0) ** 2)) ** 2)))
+    out["linear_advection"] = {"rel_4_vs_1": rel, "l2_one_period": l2, "seconds": secs}
+    say("cli-linear-advection", t0,
+        f"python -m scythe_tpu_torch --dtype f64 -d 1 / -d 4 scythe_tpu_torch/models/"
+        f"linear_advection_1d.py on cuda, 2,000 steps: -d 4 (4 thread-shards) vs -d 1 rel "
+        f"err {rel:.3e} (tol 1e-12); L2(final - initial) after one period {l2:.3e}; both "
+        f"processes side by side, {secs:.1f} s from their start to this check"
+        + (f" ({cli_la.beside})" if cli_la.beside else ""))
+
+    # ---- 33b: the moist RLZ demo config through the CLI, in this process
+    t0 = time.perf_counter()
+    cwd = os.path.join(tmp, "cli_moist")
+    os.makedirs(os.path.join(cwd, "moist_rlz"))
+    write_sounding(os.path.join(cwd, "moist_rlz", "sounding.txt"))
+    demo = os.path.join(models, "moist_euler_rlz_demo.py")
+    import runpy
+
+    model = runpy.run_path(demo)["model"]
+    pts = tx.create_grid(model.grid_params, torch.float64, device="cpu").gridpoints()
+    rad = np.sqrt(((pts[:, 0] * np.cos(pts[:, 1]) - 8000.0) / 2000.0) ** 2
+                  + (pts[:, 0] * np.sin(pts[:, 1]) / 2000.0) ** 2
+                  + ((pts[:, 2] - 2000.0) / 2000.0) ** 2)
+    write_ics(sio, os.path.join(cwd, "moist_rlz", "ics.csv"), ["r", "l", "z"], pts,
+              {"s": 2.0 * np.maximum(0.0, np.cos(np.pi * np.minimum(rad, 1.0) / 2.0)) ** 2})
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with plain_version_calls(cs, ra) as plain:
+            zero_counts(cs, ra)
+            h0 = time.perf_counter()
+            assert cli.main(["--dtype", "f32", demo]) == 0
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - h0
+            launches = (cs.launches, ra.launches)
+    finally:
+        os.chdir(here)
+    assert launches == (model.num_ts, model.num_ts + 1) == (2400, 2401), launches
+    assert plain == [], sorted(set(plain))
+    outs = sorted(f for f in os.listdir(os.path.join(cwd, "moist_rlz"))
+                  if f.startswith("physical_out_"))
+    assert len(outs) == 11, outs
+    phys = sio.read_physical_grid(os.path.join(cwd, "moist_rlz", "physical_out_600.0.csv"),
+                                  tx.create_grid(model.grid_params, torch.float64, device="cpu"))
+    w_max = float(phys[MOIST3D_VARS.index("w")].max())
+    assert phys.shape == (9, 48, 32, 40) and np.isfinite(phys).all() and w_max > 0.01, w_max
+    out["moist_demo"] = {"launches": launches, "steps_per_s": model.num_ts / seconds,
+                         "w_max": w_max}
+    say("cli-moist-demo", t0,
+        f"cli.main(['--dtype', 'f32', 'scythe_tpu_torch/models/moist_euler_rlz_demo.py']) "
+        f"on cuda: MoistEulerRLZ [9, 48, 32, 40], {model.num_ts} steps: (column-solve, "
+        f"analysis) launches {launches} (a solve of 1,536 x 40 columns a step, the analysis "
+        f"kernel a step and once at set-up); plain-version calls 0; {len(outs)} outputs; "
+        f"w.max {w_max:.4f} m/s; {model.num_ts / seconds:.2f} steps/s by the host clock "
+        f"(outputs and set-up included)")
+
+    # ---- 33c: the harness entry; the kernels at the dryrun's shapes
+    t0 = time.perf_counter()
+    fn, (state,) = graft_entry.entry(device="cuda")
+    nxt = fn(state)
+    assert nxt.spec.is_cuda and torch.isfinite(nxt.spec).all() and nxt.t == 2
+    with kernel_shapes(torch, cs, ra) as seen:
+        zero_counts(cs, ra)
+        done = graft_entry.dryrun_multichip(DRYRUN_SHARDS, device="cuda")
+        torch.cuda.synchronize()
+        launches = (cs.launches, ra.launches)
+    out["dryrun_multichip"] = {"steps": len(done), "launches": launches}
+    assert len(done) == 19 and launches == DRYRUN_LAUNCHES, out["dryrun_multichip"]
+    checked, lines = check_dryrun_kernels(tx, tmodel, tti, torch, cs, ra, tmp, DRYRUN_SHARDS)
+    assert seen <= checked, (sorted(seen - checked), sorted(checked))
+    say("graft-entry", t0,
+        f"graft_entry.entry(): one flagship step [6, 35, 32] f32 on cuda, finite; "
+        f"dryrun_multichip({DRYRUN_SHARDS}) on a ThreadMesh of {DRYRUN_SHARDS} on cuda: "
+        f"{len(done)} groups ({done}), (column-solve, analysis) launches {launches} at "
+        f"{sorted(seen)}; each of those shapes against its plain version after the run, on "
+        f"the dryrun's own models (column solve as phase 3, analysis {ANALYSIS_TOL}): "
+        + " | ".join(lines))
+    return out
+
+
+DRYRUN_SHARDS = 4
+# column solves: one a shard a step of the RLZ, SLZ and XYZ groups, each on
+# psum, halo and halo-pcr; analyses: one whole-grid set-up analysis a run
+DRYRUN_LAUNCHES = (3 * 3 * DRYRUN_SHARDS, 3 * 3)
+
+
+@contextlib.contextmanager
+def kernel_shapes(torch, cs, ra):
+    """The set of shapes the column-solve and analysis wrappers are called
+    at inside the block: ("column_solve", [ncols, nz]) and ("rlz_analysis",
+    physical shape, b_rDim), f32 plain mode only (asserted)."""
+    from unittest import mock
+
+    seen = set()
+    apply, analysis = cs.apply_column_operator, ra.rlz_analysis
+
+    def apply_seen(xstar, wstar, op):
+        assert xstar.dtype == torch.float32 and not op.comp, (xstar.dtype, op.comp)
+        seen.add(("column_solve", tuple(xstar.shape)))
+        return apply(xstar, wstar, op)
+
+    def analysis_seen(phys, l_analysis, ring_mask, analysis_r, analysis_z, mode="plain"):
+        assert phys.dtype == torch.float32 and mode == "plain", (phys.dtype, mode)
+        seen.add(("rlz_analysis", tuple(phys.shape), analysis_r.shape[-2]))
+        return analysis(phys, l_analysis, ring_mask, analysis_r, analysis_z, mode)
+
+    with mock.patch.object(cs, "apply_column_operator", apply_seen), \
+            mock.patch.object(ra, "rlz_analysis", analysis_seen):
+        yield seen
+
+
+def check_dryrun_kernels(tx, tmodel, tti, torch, cs, ra, tmp, n):
+    """Both kernels at the shapes dryrun_multichip(n) gives them, on its own
+    moist models (graft_entry.dryrun_models): the column solve at a shard's
+    columns (rDim / n x nl, by nz), both stages, f64 and f32, as phase 3
+    (check_stage, on the model's depth, ts and Pxi_bar), and the analysis of
+    the whole grid (the dryrun's set-up analysis), as phase 4
+    (check_analysis); returns (the shapes checked, as kernel_shapes records
+    them; a line a model)."""
+    from scythe_tpu_torch import graft_entry
+
+    rng = np.random.default_rng(33)
+    checked, lines = set(), []
+    for m in graft_entry.dryrun_models(os.path.join(tmp, "dryrun_check"), n):
+        gp = m.grid_params
+        g64 = tx.create_grid(gp, torch.float64, device="cuda")
+        g32 = tx.create_grid(gp, torch.float32, device="cuda")
+        pxi = float(tmodel.build_context(m, tx.create_grid(gp, torch.float64, device="cpu"),
+                                         torch.float64).ref_state.Pxi_bar)
+        ncols, nz = gp.rDim // n * g64.nl, gp.zDim
+        o64, o32 = (tti.build_semiimplicit_ops(nz, 0.0, gp.zmax, None, pxi, m.ts, dt, "cuda")
+                    for dt in (torch.float64, torch.float32))
+        x = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        w = torch.from_numpy(rng.normal(size=(ncols, nz))).cuda()
+        errs = [check_stage(torch, cs, o64, o32, x, w, stage, pxi)[0]
+                for stage in ("t1", "ab")]
+        phys = torch.from_numpy(rng.normal(size=(g64.nvars,) + g64.spatial_shape)).cuda()
+        _, line = check_analysis(
+            torch, ra, "dryrun", g64, phys,
+            (g64.l_analysis, g64.ring_mask, g64.analysis_r, g64.analysis_z),
+            (g32.l_analysis, g32.ring_mask, g32.analysis_r, g32.analysis_z))
+        checked |= {("column_solve", (ncols, nz)),
+                    ("rlz_analysis", tuple(phys.shape), g64.params.b_rDim)}
+        lines.append(
+            f"{gp.geometry} column solve {ncols} x {nz}, both stages: rel err f64 "
+            f"{max(e['f64'] for e in errs):.2e}, f32 {max(e['f32'] for e in errs):.2e} "
+            f"({max(e['f32 / plain f32'] for e in errs):.2f}x the plain f32 chain's); "
+            f"analysis {line}")
+    return checked, lines
+
+
 GROUPS = ("kernels", "paths", "jw06", "ensembles", "gradients", "comp_kernels",
-          "comp_moist3d", "comp_flagship", "factored", "sharded")
+          "comp_moist3d", "comp_flagship", "factored", "sharded", "examples", "cli")
 
 
 def main(argv=None):
@@ -2300,10 +2919,18 @@ def main(argv=None):
                     help=f"comma-separated phase groups to run, of {GROUPS} (all by "
                     "default; the kernels line and the closing line come only from a "
                     "run of all)")
-    groups = set(ap.parse_args(argv).only.split(","))
+    ap.add_argument("--cpu-reference", nargs="+", choices=sorted(CPU_REFERENCES.values()),
+                    help=argparse.SUPPRESS)  # the child process of CpuReferences
+    ap.add_argument("--cpu-reference-dir", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.cpu_reference:
+        sys.modules["jax"] = None
+        sys.modules["scythe_tpu"] = None
+        return cpu_references(args.cpu_reference, args.cpu_reference_dir)
+    groups = set(args.only.split(","))
     if not groups <= set(GROUPS):
         ap.error(f"--only takes {GROUPS}")
-    t0 = time.perf_counter()
+    t0 = t_main = time.perf_counter()
     # the port must need neither jax nor the JAX package: importing fails
     sys.modules["jax"] = None
     sys.modules["scythe_tpu"] = None
@@ -2357,6 +2984,8 @@ def main(argv=None):
 
     out_dir = os.path.join(ROOT, "chiprun_out")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    refs = CpuReferences([v for k, v in CPU_REFERENCES.items() if k in groups], tmp)
+    cli_la = None
     try:
         model = moist3d(tx, tmp, n_steps=120, out_every=60)
         columns = {}
@@ -2706,12 +3335,14 @@ def main(argv=None):
                 f"launches {sl_launches} (none lies on this path); l2(h) against the analytic "
                 f"state {l2:.3e} (tol 5e-4), max|v| {v_abs:.4f} m/s (tol 0.05); outputs {outs}")
         if "jw06" in groups:
-            jw = phase_jw06(tx, tmodel, jwx, torch, cs, ra, tmp, card, out_dir)
+            if "cli" in groups:  # beside the JW06 balances, mostly cuSOLVER's SVD
+                cli_la = CliLinearAdvection(tx, torch, tmp, "started beside the JW06 balances")
+            jw = phase_jw06(tx, tmodel, jwx, torch, cs, ra, tmp, card, out_dir, refs)
         if "ensembles" in groups:
             ens = phase_ensembles(tx, tmodel, tti, torch, cs, ra, cb, sh, sio, tmp, card)
         if "gradients" in groups:
             kg_times = phase_kernel_gradients(tx, tti, torch, cs, ra, columns)
-            grad = phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint)
+            grad = phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint, refs)
         if "comp_kernels" in groups:
             comp_errs, cs_comp_times, ra_comp_times = phase_comp_kernels(
                 tx, tti, torch, cs, ra, columns)
@@ -2723,7 +3354,17 @@ def main(argv=None):
             fact_times = phase_factored(tx, tmodel, torch, cs, ra, tmp)
         if "sharded" in groups:
             shd = phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card)
+        if "examples" in groups:
+            exm = phase_examples(tx, tmodel, tti, torch, cs, ra, tmp, card)
+        if "cli" in groups:
+            cli_la = cli_la or CliLinearAdvection(tx, torch, tmp)
+            cli_out = phase_cli(tx, tmodel, tti, torch, cs, ra, tmp, cli_la)
+        if "examples" in groups:
+            exm["galewsky"] = phase_galewsky(torch, cs, ra, t_main)
     finally:
+        refs.close()
+        if cli_la is not None:
+            cli_la.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
     if groups != set(GROUPS):
@@ -2735,7 +3376,8 @@ def main(argv=None):
           f"{json.dumps(shower_runs)}; JW06 production: {json.dumps(jw)}; ensembles: "
           f"{json.dumps(ens)}; compensated moist3d: {json.dumps(cm3d)}; compensated "
           f"flagship: {json.dumps(cfl)}; factored DFT dense vs factored ms: "
-          f"{json.dumps(fact_times)}; sharded: {json.dumps(shd)}", flush=True)
+          f"{json.dumps(fact_times)}; sharded: {json.dumps(shd)}; published runs: "
+          f"{json.dumps(exm, default=str)}; cli: {json.dumps(cli_out)}", flush=True)
     cs_main = cs_times["9216x48 f32"]
     n_probe = int(np.prod(ep.SHAPE))
     # seven slot tensors and rinv read, one output written; 21 FLOP an output
@@ -2759,7 +3401,10 @@ def main(argv=None):
                                  "flagship_ensemble": ens["flagship_launches"][0],
                                  "shower_ensemble": ens["shower_launches"][0],
                                  "slz_gradient": grad["launches"][0],
-                                 **{k: v[0] for k, v in shd["launches"].items()}},
+                                 **{k: v[0] for k, v in shd["launches"].items()},
+                                 **{f"published_{k}": v[0] for k, v in exm["launches"].items()},
+                                 "cli_moist_demo": cli_out["moist_demo"]["launches"][0],
+                                 "dryrun_multichip_4": cli_out["dryrun_multichip"]["launches"][0]},
             "backward_launches": grad["launches"][1],
             **grad_keys(kg_times, "column_solve 9216x48", ""),
             **grad_keys(kg_times, "column_solve 13824x24", "jw06_"),
@@ -2786,6 +3431,11 @@ def main(argv=None):
                                   ("sharded_moist3d_shard", "2304x48 f32"))
                for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by"))},
+            **{f"{key}_{k}": exm["column_solve_times"][label][i]
+               for key, label in [(name, label) for label, name, _, _ in CS_PUBLISHED]
+               + [("bf02_f64", "192x64 f64")]
+               for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by"))},
         },
         {
             "name": "rlz_analysis",
@@ -2804,7 +3454,10 @@ def main(argv=None):
                                  "flagship_ensemble": ens["flagship_launches"][1],
                                  "shower_ensemble": ens["shower_launches"][1],
                                  "slz_gradient": grad["launches"][2],
-                                 **{k: v[1] for k, v in shd["launches"].items()}},
+                                 **{k: v[1] for k, v in shd["launches"].items()},
+                                 **{f"published_{k}": v[1] for k, v in exm["launches"].items()},
+                                 "cli_moist_demo": cli_out["moist_demo"]["launches"][1],
+                                 "dryrun_multichip_4": cli_out["dryrun_multichip"]["launches"][1]},
             "backward_route": "einsum (the transposed chain; no kernel)",
             **grad_keys(kg_times, "rlz_analysis moist3d", ""),
             **grad_keys(kg_times, "rlz_analysis jw06_production", "jw06_"),
@@ -2819,7 +3472,8 @@ def main(argv=None):
             "moist3d_f64_plain_ms": ra_times["moist3d_f64"][1],
             "moist3d_f64_library_ms": ra_times["moist3d_f64"][2],
             **{f"{name}_{k}": ra_times[name][i]
-               for name in ("tc", "transform", "shower", "slz_test", "jw06", "jw06_production")
+               for name in ("tc", "transform", "shower", "slz_test", "jw06", "jw06_production",
+                            "moist_demo")
                for i, k in enumerate(("ms", "plain_ms", "library_ms", "bound_ms",
                                       "bound_by"))},
         },

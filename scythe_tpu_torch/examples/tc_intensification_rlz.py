@@ -40,11 +40,6 @@ RMAX_DOM = 500.0e3
 ZTOP = 20.0e3
 
 
-def _np(fn, *arrays):
-    """A thermodynamic function of the port on float64 host data."""
-    return fn(*(torch.as_tensor(np.asarray(a, np.float64)) for a in arrays)).numpy()
-
-
 def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float64)
 
@@ -194,18 +189,18 @@ def write_ics(model, grid, ref_state, bubble=0.0, vmax=12.0,
     mu_core = np.zeros(shape)
     s_core = np.zeros(shape)
     if moist_core > 0.0:
-        q_sat_bar = _np(td.q_sat_liquid, Tk, p)  # [nz]
+        q_sat_bar = td.on_host(td.q_sat_liquid, Tk, p)  # [nz]
         envr = np.cos(0.5 * np.pi * np.minimum(r / 120.0e3, 1.0)) ** 2
         envz = np.cos(
             0.5 * np.pi * np.minimum(z / moist_core_depth, 1.0)) ** 2
         frac = moist_core * envr * envz
         q_tgt = q_v[None, None, :] + np.maximum(
             0.0, frac * (q_sat_bar[None, None, :] - q_v[None, None, :]))
-        mu_core = _np(td.bhyp, q_tgt) - _np(td.bhyp, q_v)[None, None, :]
+        mu_core = td.on_host(td.bhyp, q_tgt) - td.on_host(td.bhyp, q_v)[None, None, :]
         # moisten at fixed temperature (s carries L_v q / T)
         s_core = (
-            _np(td.entropy, Tk[None, None, :], rho_d[None, None, :], q_tgt)
-            - _np(td.entropy, Tk, rho_d, q_v)[None, None, :]
+            td.on_host(td.entropy, Tk[None, None, :], rho_d[None, None, :], q_tgt)
+            - td.on_host(td.entropy, Tk, rho_d, q_v)[None, None, :]
         )
 
     s_pert = np.zeros(shape)
@@ -216,11 +211,11 @@ def write_ics(model, grid, ref_state, bubble=0.0, vmax=12.0,
         env = np.maximum(
             0.0, np.cos(0.5 * np.pi * np.minimum(rad, 1.0))) ** 2
         s_pert = (1004.0 * bubble / 300.0) * env
-        q_sat_bar = _np(td.q_sat_liquid, Tk, p)  # [nz]
+        q_sat_bar = td.on_host(td.q_sat_liquid, Tk, p)  # [nz]
         q_bub = q_v[None, None, :] + 0.95 * env * (
             q_sat_bar[None, None, :] - q_v[None, None, :])
-        mu_pert = (_np(td.bhyp, np.maximum(q_bub, q_v[None, None, :]))
-                   - _np(td.bhyp, q_v)[None, None, :])
+        mu_pert = (td.on_host(td.bhyp, np.maximum(q_bub, q_v[None, None, :]))
+                   - td.on_host(td.bhyp, q_v)[None, None, :])
 
     from ..io import _write_csv
 
@@ -261,14 +256,14 @@ def intensity(grid, phys, ref_state=None):
                 *(torch.from_numpy(np.asarray(a, np.float64)) for a in (s_t, xi_t, mu_t))
             )
         )
-        qs = _np(td.q_sat_liquid, Tk, pp)
+        qs = td.on_host(td.q_sat_liquid, Tk, pp)
         z = np.asarray(grid.z_mish)
         low = z < 8000.0
         rh_max = float((q_v[..., low] / qs[..., low]).max())
     u_min = float(phys[3].reshape(sh)[..., 0].min())
     return (vmax, float(r_at[j]) / 1000.0, float(w.max()),
             float(np.maximum(qr, 0).max()),
-            float(np.maximum(_np(td.ahyp, qc), 0).max()),
+            float(np.maximum(td.on_host(td.ahyp, qc), 0).max()),
             rh_max, u_min)
 
 

@@ -27,6 +27,14 @@ form), against the ``Mesh`` interface, and either mesh runs it:
 ``ppermute(x, pairs)`` takes ``(src, dst)`` pairs as JAX does: a shard no
 pair sends to receives zeros, and a pair ``(i, i)`` hands ``x`` back
 without communication.
+
+Gradients: a ThreadMesh's collectives are differentiable ops on the shards'
+shared tensors (a sum, a copy, a stack), so torch.autograd carries a
+cotangent back to every shard's input: psum's adjoint is the psum of the
+cotangents, all_gather's each shard's slice of them, ppermute's the reverse
+permutation.  A DistMesh's collectives have no adjoint over
+torch.distributed yet: a backward through one raises NotImplementedError
+(``_NoAdjoint``) rather than return a wrong gradient.
 """
 
 from __future__ import annotations
@@ -259,6 +267,33 @@ class ThreadMesh(Mesh):
         return torch.cat([p.to(dev) for p in parts], dim=axis)
 
 
+class _NoAdjoint(torch.autograd.Function):
+    """``out`` as it is, tied to the input ``x`` of the DistMesh collective
+    that made it; a backward through it raises."""
+
+    @staticmethod
+    def forward(x, out, name):
+        return out.view_as(out)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.name = inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            f"backward through DistMesh.{ctx.name}: the torch.distributed collectives "
+            "have no adjoint rule (differentiate through a ThreadMesh)")
+
+
+def _no_adjoint(x: torch.Tensor, out: torch.Tensor, name: str) -> torch.Tensor:
+    """``out``, what collective ``name`` made of ``x`` detached; where ``x``
+    carries a gradient, a backward through ``out`` raises."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _NoAdjoint.apply(x, out, name)
+    return out
+
+
 class DistMesh(Mesh):
     """One shard a process of a ``torch.distributed`` group (the default
     group unless one is given); its rank in the group is its shard.
@@ -304,19 +339,22 @@ class DistMesh(Mesh):
         return self._dist.get_global_rank(self.group, rank)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        out = x.clone(memory_format=torch.contiguous_format)
+        out = x.detach().clone(memory_format=torch.contiguous_format)
         self._dist.all_reduce(out, op=self._dist.ReduceOp.SUM, group=self.group)
-        return out
+        return _no_adjoint(x, out, "psum")
 
     def ppermute(self, x: torch.Tensor, pairs) -> torch.Tensor:
+        if _check_pairs(pairs, self.size).get(self._rank) == self._rank:
+            return x  # (r, r): no communication, and the identity's adjoint
+        return _no_adjoint(x, self._ppermute(x.detach(), pairs), "ppermute")
+
+    def _ppermute(self, x: torch.Tensor, pairs) -> torch.Tensor:
         dist = self._dist
         by_dst = _check_pairs(pairs, self.size)
         r = self._rank
         out, ops = None, []
         src = by_dst.get(r)
-        if src == r:
-            out = x
-        elif src is not None:
+        if src is not None:
             out = torch.empty_like(x, memory_format=torch.contiguous_format)
             ops.append(dist.P2POp(dist.irecv, out, self._peer(src), self.group))
         dst = next((d for d, s in by_dst.items() if s == r and d != r), None)
@@ -328,7 +366,9 @@ class DistMesh(Mesh):
         return out if out is not None else torch.zeros_like(x)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.contiguous()
+        return _no_adjoint(x, self._all_gather(x.detach().contiguous()), "all_gather")
+
+    def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         if self.nccl:
             out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
             self._dist.all_gather_into_tensor(out, x, group=self.group)

@@ -39,12 +39,6 @@ def empty_reference_state(nz: int = 1, dtype=torch.float32, *, device: Any) -> R
     )
 
 
-def _host(fn, *arrays):
-    """Run a thermodynamic function on float64 numpy data via CPU tensors."""
-    out = fn(*(torch.from_numpy(np.asarray(a, np.float64)) for a in arrays))
-    return out.numpy()
-
-
 def _transform_profile(vals: np.ndarray, zops: chebyshev.ChebyshevOps) -> np.ndarray:
     """Smoothed value + dz + dzz via the truncated Chebyshev fit
     (ref transform_reference_state!, reference_state.jl:138-157)."""
@@ -72,9 +66,9 @@ def _pxi_profile(sbar, xibar, mubar) -> np.ndarray:
     """Per-level squared sound-speed factor Pxi/(rho (1+q)) of the reference
     column; its mean is the reference's scalar Pxi_bar
     (reference_state.jl:127-133)."""
-    pxi = _host(td.P_xi_from_s, sbar[:, 0], xibar[:, 0], mubar[:, 0])
-    rho_bar = _host(td.dry_density, xibar[:, 0])
-    q_bar = _host(td.ahyp, mubar[:, 0])
+    pxi = td.on_host(td.P_xi_from_s, sbar[:, 0], xibar[:, 0], mubar[:, 0])
+    rho_bar = td.on_host(td.dry_density, xibar[:, 0])
+    q_bar = td.on_host(td.ahyp, mubar[:, 0])
     return pxi / (rho_bar * (1.0 + q_bar))
 
 
@@ -131,9 +125,9 @@ def interpolate_reference_file(
     rho_d = 100.0 * (p_new - e) / (Tk * td.Rd)
     rho_t = rho_d * (1.0 + q_v)
 
-    sbar = _transform_profile(_host(td.entropy, Tk, rho_d, q_v), zops)
-    xibar = _transform_profile(_host(td.log_dry_density, rho_d), zops)
-    mubar = _transform_profile(_host(td.bhyp, q_v), zops)
+    sbar = _transform_profile(td.on_host(td.entropy, Tk, rho_d, q_v), zops)
+    xibar = _transform_profile(td.on_host(td.log_dry_density, rho_d), zops)
+    mubar = _transform_profile(td.on_host(td.bhyp, q_v), zops)
     return _finish(sbar, xibar, mubar, np.zeros((nz, 3)), dtype, device)
 
 

@@ -273,3 +273,13 @@ def theta_rho(s, xi, mu, mu_l=None):
     q_l = ahyp(torch.zeros_like(mu) if mu_l is None else mu_l)
     theta = potential_temperature(s, xi, mu)
     return theta * (1.0 + q_v / Eps) / (1.0 + q_v + q_l)
+
+
+def on_host(fn, *arrays):
+    """``fn`` of this module on float64 host data (numbers or numpy arrays,
+    through CPU tensors), for set-up and diagnostics; numpy out, a tuple of
+    arrays where ``fn`` returns a tuple."""
+    out = fn(*(torch.from_numpy(np.array(a, np.float64)) for a in arrays))
+    if isinstance(out, tuple):
+        return tuple(o.numpy() for o in out)
+    return out.numpy()

@@ -24,6 +24,9 @@ from scythe_tpu_torch import timeintegration as tti
 from scythe_tpu_torch.examples import assimilate_4dvar, assimilate_enkf
 from scythe_tpu_torch.examples import cha_bell_initialization as cb
 from scythe_tpu_torch.examples import jw06_baroclinic_slz
+from scythe_tpu_torch import graft_entry
+from scythe_tpu_torch.examples import (bf02_moist_benchmark, galewsky_instability,
+                                       linear_advection_example, straka_density_current)
 from scythe_tpu_torch.parallel import mesh as pmesh
 from scythe_tpu_torch.parallel import sharding as psh
 from scythe_tpu_torch.physics import reference_state as trs
@@ -53,6 +56,12 @@ ENTRY_POINTS = {
     "parallel.mesh.DistMesh": pmesh.DistMesh,
     "parallel.sharding.initialize_sharded": psh.initialize_sharded,
     "parallel.sharding.integrate_sharded": psh.integrate_sharded,
+    "graft_entry.entry": graft_entry.entry,
+    "graft_entry.dryrun_multichip": graft_entry.dryrun_multichip,
+    "examples.linear_advection_example.run": linear_advection_example.run,
+    "examples.straka_density_current.snapshots": straka_density_current.snapshots,
+    "examples.bf02_moist_benchmark.simulate": bf02_moist_benchmark.simulate,
+    "examples.galewsky_instability.run_days": galewsky_instability.run_days,
 }
 
 

@@ -5,7 +5,12 @@ RLZ core, of the flagship two-way slab model and of Williamson case 2 on the
 SL sphere on the CPU, writes NetCDF output, and registers all 21 equation
 sets, importing no triton; a compensated grid and a factored one (nl 4096)
 build and transform.  It runs 3 steps of integrate_sharded on 2
-thread-shards by psum and by halo.  It differentiates the moist core through
+thread-shards by psum and by halo.  The published-benchmark examples, the
+model configs (run from a scratch directory: tc_mature_rlz.py writes its ICs
+there), the CLI (``python -m scythe_tpu_torch``'s ``cli`` and ``__main__``)
+and the harness entry import too; the CLI runs LinearAdvection1D for 3
+steps on 2 thread-shards and graft_entry.entry() one step, on the CPU.  It
+differentiates the moist core through
 adjoint.make_simulator and runs a two-member integrate_ensemble, and each
 kernel wrapper's output carries its Function's grad_fn when its input needs
 a gradient (the wrappers once returned outputs with no graph)."""
@@ -143,6 +148,32 @@ SCRIPT = textwrap.dedent(
         _, aout = psh.integrate_sharded(am, 2, torch.float64, method=method,
                                         write_outputs=False, device="cpu")
         assert np.abs(aout - aref).max() < 1e-12, method
+    # the last examples, the model configs, the CLI and the harness entry
+    from scythe_tpu_torch.examples import (  # noqa: F401
+        analyze_tc, bf02_moist_benchmark, galewsky_instability, inertia_gravity_wave,
+        linear_advection_example, straka_density_current, warm_bubble)
+    from scythe_tpu_torch import __main__ as tmain, cli, graft_entry  # noqa: F401
+    import importlib
+    os.chdir(tmp)
+    for name in ("linear_advection_1d", "moist_euler_rlz_demo", "tc_mature_rlz",
+                 "williamson2_sphere", "cha_bell2024.common", "cha_bell2024.oneway",
+                 "cha_bell2024.oneway_spinup", "cha_bell2024.twoway",
+                 "cha_bell2024.twoway_tpu"):
+        mod = importlib.import_module("scythe_tpu_torch.models." + name)
+        assert isinstance(getattr(mod, "model", None) or mod.GRID,
+                          (tx.ModelParameters, tx.GridParameters)), name
+    assert os.path.exists(os.path.join(tmp, "tc_mature", "ics.csv"))
+    with open(os.path.join(tmp, "adv_cfg.py"), "w") as f:
+        print(f"model = __import__('pickle').load(open({os.path.join(tmp, 'am.pkl')!r}, 'rb'))",
+              file=f)
+    import pickle
+    with open(os.path.join(tmp, "am.pkl"), "wb") as f:
+        pickle.dump(am.with_(output_dir=os.path.join(tmp, "cli_out")), f)
+    assert cli.main(["--platform", "cpu", "--dtype", "f64", "-d", "2",
+                     os.path.join(tmp, "adv_cfg.py")]) == 0
+    assert "physical_out_0.15.csv" in os.listdir(os.path.join(tmp, "cli_out"))
+    fn, (st,) = graft_entry.entry(torch.float64, device="cpu")
+    assert torch.isfinite(fn(st).spec).all()
     assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     print("NOJAX_OK", sorted(os.listdir(os.path.join(tmp, "out"))))
