@@ -209,7 +209,18 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    one NCCL rank (FileStore), 10 psum steps (1e-12); the flagship's 16
    members over an ensemble mesh of 4 against the unsharded ensemble
    (1e-13); steps/s and launches a step of one device and of 4 psum and 4
-   halo shards, in turns (the cost of 4 shards on one card, not scaling).
+   halo shards, in turns (the cost of 4 shards on one card, not scaling);
+   sharded-grad: the gradient of 0.5 ||spec||^2 after 10 moist3d f64 steps
+   at full width, each under torch.utils.checkpoint, with respect to the
+   initial spectral state (cloud and rain seeded), on one device, on 4
+   thread-shards by psum and by halo, and on a DistMesh over a world of one
+   NCCL rank (all_reduce, reduce_scatter in the backward): the sharded
+   gradients equal one device's at 1e-12 of its max, the column solve
+   launches 30 times (10 forward, 10 in the recompute, 10 on M^T) on one
+   device and on the NCCL rank and 4 x 30 on the thread-shards, no plain
+   version is called, and the gradient's and the forward's seconds a step;
+   then the flagship's 4D-Var gradient (graft_entry.fourdvar_cost, two
+   steps at 100 cells x 256) on the NCCL rank against one device (1e-12).
 
 32. the published benchmarks of scythe_tpu_torch/examples at their
    published sizes, in f32 on the card through the examples' functions:
@@ -746,16 +757,18 @@ def column_solve_bound(ncols, nz, dtype_name):
                     2 * ncols * (2 * nz) ** 2, "f32 products" if f32 else "f64 products")
 
 
-def analysis_bound(shape, b_rdim):
-    """The f32 RLZ analysis of x [V, R, L, Z] to [V, b_rDim, L, Z]: x, the DFT
-    matrix, the ring mask and both operator stacks read once, the
-    coefficients written once; the lambda, radial and vertical products."""
+def analysis_bound(shape, b_rdim, f64=False):
+    """The RLZ analysis of x [V, R, L, Z] to [V, b_rDim, L, Z] (f32, or f64):
+    x, the DFT matrix, the ring mask and both operator stacks read once, the
+    coefficients written once; the lambda (the kernel's dense l x l product,
+    masked after), radial and vertical products."""
     V, R, L, Z = shape
     B = b_rdim
     return bound_ms(
-        4 * (V * R * L * Z + L * L + R * L + V * B * R + V * Z * Z + V * B * L * Z),
+        (8 if f64 else 4)
+        * (V * R * L * Z + L * L + R * L + V * B * R + V * Z * Z + V * B * L * Z),
         2 * V * R * L * L * Z + 2 * V * B * R * L * Z + 2 * V * B * L * Z * Z,
-        "f32 products")
+        "f64 products" if f64 else "f32 products")
 
 
 def analysis_library(torch, x, la, mask, an, az):
@@ -1019,8 +1032,8 @@ def check_analysis(torch, ra, name, g64, x, ops64, ops32):
 
 def phase_analysis(tx, torch, ra):
     """Phase 4; returns (max_abs_err at the TC shape f32, {"moist3d" |
-    "transform" | "tc" | "moist3d_f64" | ...: (ms, plain_ms, library_ms[,
-    bound_ms, bound_by])}), device times, the bound for the f32 shapes."""
+    "transform" | "tc" | "moist3d_f64" | ...: (ms, plain_ms, library_ms,
+    bound_ms, bound_by)}), device times and each shape's bound."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
     lines, tc_err = [], None
@@ -1050,12 +1063,9 @@ def phase_analysis(tx, torch, ra):
         kt, pt, lt = in_turns(plain, kernel, 100, timer=queued_time_ms, library=library)
         kb, pb, lb = in_turns(plain, kernel, 100, library=library)
         times[name] = (min(kt), min(pt), min(lt))
-        note = ""
-        if dtype == torch.float32:
-            bound, by = analysis_bound(tuple(x.shape), g.params.b_rDim)
-            times[name] += (bound, by)
-            note = (f"; bound {bound:.5f} ms ({by}), kernel at "
-                    f"{100.0 * bound / min(kt):.1f}% of it")
+        bound, by = analysis_bound(tuple(x.shape), g.params.b_rDim, dtype == torch.float64)
+        times[name] += (bound, by)
+        note = f"; bound {bound:.5f} ms ({by}), kernel at {100.0 * bound / min(kt):.1f}% of it"
         print(f"  analysis {name} {list(x.shape)}: device time kernel {kt} ms, plain {pt} ms, "
               f"library {lt} ms; back to back kernel {kb} ms, plain {pb} ms, library {lb} "
               f"ms{note}", flush=True)
@@ -1063,7 +1073,7 @@ def phase_analysis(tx, torch, ra):
         "100 calls a run, min device ms kernel vs plain vs library (one torch.einsum over "
         "the chain, TF32 off; f32 unless named; then the bound): "
         + ", ".join(f"{k} {t[0]:.5f} vs {t[1]:.5f} vs {t[2]:.5f}"
-                    + (f" ({t[3]:.5f} {t[4]})" if len(t) > 3 else "")
+                    + f" ({t[3]:.5f} {t[4]})"
                     for k, t in times.items()))
     return tc_err, times
 
@@ -2264,11 +2274,158 @@ def sharded_flagship_rel(tx, torch, device, n_steps=50, shards=SHARDS):
                          ref["val"].cpu().numpy())
 
 
+GRAD_STEPS = 10  # the sharded-grad step's checkpointed moist3d steps
+GRAD_SEED = 1.0e-4  # mu_c and mu_r everywhere: at exactly zero rain the
+# warm-rain terms have no derivative (a NaN gradient, in both packages)
+
+
+def grad_setup(torch, tmodel, psh, model, grid, ctx, state, mesh, method):
+    """(step, start, finish) of one device (``mesh`` None) or of ``mesh`` by
+    ``method``: start(s) is the state to step from the canonical spectral
+    state ``s`` (windowed blocks on halo, cut over the mesh's shards), and
+    finish(spec) the canonical whole of a stepped spectral state."""
+    f64 = torch.float64
+    if mesh is None:
+        step = tmodel.build_step(model, grid, ctx, f64)
+        return step, lambda s: state._replace(spec=s), lambda spec: spec
+    n, cl = mesh.size, grid.params.num_cells // mesh.size
+    step = psh.build_sharded_step(model, grid, ctx, f64, mesh, method)
+
+    def start(s):
+        if method == "halo":
+            s = psh.spec_to_blocks(s, n, cl)
+        return psh.shard_state(state._replace(spec=s), mesh, method)
+
+    def finish(spec):
+        spec = psh.gather_global(spec)
+        return psh.blocks_to_spec(spec, n, cl) if method == "halo" else spec
+
+    return step, start, finish
+
+
+def grad_run(torch, psh, run, spec0, mesh, n_steps):
+    """(gradient, seconds a step): the whole gradient of 0.5 ||spec||^2 after
+    ``n_steps`` steps of ``run`` = (step, start, finish), each under
+    torch.utils.checkpoint (non-reentrant), with respect to the canonical
+    spectral state ``spec0`` (``replicated_grad``: every rank's whole),
+    timed from the first step to the gradient on the card."""
+    from torch.utils.checkpoint import checkpoint
+
+    step, start, finish = run
+    s = spec0.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = start(s)
+    for _ in range(n_steps):
+        st = checkpoint(step, st, use_reentrant=False)
+    spec = finish(st.spec)
+    (g,) = psh.replicated_grad(0.5 * torch.sum(spec * spec), s, mesh)
+    torch.cuda.synchronize()
+    return g, (time.perf_counter() - t0) / n_steps
+
+
+def forward_run(torch, run, spec0, n_steps):
+    """Seconds a step of ``n_steps`` steps of ``run`` without a gradient."""
+    step, start, _ = run
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = start(spec0)
+        for _ in range(n_steps):
+            st = step(st)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_steps
+
+
+def phase_sharded_grad(tx, tmodel, torch, cs, ra, cb, tmp, card):
+    """Phase 31's sharded-grad step: the gradient through checkpointed
+    sharded semi-implicit moist3d steps on one device, 4 thread-shards and a
+    world of one NCCL rank, and the flagship's 4D-Var gradient on the NCCL
+    rank."""
+    import torch.distributed as dist
+    from scythe_tpu_torch import graft_entry as ge
+    from scythe_tpu_torch.parallel import mesh as pmesh
+    from scythe_tpu_torch.parallel import sharding as psh
+
+    t0 = time.perf_counter()
+    f64, dev = torch.float64, "cuda:0"
+    out = {"launches": {}, "rel": {}, "grad_s_step": {}, "forward_s_step": {}}
+    model = moist3d(tx, tmp, n_steps=GRAD_STEPS, out_every=GRAD_STEPS, name="grad")
+    grid, ctx, state = tmodel.initialize(model, f64, device=dev)
+    phys = grid.synthesis(state.spec)["val"].clone()
+    phys[MOIST3D_VARS.index("mu_c")] = GRAD_SEED
+    phys[MOIST3D_VARS.index("mu_r")] = GRAD_SEED
+    spec0 = grid.analysis(phys)
+    grads = {}
+
+    def measure(label, mesh, method):
+        run = grad_setup(torch, tmodel, psh, model, grid, ctx, state, mesh, method)
+        forward_run(torch, run, spec0, 1)  # warm-up of each: the first backward and the
+        grad_run(torch, psh, run, spec0, mesh, 1)  # first collective cost seconds once
+        out["forward_s_step"][label] = forward_run(torch, run, spec0, GRAD_STEPS)
+        zero_counts(cs, ra)
+        grads[label], out["grad_s_step"][label] = grad_run(torch, psh, run, spec0, mesh,
+                                                           GRAD_STEPS)
+        # (column solve forward and recompute, on M^T, analysis kernel)
+        out["launches"][label] = (cs.launches, cs.backward_launches, ra.launches)
+
+    with plain_version_calls(cs, ra) as plain:
+        measure("one_device", None, None)
+        for method in ("psum", "halo"):
+            measure(f"thread_{method}_{SHARDS}", psh.make_mesh(SHARDS, device=dev), method)
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "grad_store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh(1, device=dev)
+            assert isinstance(mesh, pmesh.DistMesh) and mesh.nccl, mesh
+            measure("nccl_world_of_one", mesh, "psum")
+            # the flagship's 4D-Var cost at full width, two steps
+            fm = cb.flagship_model()
+            fg = tx.create_grid(fm.grid_params, f64, device=dev)
+            fctx = tmodel.build_context(fm, fg, f64)
+            fs = cb.vortex_state(fg, f64).spec
+            fgrads = []
+            for m in (None, mesh):
+                s = fs.detach().clone().requires_grad_(True)
+                c = ge.fourdvar_cost(fm, fg, fctx, f64, m, "psum")(s)
+                fgrads.append(psh.replicated_grad(c, s, m)[0])
+        finally:
+            dist.destroy_process_group()
+        assert plain == [], sorted(set(plain))
+    g1 = grads["one_device"]
+    assert torch.isfinite(g1).all() and float(g1.abs().max()) > 0.0
+    for label, g in grads.items():
+        out["rel"][label] = float((g - g1).abs().max() / g1.abs().max())
+    fl_rel = float((fgrads[1] - fgrads[0]).abs().max() / fgrads[0].abs().max())
+    out["rel"]["fourdvar_flagship_nccl"] = fl_rel
+    want = {"one_device": (20, 10, 20), "nccl_world_of_one": (20, 10, 0),
+            **{f"thread_{m}_{SHARDS}": (SHARDS * 20, SHARDS * 10, 0) for m in ("psum", "halo")}}
+    print(f"  sharded-grad launches (column solve forward + recompute, on M^T, analysis "
+          f"kernel): {json.dumps(out['launches'])}; expected {json.dumps(want)}", flush=True)
+    print(f"  sharded-grad rel err against one device (tol 1e-12): {json.dumps(out['rel'])}",
+          flush=True)
+    print(f"  sharded-grad seconds a step, gradient {json.dumps(out['grad_s_step'])}, forward "
+          f"{json.dumps(out['forward_s_step'])} on {card}", flush=True)
+    assert all(r <= 1e-12 for r in out["rel"].values()), out["rel"]
+    assert out["launches"] == want, (out["launches"], want)
+    say("sharded-grad", t0,
+        f"moist3d [9, 144, 64, 48] f64, gradient of 0.5 ||spec||^2 after {GRAD_STEPS} steps, "
+        f"each under checkpoint: {SHARDS} thread-shards (psum, halo) and a DistMesh over one "
+        f"NCCL rank vs one device rel err {json.dumps(out['rel'])} (tol 1e-12, the flagship's "
+        f"4D-Var gradient on the NCCL rank among them); column-solve launches 30 a run (4 x 30 "
+        f"on the shards), plain-version calls 0; gradient s/step "
+        f"{json.dumps({k: round(v, 4) for k, v in out['grad_s_step'].items()})}, forward "
+        f"{json.dumps({k: round(v, 4) for k, v in out['forward_s_step'].items()})} on {card}")
+    return out
+
+
 def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
     """Phase 31: radial domain decomposition (scythe_tpu_torch.parallel) on
     the one card: moist3d and the flagship split into 4 thread-shards, the
     integrate_sharded with a checkpoint and its resume, a world of one NCCL
-    rank, the ensemble mesh, and the cost of 4 shards on one card."""
+    rank, the gradient through checkpointed sharded steps on both meshes
+    (``phase_sharded_grad``), the ensemble mesh, and the cost of 4 shards on
+    one card."""
     import torch.distributed as dist
     from scythe_tpu_torch.parallel import mesh as pmesh
     from scythe_tpu_torch.parallel import sharding as psh
@@ -2375,6 +2532,11 @@ def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
         f"DistMesh over one NCCL rank (FileStore): moist3d 10 psum f64 steps (all_reduce a "
         f"step, all_gather_into_tensor for the histories) vs one device rel err per field "
         f"(tol 1e-12) {fmt_rel(rel_nccl)}; launches {out['launches']['sharded_nccl_world_of_one']}")
+
+    # ---- the sharded-grad step: gradients through checkpointed sharded steps
+    out["grad"] = phase_sharded_grad(tx, tmodel, torch, cs, ra, cb, tmp, card)
+    for label, (fwd, bwd, an) in out["grad"]["launches"].items():
+        out["launches"][f"sharded_grad_{label}"] = (fwd + bwd, an)
 
     # ---- 31e: the flagship's 16 members over an ensemble mesh of 4
     t0 = time.perf_counter()
@@ -3471,6 +3633,8 @@ def main(argv=None):
             "moist3d_f64_ms": ra_times["moist3d_f64"][0],
             "moist3d_f64_plain_ms": ra_times["moist3d_f64"][1],
             "moist3d_f64_library_ms": ra_times["moist3d_f64"][2],
+            "moist3d_f64_bound_ms": ra_times["moist3d_f64"][3],
+            "moist3d_f64_bound_by": ra_times["moist3d_f64"][4],
             **{f"{name}_{k}": ra_times[name][i]
                for name in ("tc", "transform", "shower", "slz_test", "jw06", "jw06_production",
                             "moist_demo")

@@ -5,7 +5,10 @@
                            two-layer TC configuration, at 32 cells x 32) on
                            the card unless the caller asks for the CPU.
 ``dryrun_multichip(n)`` -> runs ONE radially sharded step of each group
-                           on a ``ThreadMesh`` of n shards: the flagship by
+                           on a mesh of n shards (a ``ThreadMesh``, or a
+                           ``DistMesh`` where a torch.distributed group is
+                           initialised, as under ``jax.distributed``; the
+                           gradient too): the flagship by
                            psum, halo-gather and halo-pcr, each with and
                            without the modal filter; the RLZ moist core
                            with the TC production options; the SLZ shell
@@ -51,11 +54,15 @@ def fourdvar_cost(model, grid, ctx, dtype, mesh=None, method="psum", interface="
                   n_steps=2):
     """cost(spec0) = 0.5 ||spec after ``n_steps``||^2 from the spectral
     control ``spec0`` with zero tendency histories at t = 1, the structure
-    examples/assimilate_4dvar.py optimizes.  On a ``mesh`` the steps are the
-    sharded step of ``method`` / ``interface`` and ``spec0`` is in that
-    method's layout (windowed blocks on "halo", ``sh.spec_to_blocks``), as
-    is the spec the cost sums; differentiate it with torch.autograd (the
-    ThreadMesh collectives carry the gradient to every shard's input)."""
+    examples/assimilate_4dvar.py optimizes.  On a ``mesh`` (``sh.make_mesh``:
+    threads of this process, or the ranks of an initialised torch.distributed
+    group) the steps are the sharded step of ``method`` / ``interface`` and
+    ``spec0`` is in that method's layout (windowed blocks on "halo",
+    ``sh.spec_to_blocks``), as is the spec the cost sums.  The cost is
+    replicated: differentiate it by ``sh.replicated_grad(cost, spec0,
+    mesh)``, which gives every rank the whole gradient (each step may go
+    under ``torch.utils.checkpoint(step, st, use_reentrant=False)`` as it
+    does on one device)."""
     if mesh is None:
         step = build_step(model, grid, ctx, dtype)
     else:
@@ -164,9 +171,10 @@ def dryrun_models(tdir, n_devices: int):
 
 
 def dryrun_multichip(n_devices: int, dtype=None, device=DEFAULT) -> list[str]:
-    """One sharded step of every group on a ThreadMesh of ``n_devices``
-    shards on ``device`` (the card unless the caller asks for the CPU);
-    prints a line a step and returns their labels."""
+    """One sharded step of every group on a mesh of ``n_devices`` shards
+    (``sh.make_mesh``: a ThreadMesh, or the DistMesh of an initialised
+    torch.distributed group) on ``device`` (the card unless the caller asks
+    for the CPU); prints a line a step and returns their labels."""
     from .model import integrate_ensemble
 
     dtype = dtype or torch.get_default_dtype()
@@ -231,7 +239,7 @@ def dryrun_multichip(n_devices: int, dtype=None, device=DEFAULT) -> list[str]:
             spec0 = sh.spec_to_blocks(spec0, n, grid.params.num_cells // n)
         spec0 = spec0.detach().requires_grad_(True)
         cost = fourdvar_cost(model, grid, ctx, dtype, mesh, method, interface)(spec0)
-        (grad,) = torch.autograd.grad(cost, spec0)
+        (grad,) = sh.replicated_grad(cost, spec0, mesh)
         if not (torch.isfinite(cost) and torch.isfinite(grad).all()
                 and float(grad.abs().max()) > 0.0):
             raise FloatingPointError(f"4D-Var gradient by {method}: {float(cost)}")

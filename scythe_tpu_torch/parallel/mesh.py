@@ -28,13 +28,20 @@ form), against the ``Mesh`` interface, and either mesh runs it:
 pair sends to receives zeros, and a pair ``(i, i)`` hands ``x`` back
 without communication.
 
-Gradients: a ThreadMesh's collectives are differentiable ops on the shards'
-shared tensors (a sum, a copy, a stack), so torch.autograd carries a
-cotangent back to every shard's input: psum's adjoint is the psum of the
-cotangents, all_gather's each shard's slice of them, ppermute's the reverse
-permutation.  A DistMesh's collectives have no adjoint over
-torch.distributed yet: a backward through one raises NotImplementedError
-(``_NoAdjoint``) rather than return a wrong gradient.
+Gradients: both meshes carry a cotangent back to every shard's input,
+with the adjoints ``jax.shard_map`` gives: psum's is the psum of the
+cotangents, all_gather's each shard's slice of their sum, ppermute's the
+reverse permutation.  A ThreadMesh's collectives are differentiable ops on
+the shards' shared tensors (a sum, a copy, a stack), so torch.autograd
+transposes them itself.  A DistMesh's are ``torch.autograd.Function``s
+whose backward issues the adjoint collective over torch.distributed
+(``_PsumFn``, ``_PpermuteFn``, ``_AllGatherFn``).  The cotangent a rank
+holds of a replicated value is its share, as in JAX: the whole cotangent
+is the sum over ranks (``parallel.sharding.replicated_grad`` seeds a
+replicated cost and sums a replicated input's gradient so).  Every rank
+runs the same body, so its graph and the order in which autograd reaches
+the collectives' backwards are every rank's; a collective's backward runs
+on every rank of the group or on none.
 """
 
 from __future__ import annotations
@@ -267,31 +274,52 @@ class ThreadMesh(Mesh):
         return torch.cat([p.to(dev) for p in parts], dim=axis)
 
 
-class _NoAdjoint(torch.autograd.Function):
-    """``out`` as it is, tied to the input ``x`` of the DistMesh collective
-    that made it; a backward through it raises."""
+class _PsumFn(torch.autograd.Function):
+    """``all_reduce(SUM)`` of ``x`` over the mesh's group; its adjoint is
+    the ``all_reduce(SUM)`` of the cotangents."""
 
     @staticmethod
-    def forward(x, out, name):
-        return out.view_as(out)
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        ctx.set_materialize_grads(True)  # a rank whose output got no cotangent still joins
+        return mesh._all_reduce(x)
 
     @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.name = inputs[2]
+    def backward(ctx, g):
+        return ctx.mesh._all_reduce(g), None
+
+
+class _PpermuteFn(torch.autograd.Function):
+    """``x`` sent along the ``(src, dst)`` pairs; its adjoint sends each
+    rank's cotangent back along the reversed pairs: a rank that received
+    sends its cotangent to its source, a rank that sent receives its input's
+    cotangent from its destination, and one that sent nothing gets zeros."""
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            f"backward through DistMesh.{ctx.name}: the torch.distributed collectives "
-            "have no adjoint rule (differentiate through a ThreadMesh)")
+    def forward(ctx, x, mesh, pairs):
+        ctx.mesh = mesh
+        ctx.pairs = [(d, s) for s, d in pairs]
+        ctx.set_materialize_grads(True)
+        return mesh._ppermute(x, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._ppermute(g, ctx.pairs), None, None
 
 
-def _no_adjoint(x: torch.Tensor, out: torch.Tensor, name: str) -> torch.Tensor:
-    """``out``, what collective ``name`` made of ``x`` detached; where ``x``
-    carries a gradient, a backward through ``out`` raises."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _NoAdjoint.apply(x, out, name)
-    return out
+class _AllGatherFn(torch.autograd.Function):
+    """Every rank's ``x`` stacked along a new axis 0; its adjoint is this
+    rank's slice of the cotangents summed over ranks (``reduce_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        ctx.set_materialize_grads(True)
+        return mesh._all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._reduce_scatter(g), None
 
 
 class DistMesh(Mesh):
@@ -339,14 +367,24 @@ class DistMesh(Mesh):
         return self._dist.get_global_rank(self.group, rank)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        out = x.detach().clone(memory_format=torch.contiguous_format)
-        self._dist.all_reduce(out, op=self._dist.ReduceOp.SUM, group=self.group)
-        return _no_adjoint(x, out, "psum")
+        return _PsumFn.apply(x, self)
 
     def ppermute(self, x: torch.Tensor, pairs) -> torch.Tensor:
         if _check_pairs(pairs, self.size).get(self._rank) == self._rank:
             return x  # (r, r): no communication, and the identity's adjoint
-        return _no_adjoint(x, self._ppermute(x.detach(), pairs), "ppermute")
+        return _PpermuteFn.apply(x, self, list(pairs))
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _AllGatherFn.apply(x, self)
+
+    # The collectives themselves, on tensors that carry no graph (the
+    # Functions' forwards and backwards).  Gloo wants contiguous tensors and
+    # all_reduce works in place, so each takes a contiguous copy.
+
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.clone(memory_format=torch.contiguous_format)
+        self._dist.all_reduce(out, op=self._dist.ReduceOp.SUM, group=self.group)
+        return out
 
     def _ppermute(self, x: torch.Tensor, pairs) -> torch.Tensor:
         dist = self._dist
@@ -365,10 +403,8 @@ class DistMesh(Mesh):
                 req.wait()
         return out if out is not None else torch.zeros_like(x)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        return _no_adjoint(x, self._all_gather(x.detach().contiguous()), "all_gather")
-
     def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
         if self.nccl:
             out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype, device=x.device)
             self._dist.all_gather_into_tensor(out, x, group=self.group)
@@ -376,6 +412,17 @@ class DistMesh(Mesh):
         parts = [torch.empty_like(x) for _ in range(self.size)]
         self._dist.all_gather(parts, x, group=self.group)
         return torch.stack(parts)
+
+    def _reduce_scatter(self, g: torch.Tensor) -> torch.Tensor:
+        """Slice ``rank`` of ``g`` [size, ...] summed over ranks: NCCL's
+        reduce_scatter; on gloo, which lacks it in some torch versions, an
+        all_reduce and the slice."""
+        if self.nccl:
+            out = torch.empty(tuple(g.shape[1:]), dtype=g.dtype, device=g.device)
+            self._dist.reduce_scatter_tensor(out, g.contiguous(), op=self._dist.ReduceOp.SUM,
+                                             group=self.group)
+            return out
+        return self._all_reduce(g)[self._rank].clone()
 
     def run(self, fn: Callable, *per_shard_args: Sequence) -> list:
         for a in per_shard_args:

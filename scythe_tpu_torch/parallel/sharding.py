@@ -24,6 +24,14 @@ Two analyses, as in the JAX package:
 
 A sharded tensor is a ``Sharded``: this process's shards, cut along one
 axis or replicated, the counterpart of a jax.Array under a NamedSharding.
+
+Gradients: torch.autograd differentiates the sharded step on either mesh
+(``parallel/mesh.py`` gives every collective its adjoint), with or without
+``torch.utils.checkpoint`` around each step.  The cotangent a shard holds
+of a replicated value (the psum path's spectral state, a cost every rank
+computes from ``gather_global``) is its share, as in JAX's shard_map.
+``replicated_grad`` is the one way to get a replicated cost's gradient
+whole on every rank, on both meshes and on one device.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from ..device import DEFAULT
 from ..grids.base import Grid, _split3
 from ..model import build_context, build_step
 from . import schur as schur_mod
-from .mesh import Mesh, make_ensemble_mesh, make_mesh  # noqa: F401
+from .mesh import DistMesh, Mesh, make_ensemble_mesh, make_mesh  # noqa: F401
 
 METHODS = ("psum", "halo")
 
@@ -66,12 +74,39 @@ def gather_global(x) -> torch.Tensor:
     """A sharded tensor -> the whole tensor, on the device of this process's
     first shard; a tensor is returned as it is.  On a DistMesh every rank
     gathers (an all_gather: the ``--multihost`` path of the JAX package's
-    CLI), so every rank calls it, at output boundaries only."""
+    CLI), so every rank calls it, at output boundaries and for a cost.
+    Differentiable; a cost of its result is replicated, so take its
+    gradient by ``replicated_grad``."""
     if not isinstance(x, Sharded):
         return x
     if x.axis is None:
         return x.parts[0]
     return x.mesh.gather(x.parts, x.axis)
+
+
+def replicated_grad(output: torch.Tensor, inputs, mesh: Mesh | None = None) -> tuple:
+    """The gradient of ``output``, a scalar every rank holds whole (a cost
+    of ``gather_global``'s tensors), with respect to ``inputs`` (a tensor or
+    a sequence of them, each whole on every rank: a control that
+    ``shard_state`` cuts, a physical parameter every shard's step reads),
+    whole on every rank, as the tuple ``torch.autograd.grad`` returns.
+
+    The convention is JAX's: the cotangent a rank holds of a replicated
+    value is its share, and the whole cotangent is the sum of the shares.
+    On a ``DistMesh`` every rank computes ``output``, so each seeds 1/size
+    of its cotangent, and an input's gradient on a rank, its share, is
+    summed over the ranks (an all_reduce): every rank calls this, as a
+    collective.  A ``ThreadMesh`` is one graph in this process, whose
+    shards' cotangents meet in the tensors they share, and ``mesh`` None is
+    one device: for both this is ``torch.autograd.grad(output, inputs)``."""
+    inputs = (inputs,) if torch.is_tensor(inputs) else tuple(inputs)
+    if not isinstance(mesh, DistMesh):
+        return torch.autograd.grad(output, inputs)
+    seed = torch.full_like(output, 1.0 / mesh.size)
+    grads = torch.autograd.grad(output, inputs, seed, allow_unused=True)
+    # a rank none of whose share reached an input still joins the sum
+    return tuple(mesh.psum(torch.zeros_like(x) if g is None else g)
+                 for x, g in zip(inputs, grads))
 
 
 def _check_divisible(grid: Grid, n: int):
@@ -425,6 +460,23 @@ def _modal_filter(grid: Grid, model, dtype):
                               axes=str(opts.get("modal_filter_axes", "rlz")))
 
 
+def _under_callers_hooks(fn):
+    """``fn`` under the caller's saved-tensor hooks.  They are thread-local,
+    and a ThreadMesh runs each shard in a thread of its own: without them,
+    ``torch.utils.checkpoint`` around a sharded step would neither drop the
+    step's activations nor recompute them in the backward.  (The early stop
+    of a recompute, raised in a shard, is re-raised by ``run``.)"""
+    hooks = torch._C._autograd._top_saved_tensors_default_hooks(False)
+    if hooks is None:
+        return fn
+
+    def run(*args):
+        with torch.autograd.graph.saved_tensors_hooks(*hooks):
+            return fn(*args)
+
+    return run
+
+
 def build_sharded_step(model, grid: Grid, ctx, dtype, mesh: Mesh, method="psum",
                        interface="auto"):
     """The step over the mesh's shards: step(state) -> state on ``Sharded``
@@ -495,7 +547,7 @@ def build_sharded_step(model, grid: Grid, ctx, dtype, mesh: Mesh, method="psum",
     def step(state: ti.ModelState) -> ti.ModelState:
         per = [ti.ModelState(*(f.parts[i] for f in state[:5]), state.t)
                for i in range(len(steps))]
-        out = mesh.run(lambda st, shard: shard(st), per, steps)
+        out = mesh.run(_under_callers_hooks(lambda st, shard: shard(st)), per, steps)
         return ti.ModelState(
             *(Sharded([o[k] for o in out], specs[k], mesh) for k in range(5)),
             out[0].t)

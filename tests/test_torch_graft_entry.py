@@ -4,8 +4,9 @@ the JAX entry()'s at 1e-12; dryrun_multichip(2) runs one sharded step of
 every group; the gradient of the 4D-Var cost through two sharded flagship
 steps on a ThreadMesh of 2 and of 4 (psum, halo-gather, halo-pcr) equals
 the one-device gradient at 1e-12 and jax.grad through the JAX package's
-sharded step on the same inputs at 1e-9; and a backward through a
-DistMesh collective raises rather than return a wrong gradient.
+sharded step on the same inputs at 1e-9; and in a gloo world of one, a
+backward through each DistMesh collective gives autograd's values (more
+ranks: tests/test_torch_distmesh_grad.py).
 """
 
 import importlib.util
@@ -145,23 +146,30 @@ def test_sharded_4dvar_gradient_matches_jax_grad(method, interface):
 
 DIST = textwrap.dedent("""
     import os, sys
+    from datetime import timedelta
     import torch
     import torch.distributed as dist
+    from scythe_tpu_torch.parallel import sharding as sh
     from scythe_tpu_torch.parallel.mesh import DistMesh
     dist.init_process_group("gloo", store=dist.FileStore(sys.argv[1], 1), rank=0,
-                            world_size=1)
+                            world_size=1, timeout=timedelta(seconds=60))
     mesh = DistMesh(device="cpu")
-    for name in ("psum", "all_gather"):
-        x = torch.arange(3.0, requires_grad=True)
-        y = getattr(mesh, name)(x)
-        assert torch.equal(y.detach().reshape(-1), x.detach()), name
-        try:
-            y.sum().backward()
-        except NotImplementedError as e:
-            assert f"DistMesh.{name}" in str(e), e
-            print("RAISED", name, flush=True)
-    x = torch.arange(3.0, requires_grad=True)
+    w = torch.tensor([0.5, -1.5, 2.0], dtype=torch.float64)
+    plain = {"psum": lambda y: y, "all_gather": lambda y: y.unsqueeze(0),
+             "ppermute": lambda y: y}
+    coll = {"psum": mesh.psum, "all_gather": mesh.all_gather,
+            "ppermute": lambda y: mesh.ppermute(y, [(0, 0)])}
+    for name in ("psum", "all_gather", "ppermute"):
+        x = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64, requires_grad=True)
+        y = coll[name](x * x)
+        assert torch.equal(y.detach(), plain[name](x * x).detach()), name
+        (g,) = torch.autograd.grad((torch.cos(y) * w).sum(), x)
+        (want,) = torch.autograd.grad((torch.cos(plain[name](x * x)) * w).sum(), x)
+        print("GRAD", name, type(y.grad_fn).__name__, torch.equal(g, want), flush=True)
+    x = torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64, requires_grad=True)
     assert mesh.ppermute(x, [(0, 0)]) is x  # no communication: the identity
+    (g,) = sh.replicated_grad((mesh.psum(x) ** 2).sum(), x, mesh)
+    print("REPLICATED", torch.equal(g, 2.0 * x.detach()), flush=True)
     with torch.no_grad():
         assert not mesh.psum(x).requires_grad
     sys.stdout.flush()
@@ -169,12 +177,18 @@ DIST = textwrap.dedent("""
 """)
 
 
-def test_distmesh_backward_raises(tmp_path):
-    """A gloo world of one: psum and all_gather give their values, and a
-    backward through either raises NotImplementedError naming it."""
+def test_distmesh_backward_world_of_one(tmp_path):
+    """A gloo world of one: psum, all_gather and a ppermute give their
+    values, and a backward through each gives autograd's gradient of the
+    same expression without the collective, bit for bit: psum and
+    all_gather through their adjoint Functions (an all_reduce, a
+    reduce-scatter), the (0, 0) ppermute as the identity; replicated_grad
+    seeds the whole cotangent and sums over the one rank."""
     env = {**{k: v for k, v in os.environ.items() if not k.startswith("JAX_")},
            "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-c", DIST, str(tmp_path / "store")], env=env,
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert res.stdout.split("\n")[:2] == ["RAISED psum", "RAISED all_gather"], res.stdout
+    assert res.stdout.split("\n")[:4] == [
+        "GRAD psum _PsumFnBackward True", "GRAD all_gather _AllGatherFnBackward True",
+        "GRAD ppermute MulBackward0 True", "REPLICATED True"], res.stdout
