@@ -254,12 +254,33 @@ Phases, each printing PASS, its wall time and its numbers on a line:
    energy and u_max against the same run on the CPU (GALEWSKY_RTOL) and
    beside the JAX example's table.
 
+35. make_scan's captured steady step (the graphs group, run after the
+   kernels): for the flagship, moist3d in f32 and f64, the mature TC, the
+   shower with both option sets, JW06 production (unbalanced), compensated
+   moist3d and the flagship's 16 members (model.batched_step), at full
+   width: two start-up steps, then GRAPH_STEPS steps from that state by the
+   eager loop (disable_graphs) and by the graph, twice (the interval that
+   captures, its warm-up the first steady step, and one of replays only):
+   each state slot equal (f64 within 1e-13 of its max, f32 within
+   GRAPH_F32_BOUND; bitwise printed), the kernels' counted launches equal on
+   both paths and one a step (JW06's analysis two), no plain-version call,
+   one capture, the replays counted, a state kept from the first interval
+   unchanged by the next; the graph's nodes (cuGraphGetNodes), launches,
+   device busy and idle share a step of both paths (torch.profiler, the idle
+   share against the unprofiled runs' wall time), steps/s of both in turns,
+   and the memory after the capture (moist3d, JW06, the ensemble); the
+   vertical diffusion's batched LU captured alone; the capture sweep: every
+   one of the 21 equation sets' steady step, with every build_step option
+   among them and a compensated and a factored grid, SWEEP_STEPS steps
+   graph against eager; a step that reads a value on the host raises
+   GraphCaptureError naming its line, and the card goes on.
+
 Two CPU references need no card: the JW06 balance at 12 x 20 (phase 19)
 and fit_parameters' run (phase 26).  One child process of this script
 (``--cpu-reference``, CpuReferences) computes them in f64 on 4 threads from
 the start, beside the card's phases, and those phases wait for it.
 
-``--only`` runs some phase groups alone (kernels: 3-5; paths: 6-18; jw06:
+``--only`` runs some phase groups alone (kernels: 3-5; graphs: 35; paths: 6-18; jw06:
 19-21; ensembles: 22-23; gradients: 24-26; comp_kernels: 27; comp_moist3d:
 28; comp_flagship: 29; factored: 30; sharded: 31; examples: 32 and 34; cli:
 33);
@@ -3069,7 +3090,519 @@ def check_dryrun_kernels(tx, tmodel, tti, torch, cs, ra, tmp, n):
     return checked, lines
 
 
-GROUPS = ("kernels", "paths", "jw06", "ensembles", "gradients", "comp_kernels",
+# ---------------------------------------------------------------- graphs
+# The graphs group (phase 35, run after the kernels group and before the
+# paths): make_scan's captured steady step against its eager loop.
+GRAPH_STEPS = 30  # steps of each path compared, from the same state at t = 3
+GRAPH_TIMED_STEPS = 40  # steps a timed run, four runs in turns
+GRAPH_PROFILE_STEPS = (4, 14)  # the two lengths whose difference gives a step
+# graph against eager from one state: f64 within 1e-13 of each slot's max
+# (expected bitwise: the same kernels in the same order); f32 bitwise or
+# within GRAPH_F32_BOUND of each slot's max over GRAPH_STEPS steps (cuBLAS may
+# take another algorithm inside a capture, as its workspace differs)
+GRAPH_F64_TOL = 1e-13
+GRAPH_F32_BOUND = 1e-5
+SWEEP_STEPS = 6
+
+
+def slot_rel(a, b):
+    """max|a - b| / max|b| of each of the five state tensors, and whether
+    all five are equal bit for bit."""
+    rel = []
+    for x, y in zip(a[:5], b[:5]):
+        scale = float(y.abs().max())
+        err = float((x - y).abs().max())
+        rel.append(err / scale if scale > 0.0 else err)
+    return rel, all(bool((x == y).all()) for x, y in zip(a[:5], b[:5]))
+
+
+def kernel_counts(cs, ra):
+    return {"column_solve": cs.launches, "column_solve_comp": cs.comp_launches,
+            "rlz_analysis": ra.launches, "rlz_analysis_comp": ra.comp_launches}
+
+
+def graph_nodes(graph):
+    """{"nodes": n, "kernel_nodes": k, ...} of a captured
+    torch.cuda.CUDAGraph, read by libcuda's cuGraphGetNodes; None
+    where this torch cannot hand out its cudaGraph_t."""
+    import ctypes
+
+    if not hasattr(graph, "raw_cuda_graph"):
+        return None
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(g, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)) == 0
+    kinds = {}
+    for node in nodes:
+        t = ctypes.c_int()
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset, 3 host, 4 graph, 5 empty
+        name = {0: "kernel_nodes", 1: "memcpy_nodes", 2: "memset_nodes"}.get(
+            t.value, f"type{t.value}_nodes")
+        kinds[name] = kinds.get(name, 0) + 1
+    return {"nodes": n.value, **kinds}
+
+
+def path_profile(torch, run, n_short, n_long):
+    """({kernel name: launches a step}, device busy us a step) of ``run(n)``
+    from the difference of two lengths under torch.profiler."""
+    reads = {n: launches_by_kernel(torch, lambda: run(n)) for n in (n_short, n_long)}
+    (s, bs), (l_, bl) = reads[n_short], reads[n_long]
+    d = n_long - n_short
+    per = {k: (l_.get(k, 0) - s.get(k, 0)) / d for k in set(s) | set(l_)}
+    return {k: v for k, v in per.items() if v}, (bl - bs) / d
+
+
+def graph_case_state(tx, tmodel, torch, name, tmp, sh, jwx, cb):
+    """(step, state at t = 1, dtype, {kernel: launches a step}) of the graphs
+    group's configuration ``name`` at full width on the card."""
+    f32, f64 = torch.float32, torch.float64
+    if name == "flagship":
+        fm = cb.flagship_model(100, 256)
+        g = tx.create_grid(fm.grid_params, f32, device="cuda")
+        step = tmodel.build_step(fm, g, tmodel.build_context(fm, g, f32), f32)
+        return step, cb.vortex_state(g, f32), f32, {}
+    if name == "flagship_ensemble":
+        fm = cb.flagship_model(100, 256)
+        g = tx.create_grid(fm.grid_params, f32, device="cuda")
+        step = tmodel.batched_step(
+            tmodel.build_step(fm, g, tmodel.build_context(fm, g, f32), f32))
+        base = cb.vortex_phys(g)
+        ics = torch.as_tensor(np.stack([base * (1.0 + i / 100.0)
+                                        for i in range(FLAGSHIP_MEMBERS)]),
+                              dtype=f32, device="cuda")
+        state = tmodel.ensemble_state(torch.func.vmap(g.analysis)(ics), ics.shape)
+        return step, state, f32, {}
+    if name.startswith("moist3d") or name == "comp_moist3d":
+        dtype = f64 if name == "moist3d_f64" else f32
+        m = moist3d(tx, tmp, n_steps=GRAPH_STEPS, out_every=GRAPH_STEPS, name=f"g_{name}")
+        with compensated_grids() if name == "comp_moist3d" else contextlib.nullcontext():
+            grid, ctx, state = tmodel.initialize(m, dtype, "cuda")
+        per = ({"column_solve": 1, "rlz_analysis_comp": 1} if name == "comp_moist3d"
+               else {"column_solve": 1, "rlz_analysis": 1})
+        return tmodel.build_step(m, grid, ctx, dtype), state, dtype, per
+    if name == "tc_mature":
+        from scythe_tpu_torch.examples.tc_intensification_rlz import tc_mature_model
+
+        m = tc_mature_model(os.path.join(tmp, "g_tc"), t_end=2.0 * GRAPH_STEPS,
+                            output_interval=2.0 * GRAPH_STEPS)
+        grid, ctx, state = tmodel.initialize(m, f32, "cuda")
+        return (tmodel.build_step(m, grid, ctx, f32), state, f32,
+                {"column_solve": 1, "rlz_analysis": 1})
+    if name in ("shower", "shower_production"):
+        m = shower(tx, sh, os.path.join(tmp, f"g_{name}"), GRAPH_STEPS,
+                   "moist_production" if name == "shower_production" else None)
+        grid, ctx, state = tmodel.initialize(m, f32, "cuda")
+        return (tmodel.build_step(m, grid, ctx, f32), state, f32,
+                {"column_solve": 1, "rlz_analysis": 1})
+    if name == "jw06_production":
+        m = jwx.production_model(os.path.join(tmp, "g_jw06"), t_end=7.5 * GRAPH_STEPS)
+        g64 = tx.create_grid(m.grid_params, f64, device="cpu")
+        c64 = tmodel.build_context(m, g64, f64)
+        phys0 = jwx.initial_fields(g64, c64.ref_state, perturb=True)
+        _, _, state, step = jwx.prepare_run(m, phys0, f32, "cuda")
+        return step, state, f32, {"column_solve": 1, "rlz_analysis": 2}
+    raise KeyError(name)
+
+
+GRAPH_CASES = ("flagship", "moist3d", "moist3d_f64", "tc_mature", "shower",
+               "shower_production", "jw06_production", "comp_moist3d", "flagship_ensemble")
+GRAPH_MEMORY_CASES = ("moist3d", "jw06_production", "flagship_ensemble")
+
+
+def graph_against_eager(torch, tmodel, graphs, cs, ra, name, step, state, dtype, per_step):
+    """The graphs group's checks and readings of one configuration."""
+    n = GRAPH_STEPS
+    s3 = tmodel.make_scan(step, 2)(state)  # the start-up steps: eager on every path
+    assert s3.t == 3 and not graphs.captured(step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_reserved()
+    zero_counts(cs, ra)
+    with plain_version_calls(cs, ra) as plain_first:
+        g1 = tmodel.make_scan(step, n)(s3)  # captures: its warm-up is the first steady step
+    torch.cuda.synchronize()
+    first = kernel_counts(cs, ra)
+    (runner,) = graphs.captured(step).values()
+    assert runner.replays == n - 1, runner.replays
+    memory = {"reserved_before_gb": mem0 / 1e9,
+              "reserved_after_capture_gb": torch.cuda.memory_reserved() / 1e9,
+              "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+              "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    nodes = graph_nodes(runner.replay.__self__)
+    paths = {}
+    for label in ("graph", "eager"):
+        zero_counts(cs, ra)
+        with (graphs.disable_graphs() if label == "eager" else contextlib.nullcontext()), \
+                plain_version_calls(cs, ra) as plain:
+            paths[label] = (tmodel.make_scan(step, n)(s3), kernel_counts(cs, ra), list(plain))
+    assert len(graphs.captured(step)) == 1 and runner.replays == 2 * n - 1, runner.replays
+    (sg, cg, pg), (se, ce, pe) = paths["graph"], paths["eager"]
+    want = {k: per_step.get(k, 0) * n for k in ce}
+    assert ce == cg == first == want, (ce, cg, first, want)
+    assert not (pg or pe or plain_first), (pg, pe, plain_first)
+    assert sg.t == se.t == g1.t == 3 + n
+    rel, bitwise = slot_rel(sg, se)
+    rel1, bitwise1 = slot_rel(g1, se)
+    bound = GRAPH_F64_TOL if dtype == torch.float64 else GRAPH_F32_BOUND
+    assert all(np.isfinite(rel)) and max(rel + rel1) <= bound, (rel, rel1, bound)
+    # a kept state never changes under a later replay
+    kept = g1.spec.clone()
+    tmodel.make_scan(step, 3)(sg)
+    assert torch.equal(kept, g1.spec)
+
+    # launches, busy and idle a step of both paths (torch.profiler), then
+    # steps/s of both, taken in turns
+    prof = {}
+    for label in ("eager", "graph"):
+        ctx = graphs.disable_graphs() if label == "eager" else contextlib.nullcontext()
+        with ctx:
+            per, busy = path_profile(torch, lambda k: tmodel.make_scan(step, k)(s3),
+                                     *GRAPH_PROFILE_STEPS)
+        prof[label] = {"launches_per_step": sum(per.values()), "busy_us": busy,
+                       "by_kernel": {k[:60]: round(v, 3) for k, v in per.items()
+                                     if "column_solve" in k or "rlz_analysis" in k}}
+    sps = {"eager": [], "graph": []}
+    for label in ("eager", "graph", "graph", "eager"):
+        ctx = graphs.disable_graphs() if label == "eager" else contextlib.nullcontext()
+        with ctx:
+            tmodel.make_scan(step, 3)(s3)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            tmodel.make_scan(step, GRAPH_TIMED_STEPS)(s3)
+            torch.cuda.synchronize()
+        sps[label].append(GRAPH_TIMED_STEPS / (time.perf_counter() - h0))
+    # the device's idle share: busy a step (profiled) over the wall time a
+    # step of the unprofiled timed runs, each of the two
+    for label in prof:
+        prof[label]["wall_us"] = [1e6 / r for r in sps[label]]
+        prof[label]["idle_share"] = [max(0.0, 1.0 - prof[label]["busy_us"] * r / 1e6)
+                                     for r in sps[label]]
+    return {"launches": ce, "plain_version_calls": len(pg) + len(pe), "rel": rel,
+            "bitwise": bitwise, "rel_with_warm_up": rel1, "bitwise_with_warm_up": bitwise1,
+            "replays_first_interval": n - 1, "replays_later_interval": n,
+            "memory": memory, "graph_nodes": nodes, "profile": prof, "steps_per_s": sps}
+
+
+def sweep_cases(tx, tmodel, wm, jwx, tmp):
+    """The capture sweep: every one of the 21 equation sets at a small size,
+    with every option of build_step somewhere among them.  Each case is
+    (label, model, dtype, compensated, phys0 or None); phys0 None: the
+    model's IC file through initialize."""
+    import torch
+    from scythe_tpu_torch import io as sio
+
+    f64, BC = torch.float64, tx.BC
+    cases = []
+
+    def add(label, eqset, gp, params, ts, ic, options=None, sounding=False,
+            dtype=f64, comp=False):
+        pts = tx.create_grid(gp, f64, device="cpu").gridpoints()
+        cols = ic(pts)
+        names = list(gp.vars)
+        data = np.zeros((len(pts), pts.shape[1] + len(names)))
+        data[:, :pts.shape[1]] = pts
+        for j, v in enumerate(names):
+            if v in cols:
+                data[:, pts.shape[1] + j] = cols[v]
+        ics = os.path.join(tmp, f"sweep_{label}_ics.csv")
+        sio._write_csv(ics, [f"c{i}" for i in range(pts.shape[1])] + names, data)
+        snd = ""
+        if sounding:
+            snd = os.path.join(tmp, f"sweep_{label}_sounding.txt")
+            write_sounding(snd)
+        model = tx.ModelParameters(
+            ts=ts, integration_time=SWEEP_STEPS * ts, output_interval=SWEEP_STEPS * ts,
+            equation_set=eqset, initial_conditions=ics,
+            output_dir=os.path.join(tmp, f"sweep_{label}_out"), ref_state_file=snd,
+            grid_params=gp, physical_params=params, options=options or {})
+        cases.append((label, model, dtype, comp, None))
+
+    def blob(pts):
+        r = pts[:, 0]
+        return {"u": np.exp(-(((r - 50.0) / 20.0) ** 2)),
+                "h": np.exp(-(((r - 50.0) / 20.0) ** 2)), "v": 2.0 * np.pi / 100.0 * r,
+                "w": 0.5 + 0.0 * r} if pts.shape[1] > 1 else {
+                    "u": np.exp(-(((r - 50.0) / 20.0) ** 2))}
+
+    def bump(pts):
+        r = pts[:, 0]
+        lam = pts[:, 1] if pts.shape[1] > 1 else 0.0
+        return {"h": 10.0 * np.exp(-(((r - 4.0e4) / 1.5e4) ** 2)) * (1.0 + 0.3 * np.cos(lam))}
+
+    def vortex(pts):
+        r, lam = pts[:, 0], pts[:, 1]
+        rm, vm = 5.0e4, 20.0
+        v = np.where(r < rm, vm * r / rm, vm * rm / r) * (1.0 + 0.05 * np.cos(2 * lam))
+        r_u = np.unique(r)
+        v_u = np.where(r_u < rm, vm * r_u / rm, vm * rm / r_u)
+        dh = (5.0e-5 * v_u + v_u**2 / r_u) / 9.81
+        h_u = np.concatenate([[0.0], np.cumsum(0.5 * (dh[1:] + dh[:-1]) * np.diff(r_u))])
+        return {"h": h_u[np.searchsorted(r_u, r)], "v": v, "vb": 0.8 * v}
+
+    def bubble(pts):
+        r, z = pts[:, 0], pts[:, -1]
+        rad = np.sqrt((r / 2000.0) ** 2 + ((z - 2000.0) / 2000.0) ** 2)
+        return {"s": 3.0 * np.maximum(0.0, np.cos(np.pi * np.minimum(rad, 1.0) / 2.0)) ** 2}
+
+    def gradient_wind(pts):
+        r = pts[:, 0]
+        vgr = np.where(r < 5.0e4, 30.0 * r / 5.0e4, 30.0 * 5.0e4 / r)
+        return {"vgr": vgr, "v": vgr}
+
+    def adv(geometry, names, **kw):
+        extra = ({"BCL": {"u": BC.PERIODIC}, "BCR": {"u": BC.PERIODIC}}
+                 if geometry == "R" else {"BCL": {"h": BC.R1T1}})
+        return tx.GridParameters(geometry=geometry, vars=names, xmin=0.0, xmax=100.0, **extra,
+                                 **kw)
+
+    def hvu(geometry, **kw):
+        names = ("h", "u", "v") if geometry == "RL" else ("h", "u")
+        return tx.GridParameters(
+            geometry=geometry, xmin=0.0, xmax=1.0e5, num_cells=10, vars=names,
+            BCL={"h": BC.R1T1, "u": BC.R1T0, "v": BC.R1T0},
+            BCR={"h": BC.R0, "u": BC.R1T1, "v": BC.R0}, **kw)
+
+    def slab(**kw):
+        return tx.GridParameters(
+            geometry="RL", xmin=0.0, xmax=3.0e5, num_cells=8, lDim=16,
+            BCL={"h": BC.R1T1, "u": BC.R1T0, "v": BC.R1T0, "ub": BC.R1T0, "vb": BC.R1T0,
+                 "wb": BC.R1T1},
+            BCR={"h": BC.R0, "u": BC.R1T1, "v": BC.R0, "ub": BC.R1T1, "vb": BC.R0,
+                 "wb": BC.R0},
+            vars={"h": 1, "u": 2, "v": 3, "ub": 4, "vb": 5, "wb": 6}, **kw)
+
+    def rz(names):
+        return tx.GridParameters(
+            geometry="RZ", xmin=0.0, xmax=10000.0, num_cells=10, zmin=0.0, zmax=10000.0,
+            zDim=16, BCL={"u": BC.R1T0, "w": BC.R1T1}, BCR={"u": BC.R1T0}, vars=names)
+
+    def tcbl(geometry, **kw):
+        return tx.GridParameters(
+            geometry=geometry, xmin=0.0, xmax=2.0e5, num_cells=16,
+            BCL={"vgr": BC.R1T0, "u": BC.R1T0, "v": BC.R1T0, "w": BC.R1T1},
+            BCR={"vgr": BC.R0, "u": BC.R1T1, "v": BC.R0, "w": BC.R0},
+            vars=("vgr", "u", "v", "w"), **kw)
+
+    euler = ("s", "xi", "mu", "u", "w")
+    slab_p = {"g": 9.81, "K": 5000.0, "Cd": 2.4e-3, "Hfree": 2000.0, "Hb": 1000.0,
+              "f": 5.0e-5}
+    tcbl_p = {"K": 1500.0, "Cd": 2.4e-3, "h": 1000.0, "f": 5.0e-5}
+    add("LinearAdvection1D", "LinearAdvection1D", adv("R", ("u",), num_cells=24),
+        {"c_0": 1.0, "K": 0.5}, 0.05, blob)
+    add("LinearAdvectionRZ", "LinearAdvectionRZ",
+        adv("RZ", ("h", "u", "v", "w"), num_cells=10, zmin=0.0, zmax=100.0, zDim=12),
+        {"K": 0.5}, 0.05, blob,
+        {"modal_filter_tau": 10.0, "modal_filter_axes": "rz", "sponge_top_width": 20.0,
+         "sponge_top_tau": 5.0})
+    add("LinearAdvectionRL", "LinearAdvectionRL",
+        adv("RL", ("h", "u", "v"), num_cells=10, lDim=16), {"K": 0.5}, 0.05, blob)
+    add("LinearAdvectionRLZ", "LinearAdvectionRLZ",
+        adv("RLZ", ("h", "u", "v"), num_cells=8, lDim=16, zmin=0.0, zmax=50.0, zDim=8),
+        {"K": 0.5}, 0.05, blob, {"modal_filter_tau": 10.0})
+    add("LinearShallowWater1D", "LinearShallowWater1D", hvu("R"),
+        {"g": 9.81, "K": 100.0, "H": 100.0}, 5.0, bump,
+        {"sponge_width": 2.0e4, "sponge_tau": 300.0})
+    add("LinearShallowWaterRL", "LinearShallowWaterRL", hvu("RL", lDim=16),
+        {"g": 9.81, "K": 100.0, "H": 100.0}, 5.0, bump, {"radiation_width": 2.0e4})
+    add("ShallowWaterRL", "ShallowWaterRL", hvu("RL", lDim=16),
+        {"g": 9.81, "K": 100.0, "H": 100.0, "f": 5.0e-5}, 5.0, bump,
+        {"modal_filter_tau": 600.0, "incremental_analysis": True})
+    add("Oneway_ShallowWater_Slab", "Oneway_ShallowWater_Slab", slab(), slab_p, 3.0, vortex)
+    add("Twoway_ShallowWater_Slab", "Twoway_ShallowWater_Slab", slab(),
+        {**slab_p, "S1": 1.0e-5}, 3.0, vortex,
+        {"sponge_width": 5.0e4, "radiation_width": 3.0e4})
+    add("Twoway_ShallowWater_Slab_factored", "Twoway_ShallowWater_Slab",
+        slab(l_factored=True), {**slab_p, "S1": 1.0e-5}, 3.0, vortex)
+    add("Twoway_ShallowWater_Slab_compensated", "Twoway_ShallowWater_Slab", slab(),
+        {**slab_p, "S1": 1.0e-5}, 3.0, vortex, dtype=torch.float32, comp=True)
+    cases.append(("Oneway_ShallowWater_HeightResolvedBL", hrbl_model(tx, tmp, SWEEP_STEPS),
+                  f64, False, None))
+    add("Euler_test", "Euler_test", rz(euler), {"K": 5.0}, 0.2, bubble,
+        {"semiimplicit": True, "si_mode": "variable"}, sounding=True)
+    add("BF02_test", "BF02_test", rz(euler + ("mu_l", "qss")), {"K": 5.0}, 0.1, bubble,
+        {"semiimplicit": True, "condensation": "diagnostic", "exact_vertical_pgf": True,
+         "stiff_relaxation": "exp"}, sounding=True)
+    add("rainfall_test", "rainfall_test", rz(euler + ("mu_c", "mu_r", "qss")), {"K": 5.0},
+        0.2, bubble,
+        {"semiimplicit": True, "condensation": "diagnostic", "sedimentation": "active",
+         "stiff_relaxation": "exp", "condensation_rate_cap": 1.0e-4,
+         "exact_vertical_pgf": True}, sounding=True)
+    add("Williams2013_slabTCBL", "Williams2013_slabTCBL", tcbl("R"), tcbl_p, 5.0,
+        gradient_wind)
+    add("RL_SlabTCBL", "RL_SlabTCBL", tcbl("RL", lDim=8), tcbl_p, 5.0, gradient_wind)
+    add("Kepert2017_TCBL", "Kepert2017_TCBL", tcbl("RZ", zmin=0.0, zmax=2000.0, zDim=12),
+        {"K": 1500.0, "Cd": 2.4e-3, "f": 5.0e-5}, 0.2, gradient_wind)
+    from scythe_tpu_torch.examples.tc_intensification_rlz import tc_mature_model
+
+    # the TC bundle: sponge, surface fluxes, Smagorinsky + implicit vertical
+    # diffusion, diagnostic condensation with its cap, active sedimentation
+    cases.append(("MoistEulerRLZ_tc_bundle",
+                  tc_mature_model(os.path.join(tmp, "sweep_tc"), t_end=4.0 * SWEEP_STEPS,
+                                  output_interval=4.0 * SWEEP_STEPS, num_cells=16, ts=4.0),
+                  f64, False, None))
+    cases.append(("MoistEulerRLZ_compensated", small(tx, tmp, SWEEP_STEPS), torch.float32,
+                  True, None))
+    xm = xyz_test_model(tx, tmp, SWEEP_STEPS, name="sweep_xyz")
+    cases.append(("MoistEulerXYZ", xm.with_(options={
+        **dict(xm.options), "sedimentation": "active", "smagorinsky": 0.2,
+        "implicit_vdiff": True, "sponge_top_width": 3000.0}), f64, False, None))
+    jm = jwx.build_model(os.path.join(tmp, "sweep_jw06"), num_cells=8, nl=16, zdim=12,
+                         ts=7.5, t_end=7.5 * SWEEP_STEPS, filter_tau=3600.0, smag=0.21,
+                         sponge_top=12.0e3, k4=6.0e16)
+    g64 = tx.create_grid(jm.grid_params, f64, device="cpu")
+    phys0 = jwx.initial_fields(g64, tmodel.build_context(jm, g64, f64).ref_state,
+                               perturb=True)
+    cases.append(("MoistEulerSLZ", jm, f64, False, phys0))
+    add("ShallowWaterSphere", "ShallowWaterSphere",
+        tx.GridParameters(geometry="SL", xmin=-np.pi / 2, xmax=np.pi / 2, num_cells=12,
+                          lDim=24, sphere_radius=wm.A_EARTH, vars=("h", "u", "v")),
+        {"g": wm.G, "Omega": wm.OMEGA, "K": 1.0e5}, 300.0,
+        lambda pts: dict(zip("huv", wm.w6_fields(pts[:, 0], pts[:, 1]))))
+    add("AdvectionSphere", "AdvectionSphere",
+        tx.GridParameters(geometry="SL", xmin=-np.pi / 2, xmax=np.pi / 2, num_cells=12,
+                          lDim=24, sphere_radius=wm.A_EARTH, vars=("h",)),
+        {"u0": 2 * np.pi * wm.A_EARTH / (12 * 86400.0), "alpha": np.pi / 2}, 300.0,
+        lambda pts: {"h": wm.w1_bell(pts[:, 0], pts[:, 1])})
+    return cases
+
+
+def sweep_run(tmodel, torch, graphs, jwx, case):
+    """(graph against eager rel per slot, bitwise) of one sweep case:
+    SWEEP_STEPS steps of each path on the card from the state at t = 3."""
+    label, model, dtype, comp, phys0 = case
+    with compensated_grids() if comp else contextlib.nullcontext():
+        if phys0 is None:
+            grid, ctx, state = tmodel.initialize(model, dtype, "cuda")
+            step = tmodel.build_step(model, grid, ctx, dtype)
+        else:
+            grid, ctx, state, step = jwx.prepare_run(model, phys0, dtype, "cuda")
+    assert grid.comp == comp, label
+    s3 = tmodel.make_scan(step, 2)(state)
+    with graphs.disable_graphs():
+        se = tmodel.make_scan(step, SWEEP_STEPS)(s3)
+    sg = tmodel.make_scan(step, SWEEP_STEPS)(s3)
+    (runner,) = graphs.captured(step).values()
+    assert runner.replays == SWEEP_STEPS - 1, label
+    rel, bitwise = slot_rel(sg, se)
+    bound = GRAPH_F64_TOL if dtype == torch.float64 else GRAPH_F32_BOUND
+    assert all(np.isfinite(rel)) and max(rel) <= bound, (label, rel, bound)
+    return step, s3, rel, bitwise
+
+
+def phase_graphs(tx, tmodel, torch, cs, ra, cb, sh, jwx, wm, tmp, card):
+    """Phase 35: make_scan's captured steady step on the card.  Returns a
+    dict for the closing line."""
+    import gc
+
+    from scythe_tpu_torch import graphs
+
+    out = {"cases": {}}
+    for name in GRAPH_CASES:
+        t0 = time.perf_counter()
+        step, state, dtype, per = graph_case_state(tx, tmodel, torch, name, tmp, sh, jwx, cb)
+        r = graph_against_eager(torch, tmodel, graphs, cs, ra, name, step, state, dtype, per)
+        out["cases"][name] = r
+        p = r["profile"]
+        say(f"graph-{name}", t0,
+            f"{GRAPH_STEPS} steps from t = 3 in {dtype}, eager (disable_graphs) vs the "
+            f"captured steady step: rel per state slot {[f'{x:.2e}' for x in r['rel']]} "
+            f"(bitwise {r['bitwise']}; with the capture's warm-up step "
+            f"{[f'{x:.2e}' for x in r['rel_with_warm_up']]}; tol "
+            f"{GRAPH_F64_TOL if dtype == torch.float64 else GRAPH_F32_BOUND}); kernel "
+            f"launches on both paths {json.dumps(r['launches'])}, plain-version calls "
+            f"{r['plain_version_calls']}; replays {r['replays_first_interval']} in the "
+            f"capturing interval, {r['replays_later_interval']} in the next; graph nodes "
+            f"{json.dumps(r['graph_nodes'])}; torch.profiler a step (steps "
+            f"{GRAPH_PROFILE_STEPS[1]} - {GRAPH_PROFILE_STEPS[0]}): eager "
+            f"{p['eager']['launches_per_step']:.1f} launches, busy "
+            f"{p['eager']['busy_us']:.1f} us (idle share of the timed runs "
+            f"{[round(x, 4) for x in p['eager']['idle_share']]}), graph "
+            f"{p['graph']['launches_per_step']:.1f} launches, busy "
+            f"{p['graph']['busy_us']:.1f} us (idle "
+            f"{[round(x, 4) for x in p['graph']['idle_share']]}); kernels by name eager "
+            f"{json.dumps(p['eager']['by_kernel'])} graph {json.dumps(p['graph']['by_kernel'])};"
+            f" steps/s ({GRAPH_TIMED_STEPS} steps, host clock, in turns eager, graph, graph, "
+            f"eager) eager {r['steps_per_s']['eager']} graph {r['steps_per_s']['graph']}"
+            + (f"; memory after the capture {json.dumps(r['memory'])}"
+               if name in GRAPH_MEMORY_CASES else "") + f" on {card}")
+        del step, state
+        gc.collect()
+
+    # the batched LU of the implicit vertical diffusion, captured alone
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lu = {}
+    for dtype in (torch.float32, torch.float64):
+        m = (torch.eye(24, dtype=dtype, device="cuda")
+             + 0.1 * torch.randn(1200, 24, 24, dtype=dtype, device="cuda", generator=gen))
+        rhs = torch.randn(1200, 24, 7, dtype=dtype, device="cuda", generator=gen)
+        ref = tmodel.batched_solve(m, rhs)
+        box = {}
+
+        def solve():
+            box["x"] = tmodel.batched_solve(m, rhs)
+
+        graphs.CUDA_GRAPH.warm(solve, m.device)
+        replay = graphs.CUDA_GRAPH.capture(solve, m.device, [m, rhs])
+        replay()
+        torch.cuda.synchronize()
+        lu[str(dtype)] = bool(torch.equal(box["x"], ref))
+        assert float((box["x"] - ref).abs().max()) <= (1e-12 if dtype == torch.float64
+                                                        else 1e-5), dtype
+    out["lu_bitwise"] = lu
+    say("graph-batched-lu", t0,
+        f"model.batched_solve (torch.linalg.solve_ex, cuBLAS's batched LU) on "
+        f"[1200, 24, 24] x [1200, 24, 7] captured in a CUDA graph and replayed against the "
+        f"eager call: bitwise {json.dumps(lu)}")
+
+    # the capture sweep: every equation set's steady step at a small size
+    t0 = time.perf_counter()
+    sweep = {}
+    for case in sweep_cases(tx, tmodel, wm, jwx, tmp):
+        step, s3, rel, bitwise = sweep_run(tmodel, torch, graphs, jwx, case)
+        sweep[case[0]] = {"max_rel": max(rel), "bitwise": bitwise}
+    sets = {case.split("_compensated")[0].split("_factored")[0].split("_tc_bundle")[0]
+            for case in sweep}
+    assert len(sets) == 21, sorted(sets)
+    out["sweep"] = sweep
+    say("graph-capture-sweep", t0,
+        f"the steady step of all {len(sets)} equation sets (and the compensated and "
+        f"factored grids) captured at small sizes, {SWEEP_STEPS} steps graph vs eager: "
+        f"{json.dumps(sweep)}")
+
+    # a step that cannot be captured raises, naming its op; the card goes on
+    t0 = time.perf_counter()
+
+    def syncing(st):
+        new = step(st)
+        if float(new.spec.abs().max()) < 0.0:  # a host read: waits for the card
+            raise AssertionError
+        return new
+
+    try:
+        tmodel.make_scan(syncing, 4)(s3)
+    except graphs.GraphCaptureError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a step with a host read was captured")
+    assert "chip_smoke.py" in msg and not graphs.captured(syncing), msg
+    # the failed capture gave the stream back: this thread is on the default
+    # stream again, ordered with every other thread's (ThreadMesh shards)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    again = tmodel.make_scan(step, 4)(s3)
+    assert torch.isfinite(again.spec).all()
+    say("graph-refuses-a-host-read", t0,
+        f"a step that reads a value on the host raised GraphCaptureError: {msg[:300]!r}; "
+        f"the thread is back on the default stream, and the same step without the read "
+        f"then replayed")
+    return out
+
+
+GROUPS = ("kernels", "graphs", "paths", "jw06", "ensembles", "gradients", "comp_kernels",
           "comp_moist3d", "comp_flagship", "factored", "sharded", "examples", "cli")
 
 
@@ -3165,6 +3698,8 @@ def main(argv=None):
             ra_err, ra_times = phase_analysis(tx, torch, ra)
             ep_err, ep_ms, ep_plain_ms, ep_launches = phase_probe(torch, ep)
 
+        if "graphs" in groups:
+            graph_out = phase_graphs(tx, tmodel, torch, cs, ra, cb, sh, jwx, wm, tmp, card)
         if "paths" in groups:
             # ---- phase 6: moist3d, the counts reset just before it
             t0 = time.perf_counter()
@@ -3539,7 +4074,10 @@ def main(argv=None):
           f"{json.dumps(ens)}; compensated moist3d: {json.dumps(cm3d)}; compensated "
           f"flagship: {json.dumps(cfl)}; factored DFT dense vs factored ms: "
           f"{json.dumps(fact_times)}; sharded: {json.dumps(shd)}; published runs: "
-          f"{json.dumps(exm, default=str)}; cli: {json.dumps(cli_out)}", flush=True)
+          f"{json.dumps(exm, default=str)}; cli: {json.dumps(cli_out)}; graphs (steps/s "
+          f"eager, graph): "
+          f"{json.dumps({k: v['steps_per_s'] for k, v in graph_out['cases'].items()})}",
+          flush=True)
     cs_main = cs_times["9216x48 f32"]
     n_probe = int(np.prod(ep.SHAPE))
     # seven slot tensors and rinv read, one output written; 21 FLOP an output

@@ -170,3 +170,23 @@ def stack_tendencies(nvars: int, shape, dtype, terms: dict[int, torch.Tensor]):
         for v in range(nvars)
     ]
     return torch.stack(rows, dim=0)
+
+
+def laplacian_mask(dtype, device):
+    """[9, 1, 1, 1] mask of the moist Euler sets' diffused variables: all but
+    xi and qss.  Made on the device by fills, not copied from the host each
+    step (a copy a CUDA graph could not capture)."""
+    mask = torch.ones(9, dtype=dtype, device=device)
+    mask[1:2].zero_()  # a slice and a fill: ``mask[1] = 0.0`` copies a host scalar
+    mask[8:9].zero_()
+    return mask[:, None, None, None]
+
+
+def field_of(value, shape, dtype, device):
+    """``value`` (a Python number or a tensor, such as a traced parameter)
+    broadcast to ``shape`` on ``device``; a number becomes a fill on the
+    device, not a copy from the host."""
+    if not torch.is_tensor(value):
+        value = torch.full((), float(value), dtype=dtype, device=device)
+    return torch.broadcast_to(value.to(dtype=dtype, device=device), shape)
+

@@ -23,7 +23,8 @@ import torch
 from ..physics import microphysics as mp
 from ..physics import thermodynamics as td
 from ..physics import turbulence as tb
-from .common import EqContext, EqResult, equation_set, same_param, stack_tendencies
+from .common import (EqContext, EqResult, equation_set, field_of, laplacian_mask, same_param,
+                     stack_tendencies)
 
 
 @equation_set(geometry="SL")
@@ -176,10 +177,7 @@ def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
         [sbar_z, xibar_z, mubar_z, zrow, zrow, zrow, zrow, zrow, zrow]
     )
     adv_all = -(u3 / (a * cosp)) * dl - (v3 / a) * dp - w3 * dz - w3 * barz
-    lap_mask = torch.tensor(
-        [1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0],
-        dtype=dp.dtype, device=dp.device,
-    )[:, None, None, None]
+    lap_mask = laplacian_mask(dp.dtype, dp.device)
     aa = a * a
     K_v_const = ctx.p("K_v", K)  # a traced parameter stays a tensor
     cs = float(ctx.options.get("smagorinsky", 0.0) or 0.0)
@@ -293,7 +291,7 @@ def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
         expdot=adv_all + lap_all + stack_tendencies(nvars, sh, dt, extra),
         impdot=stack_tendencies(nvars, sh, dt, imp),
         k_v=(
-            torch.broadcast_to(torch.as_tensor(k_v, dtype=dt, device=u.device), sh)
+            field_of(k_v, sh, dt, u.device)
             if ivd else None
         ),
     )

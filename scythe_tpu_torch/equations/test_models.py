@@ -13,7 +13,8 @@ import torch
 from ..physics import microphysics as mp
 from ..physics import thermodynamics as td
 from ..physics import turbulence as tb
-from .common import EqContext, EqResult, equation_set, same_param, stack_tendencies
+from .common import (EqContext, EqResult, equation_set, field_of, laplacian_mask, same_param,
+                     stack_tendencies)
 
 
 @equation_set(geometry="R")
@@ -440,10 +441,7 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
         [sbar_z, xibar_z, mubar_z, zrow, zrow, zrow, zrow, zrow, zrow]
     )
     adv_all = -u3 * dr - (v3 / r) * dl - w3 * dz - w3 * barz
-    lap_mask = torch.tensor(
-        [1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0],
-        dtype=dr.dtype, device=dr.device,
-    )[:, None, None, None]
+    lap_mask = laplacian_mask(dr.dtype, dr.device)
     # physical_params['K_v']: separate constant vertical diffusivity
     K_v_const = ctx.p("K_v", K)  # a traced parameter stays a tensor
     cs = float(ctx.options.get("smagorinsky", 0.0) or 0.0)
@@ -533,7 +531,7 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
         expdot=adv_all + lap_all + stack_tendencies(nvars, sh, dt, extra),
         impdot=stack_tendencies(nvars, sh, dt, imp),
         k_v=(
-            torch.broadcast_to(torch.as_tensor(k_v, dtype=dt, device=u.device), sh)
+            field_of(k_v, sh, dt, u.device)
             if ivd else None
         ),
     )
@@ -681,7 +679,7 @@ def MoistEulerXYZ(fields, ctx: EqContext) -> EqResult:
         expdot=stack_tendencies(nvars, sh, dt, exp),
         impdot=stack_tendencies(nvars, sh, dt, imp),
         k_v=(
-            torch.broadcast_to(torch.as_tensor(k_v, dtype=dt, device=u.device), sh)
+            field_of(k_v, sh, dt, u.device)
             if ivd else None
         ),
     )

@@ -3,9 +3,11 @@
 The counterpart of ``scythe_tpu.model``.  Per step: synthesis -> pointwise
 tendencies -> AB3/AI2* update -> (semi-implicit column solve) ->
 (condensation adjustment) -> analysis.  Where the JAX package runs the
-steps between outputs inside one ``lax.scan``, here they are a Python loop
-of eager steps; the host touches data only at output boundaries (CSV write
-+ NaN watchdog), the reference cadence (semiimplicit.jl:288-293).
+steps between outputs inside one jitted ``lax.scan``, here ``make_scan``
+replays one CUDA graph of the steady step on the card (``graphs.py``;
+``disable_graphs()`` runs the eager loop); the host touches data only at
+output boundaries (CSV write + NaN watchdog), the reference cadence
+(semiimplicit.jl:288-293).
 
 Every option of the JAX package's build_step and run loop is ported:
 ``semiimplicit`` (``si_mode`` 'constant' or 'variable'), ``si_scale``,
@@ -20,9 +22,10 @@ filter (``modal_filter_tau``, ``modal_filter_order``, ``modal_filter_axes``),
 ``smagorinsky``, ``smagorinsky_axes``), ``topography_file``,
 ``checkpoint_interval``, ``write_spectral`` and ``output_format='nc'``.
 ``profile_dir`` on ``integrate_model`` writes a ``torch.profiler`` trace.
-``integrate_ensemble`` runs members as a leading axis (``torch.func.vmap``
-over a member's run: each hand-written kernel launches once a step for all
-members), on one device or split over the shards of an ensemble mesh.
+``integrate_ensemble`` runs members as a leading axis (the step under
+``torch.func.vmap`` on a member-batched state, replayed as one graph: each
+hand-written kernel launches once a step for all members), on one device or
+split over the shards of an ensemble mesh.
 ``build_step`` takes the sharded builder's transforms and filter
 (``analysis_fn``, ``synthesis_fn``, ``modal_filter_fn``) and ``run_loop``
 its layout hooks (``to_canonical``, ``from_canonical``, ``gather``): the
@@ -31,6 +34,7 @@ radial domain decomposition lives in ``parallel/``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -40,12 +44,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import graphs
 from . import io as sio
 from . import timeintegration as ti
 from .basis import bspline, chebyshev
 from .config import ModelParameters
 from .device import DEFAULT
 from .equations.common import EqContext, get_equation_set
+from .graphs import disable_graphs  # noqa: F401  (the counterpart of jax.disable_jit)
 from .grids.base import Grid, _split3, create_grid
 from .physics import microphysics as mp
 from .physics import reference_state as rsmod
@@ -281,6 +287,30 @@ def build_surface_fluxes(grid: Grid, ctx: EqContext, cfg: dict, dtype):
     return apply
 
 
+@contextlib.contextmanager
+def _linalg_library(name: str):
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library(name)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def batched_solve(m, rhs):
+    """X with m X = rhs for a batch of small systems, by LU with partial
+    pivoting (LAPACK's getrf on the CPU), without ``solve``'s check of the
+    factorisation's ``info``, which waits for the card: a singular system
+    gives non-finite fields, which the run loop's watchdog reports.  On the
+    card the LU is cuBLAS's batched getrf: the default for these sizes,
+    MAGMA's, waits for the host too, so neither could be captured in a CUDA
+    graph."""
+    if m.device.type != "cuda":
+        return torch.linalg.solve_ex(m, rhs)[0]
+    with _linalg_library("cusolver"):  # batched: cuBLAS getrf / getrs
+        return torch.linalg.solve_ex(m, rhs)[0]
+
+
 def build_implicit_vdiff(grid: Grid, dtype, exclude=("xi", "qss")):
     """Backward-Euler implicit vertical diffusion (``scythe_tpu.model.
     build_implicit_vdiff``).  Every K-diffused variable phi solves, per
@@ -292,9 +322,9 @@ def build_implicit_vdiff(grid: Grid, dtype, exclude=("xi", "qss")):
     derivative on the Gauss points, w_q the Chebyshev-Gauss quadrature
     weights, K_v the closure field the equation set returns
     (``EqResult.k_v``).  The [nz, nz] systems are assembled batched over all
-    columns and solved with ``torch.linalg.solve`` (the JAX package also
+    columns and solved with ``torch.linalg.solve_ex`` (the JAX package also
     leaves this solve to its linear-algebra library), the diffused
-    variables as shared right-hand sides.
+    variables as shared right-hand sides (``batched_solve``).
 
     ``exclude`` names the variables left out (xi and qss are not
     K-diffused, as in the equation sets' Laplacian mask;
@@ -328,7 +358,7 @@ def build_implicit_vdiff(grid: Grid, dtype, exclude=("xi", "qss")):
         s = torch.einsum("mi,...m,mj->...ij", dmat, wq_t * k_v, dmat)
         m = eye + ts * (winv[:, None] * s)
         rhs = torch.stack([var_np1[i] for i in idxs], dim=-1)
-        sol = torch.linalg.solve(m, rhs)
+        sol = batched_solve(m, rhs)
         for k, i in enumerate(idxs):
             var_np1[i] = sol[..., k]
         return var_np1
@@ -564,12 +594,15 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype,
 def make_scan(step, n_steps: int):
     """``step`` applied ``n_steps`` times: the counterpart of
     ``scythe_tpu.model.make_scan``, which compiles the steps between two
-    outputs into one scan; here they are eager steps in a Python loop."""
+    outputs into one scan.  On the card the start-up steps (t = 1, 2) run
+    eagerly and the steady step as replays of one CUDA graph, captured once
+    for the step and its state layout and kept on the step
+    (``graphs.scan``); on the CPU, under ``disable_graphs()``, under grad
+    or a functorch transform, and for sharded steps, a loop of eager
+    steps.  The returned state shares no storage with the graph."""
 
     def chunk(state):
-        for _ in range(n_steps):
-            state = step(state)
-        return state
+        return graphs.scan(step, n_steps, state)
 
     return chunk
 
@@ -839,6 +872,31 @@ def run_loop(
     return grid, phys
 
 
+def batched_step(step):
+    """``step`` over a member-batched state: its five tensors carry the
+    members as a leading axis and ``t`` stays a host int; the step runs under
+    ``torch.func.vmap`` (``t`` closed over, not batched)."""
+
+    def bstep(state: ti.ModelState) -> ti.ModelState:
+        def member(*tensors):
+            return tuple(step(ti.ModelState(*tensors, state.t))[:5])
+
+        return ti.ModelState(*torch.func.vmap(member)(*state[:5]), state.t + 1)
+
+    return bstep
+
+
+def ensemble_state(spec, phys_shape, imp_rows: int | None = None) -> ti.ModelState:
+    """``ti.initial_state`` of every member: ``spec`` [n, ...] batched
+    coefficients, ``phys_shape`` [n, nvars, *spatial]."""
+    z = torch.zeros(tuple(phys_shape), dtype=spec.dtype, device=spec.device)
+    zi = z
+    if imp_rows is not None and imp_rows != phys_shape[1]:
+        zi = torch.zeros((phys_shape[0], imp_rows) + tuple(phys_shape[2:]),
+                         dtype=spec.dtype, device=spec.device)
+    return ti.ModelState(spec, z, z, zi, zi, 1)
+
+
 def integrate_ensemble(model: ModelParameters, ics, dtype=None, mesh=None,
                        device: Any = DEFAULT):
     """Run an ensemble of initial conditions through the model on ``device``
@@ -846,11 +904,13 @@ def integrate_ensemble(model: ModelParameters, ics, dtype=None, mesh=None,
 
     ``ics``: [n_members, nvars, *spatial] physical initial conditions.
     Returns (grid, final physical fields [n_members, nvars, *spatial] as a
-    numpy array).  A member's run (analysis, ``integration_time / ts``
-    steps, synthesis) goes under ``torch.func.vmap``, so the members batch
-    through every transform product, and each hand-written kernel takes
-    them in one launch a step (its vmap rule folds them into its columns or
-    variables).  As in the JAX package, the context is the model's own
+    numpy array).  The analysis, the step (``batched_step``) and the
+    synthesis go under ``torch.func.vmap`` over a member-batched state, so
+    the members batch through every transform product, each hand-written
+    kernel takes them in one launch a step (its vmap rule folds them into
+    its columns or variables), and ``make_scan`` replays the batched
+    steady step as one graph on the card, as the JAX package jits the vmap
+    of its scan.  As in the JAX package, the context is the model's own
     (no boundary references are set from the members' states).
 
     ``mesh`` (``parallel.mesh.make_ensemble_mesh``): the members are split
@@ -872,18 +932,16 @@ def integrate_ensemble(model: ModelParameters, ics, dtype=None, mesh=None,
         if dev not in runners:
             grid = create_grid(model.grid_params, dtype, device=dev)
             ctx = build_context(model, grid, dtype)
-            step = build_step(model, grid, ctx, dtype)
-            num_ts = model.num_ts
+            step = batched_step(build_step(model, grid, ctx, dtype))
+            scan = make_scan(step, model.num_ts)
             imp_rows = imp_history_rows(model)
-
-            def member(phys0):
-                state = ti.initial_state(grid.analysis(phys0), phys0.shape, dtype,
-                                         imp_rows=imp_rows)
-                return grid.synthesis(make_scan(step, num_ts)(state).spec)["val"]
 
             def run(arr):
                 with torch.no_grad():
-                    return torch.func.vmap(member)(arr)
+                    state = ensemble_state(torch.func.vmap(grid.analysis)(arr), arr.shape,
+                                           imp_rows)
+                    spec = scan(state).spec
+                    return torch.func.vmap(lambda s: grid.synthesis(s)["val"])(spec)
 
             runners[dev] = (grid, run)
         return runners[dev]

@@ -45,6 +45,7 @@ import torch
 
 from .. import timeintegration as ti
 from ..device import DEFAULT
+from ..graphs import not_capturable
 from ..grids.base import Grid, _split3
 from ..model import build_context, build_step
 from . import schur as schur_mod
@@ -552,7 +553,9 @@ def build_sharded_step(model, grid: Grid, ctx, dtype, mesh: Mesh, method="psum",
             *(Sharded([o[k] for o in out], specs[k], mesh) for k in range(5)),
             out[0].t)
 
-    return step
+    # its shards run as threads taking turns or as ranks between collectives:
+    # make_scan runs it eagerly, never as a captured graph
+    return not_capturable(step)
 
 
 def integrate_sharded(model, n_devices: int | None = None, dtype=None, method="psum",

@@ -90,9 +90,16 @@ def smagorinsky_viscosity(grid, ts, cs, du, dv, dw, dtype, n2=None,
         raise ValueError("split_vertical and horizontal_only are exclusive")
     dx, dy, dz = length_scales(grid)
     device = du[0].device
+    # the static constants go to the device once a grid (``smag_consts``): a
+    # copy from the host every step could not be captured in a CUDA graph
+    consts = grid.__dict__.setdefault("smag_consts", {})
 
-    def const(a):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=device)
+    def const(name, a):
+        key = (name, ts, cap_frac, dtype, str(device))
+        if key not in consts:
+            consts[key] = torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                          device=device)
+        return consts[key]
 
     s12 = _half(du[1], dv[0] if dv else None)
     if horizontal_only:
@@ -103,8 +110,8 @@ def smagorinsky_viscosity(grid, ts, cs, du, dv, dw, dtype, n2=None,
             dy_h = dy_h[:, None, None] if dz is not None else dy_h[:, None]
         delta_h = (np.asarray(dx, np.float64) * dy_h) ** 0.5
         inv2_hh = 1.0 / dx**2 + (1.0 / (dy_h * dy_h) if dy is not None else 0.0)
-        k_t = (cs * const(delta_h)) ** 2 * smag
-        return torch.minimum(k_t, const(cap_frac / (ts * inv2_hh)))
+        k_t = (cs * const("delta_h", delta_h)) ** 2 * smag
+        return torch.minimum(k_t, const("cap_h", cap_frac / (ts * inv2_hh)))
     s13 = _half(du[2], dw[0] if dw else None)
     s23 = _half(dv[2] if dv else None, dw[1] if dw else None)
     smag2 = 2.0 * (
@@ -138,7 +145,7 @@ def smagorinsky_viscosity(grid, ts, cs, du, dv, dw, dtype, n2=None,
     delta = prod ** (1.0 / ndirs)
     # explicit spectral diffusive limit K ts / Delta^2 < ~0.05 (the JAX
     # package's cap_frac, from its measured near-wall blow-ups)
-    k_t = (cs * const(delta)) ** 2 * smag
+    k_t = (cs * const("delta", delta)) ** 2 * smag
     if split_vertical:
-        return torch.minimum(k_t, const(cap_frac / (ts * inv2_h))), k_t
-    return torch.minimum(k_t, const(cap_frac / (ts * inv2)))
+        return torch.minimum(k_t, const("cap_split", cap_frac / (ts * inv2_h))), k_t
+    return torch.minimum(k_t, const("cap", cap_frac / (ts * inv2)))

@@ -11,6 +11,7 @@ import importlib
 import inspect
 import os
 import tempfile
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ from scythe_tpu_torch import timeintegration as tti
 from scythe_tpu_torch.examples import assimilate_4dvar, assimilate_enkf
 from scythe_tpu_torch.examples import cha_bell_initialization as cb
 from scythe_tpu_torch.examples import jw06_baroclinic_slz
-from scythe_tpu_torch import graft_entry
+from scythe_tpu_torch import graft_entry, graphs
 from scythe_tpu_torch.examples import (bf02_moist_benchmark, galewsky_instability,
                                        linear_advection_example, straka_density_current)
 from scythe_tpu_torch.parallel import mesh as pmesh
@@ -75,6 +76,38 @@ def test_entry_point_defaults_to_the_card(name):
                                 trs.exact_reference_state, trs.empty_reference_state])
 def test_operator_helpers_take_the_device_from_their_caller(fn):
     assert inspect.signature(fn).parameters["device"].default is inspect.Parameter.empty
+
+
+def test_make_scan_replays_on_the_card_and_loops_on_the_cpu():
+    """make_scan's runner takes CUDA graphs (graphs.CUDA_GRAPH) by default
+    where the state is on the card, decided at the call; a state on the CPU
+    runs the eager loop and captures nothing.  disable_graphs is one
+    context manager, exported by model."""
+    assert inspect.signature(graphs.scan).parameters["capture"].default is None
+    assert tmodel.disable_graphs is graphs.disable_graphs
+    model = cb.flagship_model(4, 8)
+    grid = tx.create_grid(model.grid_params, torch.float64, device="cpu")
+    step = tmodel.build_step(model, grid, tmodel.build_context(model, grid, torch.float64),
+                             torch.float64)
+    used = []
+
+    class Recorder:
+        def warm(self, fn, device):
+            used.append(device)
+            fn()
+
+        def capture(self, fn, device, buffers):
+            return fn
+
+    with mock.patch.object(graphs, "CUDA_GRAPH", Recorder()):
+        out = tmodel.make_scan(step, 5)(cb.vortex_state(grid, torch.float64))
+        assert out.t == 6 and used == [] and not graphs.captured(step)
+        if torch.cuda.is_available():
+            gc = tx.create_grid(model.grid_params, torch.float64)
+            sc = tmodel.build_step(model, gc, tmodel.build_context(model, gc, torch.float64),
+                                   torch.float64)
+            tmodel.make_scan(sc, 5)(cb.vortex_state(gc, torch.float64))
+            assert [d.type for d in used] == ["cuda"]
 
 
 def _small_model(tmp):

@@ -192,6 +192,63 @@ def test_port_imports_and_runs_without_jax():
     assert "physical_out_0.75.csv" in proc.stdout
 
 
+GRAPH_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["scythe_tpu"] = None
+    import inspect
+    import torch
+    torch.set_num_threads(2)
+    import scythe_tpu_torch as tx
+    from scythe_tpu_torch import graphs, model as tmodel
+    from scythe_tpu_torch.examples import cha_bell_initialization as cb
+
+    assert tmodel.disable_graphs is graphs.disable_graphs
+    assert inspect.signature(graphs.scan).parameters["capture"].default is None
+    assert isinstance(graphs.CUDA_GRAPH, graphs.CudaGraph)
+    model = cb.flagship_model(4, 8)
+    grid = tx.create_grid(model.grid_params, torch.float64, device="cpu")
+    step = tmodel.build_step(model, grid, tmodel.build_context(model, grid, torch.float64),
+                             torch.float64)
+    s0 = cb.vortex_state(grid, torch.float64)
+
+    class Replay:  # the captured function, called again
+        def warm(self, fn, device):
+            fn()
+
+        def capture(self, fn, device, buffers):
+            return fn
+
+    eager = tmodel.make_scan(step, 6)(s0)
+    assert not graphs.captured(step)
+    with tmodel.disable_graphs():
+        assert graphs.graphs_disabled()
+        assert graphs.scan(step, 6, s0, capture=Replay()).t == 7
+        assert not graphs.captured(step)
+    got = graphs.scan(step, 6, s0, capture=Replay())
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], eager[:5]))
+    (runner,) = graphs.captured(step).values()
+    assert runner.replays == 3
+    assert "triton" not in sys.modules
+    assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
+                   for m in sys.modules if sys.modules[m] is not None)
+    print("GRAPHS_NOJAX_OK")
+    """
+)
+
+
+def test_graph_runner_imports_and_runs_without_jax():
+    """graphs.py and make_scan's runner (disable_graphs, the default
+    CUDA_GRAPH primitive, a stand-in primitive on the CPU) with jax and the
+    JAX package blocked."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX_")}
+    proc = subprocess.run([sys.executable, "-c", GRAPH_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "GRAPHS_NOJAX_OK" in proc.stdout
+
+
 def test_port_source_never_imports_jax():
     pkg = os.path.join(REPO, "scythe_tpu_torch")
     for root, _, files in os.walk(pkg):
