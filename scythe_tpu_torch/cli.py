@@ -70,7 +70,7 @@ def parse_args(argv=None):
     p.add_argument("--resume-from", default=None,
                    help="binary checkpoint .npz to resume from")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace here")
+                   help="write a torch.profiler trace here and time the step's stages")
     return p.parse_args(argv)
 
 

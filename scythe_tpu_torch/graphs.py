@@ -27,7 +27,15 @@ advances on the host.
   ``ops.rlz_analysis``, ``ops.elementwise_probe``) are Python increments in
   their wrappers, which a replay does not run.  Their change during the
   capture is recorded, taken back (the capture launched nothing), and added
-  on every replay, so the counts stay the launches that ran.
+  once a chunk for its replays, so at a chunk's end the counts are the
+  launches that ran.
+* Tracing (``trace.py``): the span ``graph.capture`` (the warm-up step, the
+  capture and the instantiation), the counter ``graph.nodes`` (the
+  instantiated graph's nodes) and ``graph.nodes.<stage>``, the nodes each
+  stage of the step (``trace.stage``) added to the graph being captured,
+  which add up to ``graph.nodes``.  With ``trace.stage_times`` on, the
+  stages' timing events inside the graph give the last replay's device
+  time of each stage (``stage_seconds``).
 
 The loop stays eager, decided by the inputs and never by a failure: on the
 CPU, under ``disable_graphs()`` (the counterpart of ``jax.disable_jit()``),
@@ -45,12 +53,16 @@ that replays by calling the captured function again.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import os
 import sys
 import threading
 import traceback
 
 import torch
+
+from . import trace
 
 STARTUP_STEPS = 2  # t = 1 and t = 2 branch on the host t: always eager
 _COUNTED = ("scythe_tpu_torch.ops.column_solve", "scythe_tpu_torch.ops.rlz_analysis",
@@ -120,14 +132,33 @@ def launch_counts() -> dict:
     return out
 
 
-def add_counts(delta: dict, sign: int = 1):
-    """Add ``sign`` x ``delta`` to the counters, each under its module's lock."""
+def add_counts(delta: dict, times: int = 1):
+    """Add ``times`` x ``delta`` to the counters, each under its module's lock."""
     for (name, k), d in delta.items():
-        if not d:
+        if not d or not times:
             continue
         mod = sys.modules[name]
         with mod._COUNT_LOCK:
-            setattr(mod, k, getattr(mod, k) + sign * d)
+            setattr(mod, k, getattr(mod, k) + times * d)
+
+
+@functools.cache
+def _libcuda():
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, size = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+    cu.cuGraphGetNodes.argtypes = [ptr, ptr, size]
+    cu.cuStreamGetCaptureInfo_v2.argtypes = [
+        ptr, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ptr), ctypes.POINTER(ptr), size]
+    return cu
+
+
+def _graph_nodes(cu, graph) -> int:
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value
 
 
 class CudaGraph:
@@ -162,6 +193,23 @@ class CudaGraph:
         graph.instantiate()
         return graph.replay
 
+    def nodes_now(self) -> int:
+        """Nodes so far of the graph the current stream is capturing into
+        (a query the capture allows)."""
+        cu = _libcuda()
+        status, cid = ctypes.c_int(0), ctypes.c_uint64(0)
+        graph, deps, ndeps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t(0)
+        err = cu.cuStreamGetCaptureInfo_v2(
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream), ctypes.byref(status),
+            ctypes.byref(cid), ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(ndeps))
+        if err:
+            raise RuntimeError(f"cuStreamGetCaptureInfo failed: CUresult {err}")
+        return _graph_nodes(cu, graph)
+
+    def graph_nodes(self, replay) -> int:
+        """Nodes of the instantiated graph ``replay`` replays."""
+        return _graph_nodes(_libcuda(), ctypes.c_void_p(replay.__self__.raw_cuda_graph()))
+
 
 CUDA_GRAPH = CudaGraph()
 
@@ -173,29 +221,30 @@ def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
 def _write_back(buffers, out):
     """Copy the step's new state ``out`` (five tensors) into ``buffers``,
     each buffer written only after every copy that reads it; a slot whose
-    output is its own buffer is left alone."""
-    pending = {}
-    for k, (buf, src) in enumerate(zip(buffers, out)):
-        if src.shape != buf.shape or src.dtype != buf.dtype or src.device != buf.device:
-            raise GraphCaptureError(
-                f"the step changes state slot {k} from {buf.dtype} {list(buf.shape)} to "
-                f"{src.dtype} {list(src.shape)} on {src.device}: a captured step must keep "
-                "its state's layout")
-        if src.data_ptr() == buf.data_ptr() and src.stride() == buf.stride():
-            continue
-        pending[k] = src.clone() if _same_storage(src, buf) else src
-    while pending:
-        free = [k for k in pending
-                if not any(_same_storage(src, buffers[k])
-                           for m, src in pending.items() if m != k)]
-        if not free:  # a cycle of slots: the readers of one buffer read a copy
-            k = next(iter(pending))
-            for m, src in pending.items():
-                if m != k and _same_storage(src, buffers[k]):
-                    pending[m] = src.clone()
-            continue
-        for k in free:
-            buffers[k].copy_(pending.pop(k))
+    output is its own buffer is left alone.  The step's stage ``copies``."""
+    with trace.stage("copies"):
+        pending = {}
+        for k, (buf, src) in enumerate(zip(buffers, out)):
+            if src.shape != buf.shape or src.dtype != buf.dtype or src.device != buf.device:
+                raise GraphCaptureError(
+                    f"the step changes state slot {k} from {buf.dtype} {list(buf.shape)} to "
+                    f"{src.dtype} {list(src.shape)} on {src.device}: a captured step must keep "
+                    "its state's layout")
+            if src.data_ptr() == buf.data_ptr() and src.stride() == buf.stride():
+                continue
+            pending[k] = src.clone() if _same_storage(src, buf) else src
+        while pending:
+            free = [k for k in pending
+                    if not any(_same_storage(src, buffers[k])
+                               for m, src in pending.items() if m != k)]
+            if not free:  # a cycle of slots: the readers of one buffer read a copy
+                k = next(iter(pending))
+                for m, src in pending.items():
+                    if m != k and _same_storage(src, buffers[k]):
+                        pending[m] = src.clone()
+                continue
+            for k in free:
+                buffers[k].copy_(pending.pop(k))
 
 
 def _root(exc: BaseException) -> BaseException:
@@ -219,9 +268,11 @@ def _where(exc: BaseException) -> str:
 
 class CapturedStep:
     """One captured steady step of ``step`` on states of one layout: the
-    static buffers, the replay and the counters' change a replay stands
-    for.  Made by ``scan`` from the first steady state it meets, which
-    it advances by one (eager, warm-up) step."""
+    static buffers, the replay, the counters' change a replay stands for,
+    and the graph's nodes (``nodes``, None where the capture primitive
+    cannot count them) and nodes by stage (``stage_nodes``).  Made by
+    ``scan`` from the first steady state it meets, which it advances by one
+    (eager, warm-up) step."""
 
     def __init__(self, step, state, capture):
         device = state.spec.device
@@ -236,28 +287,39 @@ class CapturedStep:
             out = step(type(state)(*self.buffers, t))
             _write_back(self.buffers, tuple(out[:5]))
 
-        # the warm-up: the first steady step, eagerly, on the card's side stream
-        capture.warm(body, device)
-        before = launch_counts()
-        try:
-            self.replay = capture.capture(body, device, self.buffers)
-        except GraphCaptureError:
-            raise
-        except Exception as e:  # any failure of the capture names its op
-            root = _root(e)
-            msg = (str(root).splitlines() or [""])[0]
-            raise GraphCaptureError(
-                f"the steady step cannot be captured: {_where(root)}: "
-                f"{type(root).__name__}: {msg}") from e
-        finally:
-            after = launch_counts()
-            self.delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
-            add_counts(self.delta, -1)  # the capture launched nothing
+        with trace.span("graph.capture"):
+            # the warm-up: the first steady step, eagerly, on the card's side stream
+            capture.warm(body, device)
+            before = launch_counts()
+            try:
+                with trace.capturing(getattr(capture, "nodes_now", None), device) as staged:
+                    self.replay = capture.capture(body, device, self.buffers)
+            except GraphCaptureError:
+                raise
+            except Exception as e:  # any failure of the capture names its op
+                root = _root(e)
+                msg = (str(root).splitlines() or [""])[0]
+                raise GraphCaptureError(
+                    f"the steady step cannot be captured: {_where(root)}: "
+                    f"{type(root).__name__}: {msg}") from e
+            finally:
+                after = launch_counts()
+                self.delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+                add_counts(self.delta, -1)  # the capture launched nothing
         if self.delta.get(_PACKS):
             raise GraphCaptureError(
                 "the compensated analysis packed its operators inside the capture: a "
                 "first-use cost the warm-up step should have paid")
         self.delta.pop(_PACKS, None)
+        count = getattr(capture, "graph_nodes", None)
+        self.nodes = count(self.replay) if count else None
+        self.stage_nodes = staged.nodes
+        self.stage_events = staged.events
+        self._timed_replays = 0  # replays whose stage events are not read yet
+        if self.nodes is not None:
+            trace.count("graph.nodes", self.nodes)
+            for name, n in self.stage_nodes.items():
+                trace.count(f"graph.nodes.{name}", n)
 
     def load(self, state):
         for buf, t in zip(self.buffers, state[:5]):
@@ -266,12 +328,32 @@ class CapturedStep:
     def run(self, n: int):
         for _ in range(n):
             self.replay()
-            add_counts(self.delta)
+        add_counts(self.delta, n)
         self.replays += n
+        if self.stage_events:
+            self._timed_replays += n
+
+    def stage_seconds(self) -> dict:
+        """{stage: device seconds} of the last replay, if a replay ran since
+        the last call and the stages were timed; the replay must be done."""
+        if not self._timed_replays:
+            return {}
+        self._timed_replays = 0
+        return {name: 1e-3 * a.elapsed_time(b) for name, a, b in self.stage_events}
 
     def state(self, like, t: int):
         """The buffers' state at step ``t``, in tensors of its own."""
         return type(like)(*(b.clone() for b in self.buffers), t)
+
+
+def stage_seconds(step) -> dict:
+    """{stage: device seconds} of the last replay of each of ``step``'s
+    captured steps timed by stage (``CapturedStep.stage_seconds``)."""
+    out = {}
+    for runner in captured(step).values():
+        for name, sec in runner.stage_seconds().items():
+            out[name] = out.get(name, 0.0) + sec
+    return out
 
 
 def _key(state):

@@ -21,7 +21,9 @@ filter (``modal_filter_tau``, ``modal_filter_order``, ``modal_filter_axes``),
 ``condensation_rate_cap``, ``condensation_tau``, ``sedimentation``,
 ``smagorinsky``, ``smagorinsky_axes``), ``topography_file``,
 ``checkpoint_interval``, ``write_spectral`` and ``output_format='nc'``.
-``profile_dir`` on ``integrate_model`` writes a ``torch.profiler`` trace.
+``profile_dir`` on ``integrate_model`` writes a ``torch.profiler`` trace
+and times the captured step's stages.  ``trace.py`` is the registry of the
+run loop's spans and counters and of the step's stages.
 ``integrate_ensemble`` runs members as a leading axis (the step under
 ``torch.func.vmap`` on a member-batched state, replayed as one graph: each
 hand-written kernel launches once a step for all members), on one device or
@@ -47,6 +49,7 @@ import torch
 from . import graphs
 from . import io as sio
 from . import timeintegration as ti
+from . import trace
 from .basis import bspline, chebyshev
 from .config import ModelParameters
 from .device import DEFAULT
@@ -513,24 +516,28 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype,
         )
 
     def step(state: ti.ModelState) -> ti.ModelState:
-        fields = synthesis_fn(state.spec)
-        res = eqset(fields, ctx)
-        phys = fields["val"]
-        if res.overrides:
-            phys = phys.clone()  # fields["val"] is a view of a synthesis buffer
-            for v, arr in res.overrides.items():
-                phys[v] = arr
+        with trace.stage("synthesis"):
+            fields = synthesis_fn(state.spec)
+        with trace.stage("tendency"):
+            res = eqset(fields, ctx)
+            phys = fields["val"]
+            if res.overrides:
+                phys = phys.clone()  # fields["val"] is a view of a synthesis buffer
+                for v, arr in res.overrides.items():
+                    phys[v] = arr
         expdot = res.expdot
-        if sfx_apply is not None:
-            expdot = sfx_apply(expdot, phys)
-        if rad_blend is not None:
-            rad_dot = -rad_c * (fields["dr"] - rad_ref_dr)
-            expdot = (1.0 - rad_blend) * expdot + rad_blend * rad_dot
-        if sponge_sigma is not None:
-            expdot = expdot - sponge_sigma * (phys - sponge_ref)
-        var_np1, e_nm1, e_nm2 = ti.explicit_step(
-            phys, expdot, state.expdot_nm1, state.expdot_nm2, state.t, ts
-        )
+        with trace.stage("options"):
+            if sfx_apply is not None:
+                expdot = sfx_apply(expdot, phys)
+            if rad_blend is not None:
+                rad_dot = -rad_c * (fields["dr"] - rad_ref_dr)
+                expdot = (1.0 - rad_blend) * expdot + rad_blend * rad_dot
+            if sponge_sigma is not None:
+                expdot = expdot - sponge_sigma * (phys - sponge_ref)
+        with trace.stage("update"):
+            var_np1, e_nm1, e_nm2 = ti.explicit_step(
+                phys, expdot, state.expdot_nm1, state.expdot_nm2, state.t, ts
+            )
         # var_np1 is a new tensor made by explicit_step, held by no history
         # and saved by no backward, so the corrector and the vertical
         # diffusion write rows into it in place (the condensation adjustment,
@@ -548,37 +555,42 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype,
                 "slim impdot history (imp_rows=2) requires "
                 "options['semiimplicit'] — use full-width initial_state"
             )
-        if semiimplicit:
-            hw, hx = (0, 1) if slim else (w_i, xi_i)
-            w_new, xi_new = ti.semiimplicit_adjustment(
-                si_ops,
-                var_np1[w_i],
-                var_np1[xi_i],
-                impdot[w_i],
-                state.impdot_nm1[hw],
-                state.impdot_nm2[hw],
-                impdot[xi_i],
-                state.impdot_nm1[hx],
-                state.impdot_nm2[hx],
-                state.t,
-            )
-            var_np1[w_i] = w_new
-            var_np1[xi_i] = xi_new
-        if impdot is not None:
-            i_n = torch.stack([impdot[w_i], impdot[xi_i]]) if slim else impdot
-            i_nm1, i_nm2 = i_n, state.impdot_nm1
-        if vdiff_apply is not None:
-            var_np1 = vdiff_apply(var_np1, res.k_v, ts)
-        if needs_condensation:
-            var_np1 = mp.condensation_adjustment(var_np1, impdot, ctx)
-        if incremental:
-            # the delta is taken against the synthesis value itself, not the
-            # override-patched phys, for A(S spec) = spec to cancel
-            spec_new = state.spec + analysis_fn(var_np1 - fields["val"])
-        else:
-            spec_new = analysis_fn(var_np1)
-        if modal_filter is not None:
-            spec_new = modal_filter(spec_new)
+        with trace.stage("semiimplicit"):
+            if semiimplicit:
+                hw, hx = (0, 1) if slim else (w_i, xi_i)
+                w_new, xi_new = ti.semiimplicit_adjustment(
+                    si_ops,
+                    var_np1[w_i],
+                    var_np1[xi_i],
+                    impdot[w_i],
+                    state.impdot_nm1[hw],
+                    state.impdot_nm2[hw],
+                    impdot[xi_i],
+                    state.impdot_nm1[hx],
+                    state.impdot_nm2[hx],
+                    state.t,
+                )
+                var_np1[w_i] = w_new
+                var_np1[xi_i] = xi_new
+            if impdot is not None:
+                i_n = torch.stack([impdot[w_i], impdot[xi_i]]) if slim else impdot
+                i_nm1, i_nm2 = i_n, state.impdot_nm1
+        with trace.stage("vdiff"):
+            if vdiff_apply is not None:
+                var_np1 = vdiff_apply(var_np1, res.k_v, ts)
+        with trace.stage("condensation"):
+            if needs_condensation:
+                var_np1 = mp.condensation_adjustment(var_np1, impdot, ctx)
+        with trace.stage("analysis"):
+            if incremental:
+                # the delta is taken against the synthesis value itself, not the
+                # override-patched phys, for A(S spec) = spec to cancel
+                spec_new = state.spec + analysis_fn(var_np1 - fields["val"])
+            else:
+                spec_new = analysis_fn(var_np1)
+        with trace.stage("filter"):
+            if modal_filter is not None:
+                spec_new = modal_filter(spec_new)
         return ti.ModelState(
             spec=spec_new,
             expdot_nm1=e_nm1,
@@ -695,7 +707,7 @@ def integrate_model(
     options['checkpoint_interval'] (seconds) writes full-state checkpoints
     in the JAX package's ``.npz`` layout beside the output, and
     ``resume_from`` restarts from one bitwise.  ``profile_dir`` wraps the
-    run in a ``torch.profiler`` trace written there.  Returns (grid, final
+    run in a ``torch.profiler`` trace written there (``logged_run``).  Returns (grid, final
     physical values [nvars, *spatial] as a numpy array)."""
     dtype = dtype or torch.get_default_dtype()
     with logged_run(model, profile_dir):
@@ -714,7 +726,9 @@ class logged_run:
     directory for the duration of a run and, with ``profile_dir``, a
     ``torch.profiler`` trace of it (the host, and the card where there is
     one), written to ``profile_dir/trace.json`` in the Chrome trace
-    format."""
+    format, with the stages of a captured step timed by CUDA events inside
+    its graph (``trace.stage_times``; their means close the log, the
+    profiler's own cost on each kernel inside them)."""
 
     def __init__(self, model: ModelParameters, profile_dir: str | None = None):
         self.model = model
@@ -736,6 +750,8 @@ class logged_run:
             acts = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(ProfilerActivity.CUDA)
+            self._stages = trace.stage_times()
+            self._stages.__enter__()
             self._prof = profile(activities=acts)
             self._prof.__enter__()
         return self
@@ -743,6 +759,7 @@ class logged_run:
     def __exit__(self, *exc):
         if self._prof is not None:
             self._prof.__exit__(*exc)
+            self._stages.__exit__(*exc)
             os.makedirs(self.profile_dir, exist_ok=True)
             self._prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
         if self.handler is not None:
@@ -786,7 +803,20 @@ def run_loop(
     state onto the shards), so outputs and checkpoints stay canonical and a
     sharded run resumes from a single-device checkpoint and the other way
     round.  In a torch.distributed run every rank gathers and rank 0 writes
-    the files."""
+    the files.
+
+    Tracing (``trace.py``; a run record a call, ``trace.last_run()``): the
+    span ``run_loop`` over the call; at each output boundary the spans
+    ``run_loop.fetch`` (gather, synthesis, the copy to the host),
+    ``run_loop.watchdog``, ``run_loop.write`` (with the counter
+    ``output_bytes``, each file's size) and ``run_loop.checkpoint``; for each
+    interval ``run_loop.interval`` (the host's enqueue of its steps) and
+    ``run_loop.drain`` (the host's wait for an event recorded after its last
+    replay).  On the card the counter ``boundary_idle_s`` is the card's idle
+    at each interior boundary on its own clock: from the event after one
+    interval's last replay to one recorded before the next interval's first
+    work, read at the next drain, when both are done.  Nothing waits for the
+    card inside an interval."""
     t_setup = t_setup or _time.time()
     t_sim0 = 0.0
     if resume_from:
@@ -831,45 +861,99 @@ def run_loop(
     ckpt_interval = ctx.options.get("checkpoint_interval", 0.0)
     ckpt_int = int(round(ckpt_interval / model.ts)) if ckpt_interval else 0
     write_spec = bool(ctx.options.get("write_spectral"))
-    spec, phys = fetch(state)
-    if write_outputs and not resume_from:
-        sio.check_cfl(grid, phys)
-        sio.write_output(grid, model, t_sim0, phys)
-        if write_spec:
-            sio.write_spectral(grid, model, t_sim0, spec)
-    log.info("Setup in %.2fs; starting integration", _time.time() - t_setup)
+    on_card = torch.device(grid.device).type == "cuda"
 
-    t_run = _time.time()
-    steps_done = 0
-    while steps_done < num_ts:
-        n = min(output_int, num_ts - steps_done)
-        state = make_scan(step, n)(state)
-        steps_done += n
-        t_sim = t_sim0 + steps_done * model.ts
-        spec, phys = fetch(state)  # the host copy waits for the device
-        sio.check_cfl(grid, phys)
-        if write_outputs:
-            sio.write_output(grid, model, t_sim, phys)
-            if write_spec:
-                sio.write_spectral(grid, model, t_sim, spec)
-        if ckpt_int and steps_done % ckpt_int == 0:
-            ckpt_state = canonical(state)
-            if _primary():
-                path = os.path.join(model.output_dir, f"checkpoint_{round(t_sim, 2)}.npz")
-                sio.save_checkpoint(path, ckpt_state, t_sim)
-                log.info("checkpoint: %s", path)
-        log.info("ts: %s", t_sim)
-    wall = _time.time() - t_run
-    gps = grid.num_points * num_ts / wall if wall > 0 else float("inf")
-    log.info(
-        "Done: %d steps in %.3fs (%.1f steps/s, %.3e grid-point-steps/s, "
-        "wall clock incl. output)",
-        num_ts,
-        wall,
-        num_ts / wall if wall > 0 else float("inf"),
-        gps,
-    )
+    def event():
+        """A timing event on the card's current stream, or None on the CPU."""
+        if not on_card:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(grid.device))
+        return ev
+
+    def output(st, t_sim, watch=True, write=True):
+        """The host's side of an output boundary: fetch, watchdog, write."""
+        with trace.span("run_loop.fetch"):
+            spec, phys = fetch(st)
+        if watch:
+            with trace.span("run_loop.watchdog"):
+                sio.check_cfl(grid, phys)
+        if write:
+            with trace.span("run_loop.write"):
+                paths = [sio.write_output(grid, model, t_sim, phys)]
+                if write_spec:
+                    paths.append(sio.write_spectral(grid, model, t_sim, spec))
+            for path in paths:
+                trace.count("output_bytes", os.path.getsize(path))
+        return phys
+
+    with trace.run() as rec, trace.span("run_loop"):
+        first = write_outputs and not resume_from
+        phys = output(state, t_sim0, watch=first, write=first)
+        log.info("Setup in %.2fs; starting integration", _time.time() - t_setup)
+        steps_done = 0
+        prev_end = None  # the event after the previous interval's last replay
+        while steps_done < num_ts:
+            n = min(output_int, num_ts - steps_done)
+            start = event()
+            with trace.span("run_loop.interval"):
+                state = make_scan(step, n)(state)
+            end = event()
+            with trace.span("run_loop.drain"):
+                if end is not None:
+                    end.synchronize()
+            if prev_end is not None:  # the card's idle at the boundary, its own clock
+                trace.count("boundary_idle_s", 1e-3 * prev_end.elapsed_time(start))
+            prev_end = end
+            for name, sec in graphs.stage_seconds(step).items():
+                trace.count(f"stage_s.{name}", sec)
+            steps_done += n
+            t_sim = t_sim0 + steps_done * model.ts
+            phys = output(state, t_sim, write=write_outputs)
+            if ckpt_int and steps_done % ckpt_int == 0:
+                with trace.span("run_loop.checkpoint"):
+                    ckpt_state = canonical(state)
+                    if _primary():
+                        path = os.path.join(model.output_dir,
+                                            f"checkpoint_{round(t_sim, 2)}.npz")
+                        sio.save_checkpoint(path, ckpt_state, t_sim)
+                        log.info("checkpoint: %s", path)
+            log.info("ts: %s", t_sim)
+    _log_run(rec, num_ts, grid.num_points)
     return grid, phys
+
+
+def _log_run(rec, num_ts: int, num_points: int):
+    """The closing lines of ``scythe_out.log``, from the run record: steps/s
+    over the whole ``run_loop`` (the initial output and every boundary
+    included), an output boundary's mean parts and the bytes written; where
+    the run captured its steady step, the graph's nodes by stage; where the
+    stages were timed, each stage's mean device time of the intervals' last
+    replays."""
+    wall = rec.total("run_loop")
+    rate = num_ts / wall if wall > 0 else float("inf")
+
+    def ms(name):
+        mean = rec.mean(name)
+        return "-" if mean is None else f"{1e3 * mean:.3f}"
+
+    log.info(
+        "Done: %d steps in %.3fs (%.1f steps/s, %.3e grid-point-steps/s, wall clock "
+        "incl. output); a boundary, ms: drain %s, fetch %s, watchdog %s, write %s; "
+        "%d bytes written",
+        num_ts, wall, rate, rate * num_points, ms("run_loop.drain"),
+        ms("run_loop.fetch"), ms("run_loop.watchdog"), ms("run_loop.write"),
+        rec.total("output_bytes") or 0)
+    nodes = rec.total("graph.nodes")
+    if nodes is not None:
+        log.info("Graph: %d nodes a step; by stage: %s", nodes, ", ".join(
+            f"{name} {rec.total(f'graph.nodes.{name}'):.0f}" for name in trace.STAGES
+            if rec.total(f"graph.nodes.{name}") is not None))
+    staged = [(name, rec.mean(f"stage_s.{name}")) for name in trace.STAGES]
+    if any(mean is not None for _, mean in staged):
+        log.info("Stage device us a step (the last replay of each interval, mean): %s",
+                 ", ".join(f"{name} {1e6 * mean:.2f}" for name, mean in staged
+                           if mean is not None))
 
 
 def batched_step(step):

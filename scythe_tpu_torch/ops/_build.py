@@ -21,9 +21,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from .. import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -39,7 +40,7 @@ COMPILE_FLAGS = (
 class Built:
     lib: ctypes.CDLL
     path: Path
-    seconds: float  # nvcc wall time; 0.0 when a built library was reused
+    seconds: float  # nvcc wall time (the span ops.build); 0.0 when reused
     log: str  # nvcc's output (ptxas resource usage), empty when reused
 
 
@@ -154,9 +155,9 @@ def _load() -> Built:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        log = _compile(sources, path)
-        seconds = time.perf_counter() - t0
+        with trace.span("ops.build") as built:
+            log = _compile(sources, path)
+        seconds = built.seconds
     lib = ctypes.CDLL(str(path))
     _declare(lib)
     return Built(lib=lib, path=path, seconds=seconds, log=log)

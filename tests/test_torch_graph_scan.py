@@ -340,7 +340,7 @@ def test_a_kept_state_never_changes_under_a_later_replay(flagship_small):
 
 def test_launch_counters_advance_on_every_replay(flagship_small):
     """A replay runs no Python: the runner adds the counters' change of the
-    capture, which it took back, on every replay."""
+    capture, which it took back, once a chunk for each of its replays."""
     inner = _step(flagship_small)
 
     def step(state):  # a wrapper that counts as a kernel's does
