@@ -4,10 +4,12 @@ checkpoints in the JAX package's ``.npz`` layout.
 
 The counterpart of ``scythe_tpu.io``: the same CSV schema (coordinate
 columns then one column per variable, row order = the grid's flattened
-point order), accelerated by the framework-free native extension
-``scythe_native_io`` when it is importable, and the same NetCDF files
-(``scipy.io.netcdf_file``, classic format), so a file written by one package
-reads in the other.
+point order; read by the framework-free native extension
+``scythe_native_io`` when it is importable, written by the port's own host
+writer, ``ops/csrc/csv_writer.cpp``, which releases the GIL, so that
+``model.run_loop``'s writer thread runs beside the run), and the same
+NetCDF files (``scipy.io.netcdf_file``, classic format), so a file written
+by one package reads in the other.
 """
 
 from __future__ import annotations
@@ -37,9 +39,19 @@ def _read_csv(path: str) -> tuple[list[str], np.ndarray]:
 
 
 def _write_csv(path: str, names: list[str], cols: np.ndarray) -> None:
-    if _nio is not None:
-        arr = np.ascontiguousarray(cols, np.float64)
-        _nio.write_csv(path, list(names), arr.data, arr.shape[0], arr.shape[1])
+    """The CSV file: the port's host writer (``ops/csrc/csv_writer.cpp``),
+    which formats with the GIL released, where a host C++ compiler built it;
+    else numpy.  Both write the bytes of ``scythe_native_io.write_csv``."""
+    from .ops import _build
+
+    arr = np.ascontiguousarray(cols, np.float64)
+    lib = _build.load_host()
+    if lib is not None:
+        header = (",".join(names) + "\n").encode()
+        err = lib.scythe_write_csv(os.fsencode(path), header, len(header), arr.ctypes.data,
+                                   arr.shape[0], arr.shape[1])
+        if err:
+            raise OSError(err, os.strerror(err), path)
         return
     header = ",".join(names)
     np.savetxt(path, cols, delimiter=",", header=header, comments="", fmt="%.17g")

@@ -41,6 +41,7 @@ import dataclasses
 import logging
 import os
 import time as _time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -745,6 +746,7 @@ class logged_run:
             log.addHandler(self.handler)
         log.setLevel(logging.INFO)
         if self.profile_dir:
+            from torch._C._profiler import _ExperimentalConfig
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU]
@@ -752,7 +754,9 @@ class logged_run:
                 acts.append(ProfilerActivity.CUDA)
             self._stages = trace.stage_times()
             self._stages.__enter__()
-            self._prof = profile(activities=acts)
+            # every thread: the output writer's ranges too
+            self._prof = profile(activities=acts, experimental_config=_ExperimentalConfig(
+                profile_all_threads=True))
             self._prof.__enter__()
         return self
 
@@ -805,18 +809,29 @@ def run_loop(
     round.  In a torch.distributed run every rank gathers and rank 0 writes
     the files.
 
+    The output write runs behind the next interval (``_WriteBehind``): at
+    each boundary this thread fetches the fields (and, with
+    ``write_spectral``, the coefficients) to the host and runs the watchdog,
+    waits for the previous output's write, hands this output's host arrays
+    to the call's one writer thread and enqueues the next interval.  The
+    writer touches no device tensor.  Checkpoints stay on this thread.  When
+    the call returns or raises, every output it handed over is on disk in
+    order; a write's exception is raised here with its own type, at the next
+    hand-off or at the end.
+
     Tracing (``trace.py``; a run record a call, ``trace.last_run()``): the
     span ``run_loop`` over the call; at each output boundary the spans
     ``run_loop.fetch`` (gather, synthesis, the copy to the host),
-    ``run_loop.watchdog``, ``run_loop.write`` (with the counter
-    ``output_bytes``, each file's size) and ``run_loop.checkpoint``; for each
-    interval ``run_loop.interval`` (the host's enqueue of its steps) and
-    ``run_loop.drain`` (the host's wait for an event recorded after its last
-    replay).  On the card the counter ``boundary_idle_s`` is the card's idle
-    at each interior boundary on its own clock: from the event after one
-    interval's last replay to one recorded before the next interval's first
-    work, read at the next drain, when both are done.  Nothing waits for the
-    card inside an interval."""
+    ``run_loop.watchdog``, ``run_loop.write_wait`` (this thread's wait for
+    the previous write before the hand-off), ``run_loop.write`` on the
+    writer thread (with the counter ``output_bytes``, each file's size) and
+    ``run_loop.checkpoint``; for each interval ``run_loop.interval`` (the
+    host's enqueue of its steps) and ``run_loop.drain`` (the host's wait for
+    an event recorded after its last replay).  On the card the counter
+    ``boundary_idle_s`` is the card's idle at each interior boundary on its
+    own clock: from the event after one interval's last replay to one
+    recorded before the next interval's first work, read at the next drain,
+    when both are done.  Nothing waits for the card inside an interval."""
     t_setup = t_setup or _time.time()
     t_sim0 = 0.0
     if resume_from:
@@ -852,15 +867,28 @@ def run_loop(
                ("expdot_nm1", "expdot_nm2", "impdot_nm1", "impdot_nm2")},
         )
 
-    def fetch(st):
-        """The canonical spectral state and the physical fields on the host;
-        every rank gathers them, as a gather on a DistMesh is a collective."""
-        spec = canonical_spec(st)
-        return spec, grid.synthesis(spec)["val"].cpu().numpy()
-
     ckpt_interval = ctx.options.get("checkpoint_interval", 0.0)
     ckpt_int = int(round(ckpt_interval / model.ts)) if ckpt_interval else 0
     write_spec = bool(ctx.options.get("write_spectral"))
+
+    def fetch(st, write):
+        """The physical fields on the host and, where they are written, a
+        host copy of the canonical spectral state (the next interval
+        overwrites the state's own tensors); every rank gathers them, as a
+        gather on a DistMesh is a collective."""
+        spec = canonical_spec(st)
+        phys = grid.synthesis(spec)["val"].cpu().numpy()
+        return phys, spec.detach().to("cpu", copy=True) if write and write_spec else None
+
+    def write_files(t_sim, phys, spec):
+        """The writer thread's job: the output files of one boundary."""
+        with trace.span("run_loop.write"):
+            paths = [sio.write_output(grid, model, t_sim, phys)]
+            if spec is not None:
+                paths.append(sio.write_spectral(grid, model, t_sim, spec))
+        for path in paths:
+            trace.count("output_bytes", os.path.getsize(path))
+
     on_card = torch.device(grid.device).type == "cuda"
 
     def event():
@@ -871,25 +899,21 @@ def run_loop(
         ev.record(torch.cuda.current_stream(grid.device))
         return ev
 
-    def output(st, t_sim, watch=True, write=True):
-        """The host's side of an output boundary: fetch, watchdog, write."""
+    def output(st, t_sim, writer, watch=True, write=True):
+        """This thread's side of an output boundary: fetch, watchdog, and the
+        hand-off of the write."""
         with trace.span("run_loop.fetch"):
-            spec, phys = fetch(st)
+            phys, spec = fetch(st, write)
         if watch:
             with trace.span("run_loop.watchdog"):
                 sio.check_cfl(grid, phys)
         if write:
-            with trace.span("run_loop.write"):
-                paths = [sio.write_output(grid, model, t_sim, phys)]
-                if write_spec:
-                    paths.append(sio.write_spectral(grid, model, t_sim, spec))
-            for path in paths:
-                trace.count("output_bytes", os.path.getsize(path))
+            writer.submit(write_files, t_sim, phys, spec)
         return phys
 
-    with trace.run() as rec, trace.span("run_loop"):
+    with trace.run() as rec, trace.span("run_loop"), _WriteBehind() as writer:
         first = write_outputs and not resume_from
-        phys = output(state, t_sim0, watch=first, write=first)
+        phys = output(state, t_sim0, writer, watch=first, write=first)
         log.info("Setup in %.2fs; starting integration", _time.time() - t_setup)
         steps_done = 0
         prev_end = None  # the event after the previous interval's last replay
@@ -909,7 +933,7 @@ def run_loop(
                 trace.count(f"stage_s.{name}", sec)
             steps_done += n
             t_sim = t_sim0 + steps_done * model.ts
-            phys = output(state, t_sim, write=write_outputs)
+            phys = output(state, t_sim, writer, write=write_outputs)
             if ckpt_int and steps_done % ckpt_int == 0:
                 with trace.span("run_loop.checkpoint"):
                     ckpt_state = canonical(state)
@@ -923,11 +947,51 @@ def run_loop(
     return grid, phys
 
 
+class _WriteBehind:
+    """One background writer for a ``run_loop`` call, at most one write in
+    flight: ``submit`` waits for the previous job (the span
+    ``run_loop.write_wait``, raising its exception) and hands the next to the
+    thread.  Leaving the block, whether it raised or not, waits for the last
+    job, so every file handed over is on disk.  That job's exception is
+    raised where the block ends normally; where the block raises (the
+    watchdog's FloatingPointError, say), its own exception goes on, with the
+    job's in a note."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="run_loop.writer")
+        self._pending = None
+
+    def __enter__(self):
+        return self
+
+    def submit(self, fn, *args):
+        with trace.span("run_loop.write_wait"):
+            self._wait()
+        self._pending = self._pool.submit(fn, *args)
+
+    def _wait(self):
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def __exit__(self, exc_type, exc, tb):
+        try:
+            self._wait()
+        except Exception as err:
+            if exc is None:
+                raise
+            exc.add_note(f"the pending output write failed too: {err!r}")
+        finally:
+            self._pool.shutdown()
+        return False
+
+
 def _log_run(rec, num_ts: int, num_points: int):
     """The closing lines of ``scythe_out.log``, from the run record: steps/s
     over the whole ``run_loop`` (the initial output and every boundary
-    included), an output boundary's mean parts and the bytes written; where
-    the run captured its steady step, the graph's nodes by stage; where the
+    included), an output boundary's mean parts (the write on the writer
+    thread, ``write_wait`` this thread's wait for it) and the bytes written;
+    where the run captured its steady step, the graph's nodes by stage; where the
     stages were timed, each stage's mean device time of the intervals' last
     replays."""
     wall = rec.total("run_loop")
@@ -939,11 +1003,11 @@ def _log_run(rec, num_ts: int, num_points: int):
 
     log.info(
         "Done: %d steps in %.3fs (%.1f steps/s, %.3e grid-point-steps/s, wall clock "
-        "incl. output); a boundary, ms: drain %s, fetch %s, watchdog %s, write %s; "
-        "%d bytes written",
+        "incl. output); a boundary, ms: drain %s, fetch %s, watchdog %s, write_wait %s, "
+        "write %s (behind the next interval); %d bytes written",
         num_ts, wall, rate, rate * num_points, ms("run_loop.drain"),
-        ms("run_loop.fetch"), ms("run_loop.watchdog"), ms("run_loop.write"),
-        rec.total("output_bytes") or 0)
+        ms("run_loop.fetch"), ms("run_loop.watchdog"), ms("run_loop.write_wait"),
+        ms("run_loop.write"), rec.total("output_bytes") or 0)
     nodes = rec.total("graph.nodes")
     if nodes is not None:
         log.info("Graph: %d nodes a step; by stage: %s", nodes, ", ".join(

@@ -7,6 +7,11 @@ keyed by a hash of the sources and flags; it loads it with ctypes.  Nothing
 is built when the package is imported: the CPU path never needs nvcc.  A
 failed build raises with nvcc's output.
 
+``load_host()`` compiles the host code, ``ops/csrc/*.cpp`` (the CSV
+writer), with the host C++ compiler into a library of its own in the same
+directory, keyed the same way; without a compiler it returns None and
+``io`` writes with numpy.
+
 The Triton kernels (``ops/elementwise_probe.py``) compile at their first
 launch; ``triton_cache_dir()`` points Triton's cache into the same
 directory.
@@ -161,6 +166,48 @@ def _load() -> Built:
     lib = ctypes.CDLL(str(path))
     _declare(lib)
     return Built(lib=lib, path=path, seconds=seconds, log=log)
+
+
+HOST_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+
+
+def _declare_host(lib: ctypes.CDLL) -> None:
+    # path, header, its length, the rows' float64 values, nrows, ncols -> errno
+    lib.scythe_write_csv.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_longlong,
+                                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+    lib.scythe_write_csv.restype = ctypes.c_int
+
+
+def load_host() -> ctypes.CDLL | None:
+    """Build (if needed) and load the host library; None where no host C++
+    compiler is found.  Cached per process."""
+    with _LOAD_LOCK:
+        return _load_host()
+
+
+@functools.cache
+def _load_host() -> ctypes.CDLL | None:
+    sources = sorted(CSRC.glob("*.cpp"))
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    path = BUILD_DIR / f"libscythe_host_{h.hexdigest()[:16]}.so"
+    if not path.exists():
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        done = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), *map(str, sources)],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed:\n{done.stdout}{done.stderr}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    _declare_host(lib)
+    return lib
 
 
 def triton_cache_dir() -> str:

@@ -99,7 +99,13 @@ def _add(kind: str, name: str, value, start_ns=None):
 
 
 def _profiling() -> bool:
-    return torch.autograd._profiler_enabled()
+    """Whether a profiler is on: torch.profiler's flag for the process (a
+    thread it did not start, such as ``run_loop``'s writer, reads its own
+    state as off; a profiler started with ``profile_all_threads`` records
+    that thread's ranges, and reads off in every thread), or this thread's
+    state."""
+    return (getattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+            or torch.autograd._profiler_enabled())
 
 
 class span:

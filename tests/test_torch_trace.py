@@ -2,12 +2,13 @@
 the CPU.
 
 * ``run_loop``: a run of N outputs gives its run record N + 1 fetch,
-  watchdog and write spans, N interval and drain spans, and ``output_bytes``
-  the files' sizes; a second call replaces the first in ``last_run()``;
+  watchdog, write_wait and write spans, N interval and drain spans, and
+  ``output_bytes`` the files' sizes; a second call replaces the first in ``last_run()``;
   checkpoints have their span; the closing log line reads the record.
 * Spans added from shard threads at once add up without loss.
-* Under ``torch.profiler`` the spans are ranges nested in ``run_loop``'s,
-  and a span's registry start lies within 1 ms of its profiler event's.
+* Under ``torch.profiler`` (every thread's ranges) the spans are ranges
+  nested in ``run_loop``'s, the writer thread's writes among them, and a
+  span's registry start lies within 1 ms of its profiler event's.
 * Through ``StubGraph`` (tests/test_torch_graph_scan.py), counting the ops
   its capture runs as its nodes: the stage node counts cover the ten stages
   in order and add up to the captured graph's nodes, on the flagship, the
@@ -67,7 +68,7 @@ def test_run_loop_spans_each_boundary(tmp_path):
     n = 4
     got = _counts(rec)
     assert got["run_loop"] == 1
-    for name in ("fetch", "watchdog", "write"):
+    for name in ("fetch", "watchdog", "write_wait", "write"):
         assert got[f"run_loop.{name}"] == n + 1, name
     for name in ("interval", "drain"):
         assert got[f"run_loop.{name}"] == n, name
@@ -85,9 +86,11 @@ def test_run_loop_spans_each_boundary(tmp_path):
     with open(os.path.join(model.output_dir, "scythe_out.log")) as f:
         done = [ln for ln in f if ln.startswith("Done:")]
     assert len(done) == 1
-    assert "steps/s" in done[0] and "fetch" in done[0] and "write" in done[0], done
+    assert "steps/s" in done[0] and "fetch" in done[0] and "write_wait" in done[0], done
+    # the writer's thread runs beside this one: this thread's parts, its
+    # wait for the writer among them, lie within the call
     parts = sum(rec.total(f"run_loop.{p}") for p in
-                ("fetch", "watchdog", "write", "interval", "drain"))
+                ("fetch", "watchdog", "write_wait", "interval", "drain"))
     assert parts <= rec.total("run_loop")
 
 
@@ -140,16 +143,20 @@ def test_spans_from_shard_threads_add_up():
 
 
 def test_spans_nest_in_run_loop_under_the_profiler(tmp_path):
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    # every thread's ranges: the writes run on the run loop's writer thread
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
         tmodel.integrate_model(_flagship_run(tmp_path, "prof"), F64, device="cpu")
     events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
               for e in prof.profiler.kineto_results.events()]
     (outer,) = [e for e in events if e[0] == "run_loop"]
     inner = [e for e in events if e[0].startswith("run_loop.")]
     assert {e[0] for e in inner} == {f"run_loop.{p}" for p in
-                                     ("fetch", "watchdog", "write", "interval", "drain")}
+                                     ("fetch", "watchdog", "write_wait", "write", "interval",
+                                      "drain")}
     assert all(outer[1] <= s and e <= outer[2] for _, s, e in inner)
     # the stages of every (eager) step are ranges too
     assert {"synthesis", "tendency", "update", "analysis"} <= {e[0] for e in events}
