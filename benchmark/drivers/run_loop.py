@@ -209,7 +209,11 @@ class Run:
     def notes(self) -> list[str]:
         sp = self.spans
         written = sum(o[2] for o in sp.outputs)
-        writer = "scythe_native_io" if self.sio._nio is not None else "numpy"
+        from scythe_tpu_torch.ops import _build
+
+        # the program's CSV writer: its host library where a host compiler
+        # built it (cached by the window's writes), else numpy
+        writer = "csv_writer.cpp" if _build.load_host() is not None else "numpy"
         return [f"writer {writer}; the window wrote {written} bytes in {len(sp.outputs)} "
                 f"outputs; {self.n_int} intervals of {self.n_out} steps, interval "
                 f"{self.judged} judged",

@@ -4,11 +4,13 @@ segment, and the comparison with the plain reference that decides
 
 Everything that belongs to a cell is found by name: ``workloads/<cell>.json``
 (configuration, traffic, warm-up and traced steps, the limits of the
-comparison), ``configs/<config>.json`` (the configuration as run) with the
-input maker ``configs/<inputs>.py``, ``traffic/<traffic>.json`` (the
-precision and the driver), the driver ``drivers/<driver>.py`` (what set-up,
-warm-up and the window run, and what is compared), and one reader a
-per-layer metric in ``metrics/<metric>.py``.  The reference finds its grid,
+comparison), ``configs/<config>.json`` (the configuration as run, and under
+``small`` the grid sizes and output interval the benchmark's own tests run
+it at) with the input maker ``configs/<inputs>.py``,
+``traffic/<traffic>.json`` (the precision and the driver), the driver
+``drivers/<driver>.py`` (what set-up, warm-up and the window run, and what
+is compared), and one reader a per-layer metric in
+``metrics/<metric>.py``.  The reference finds its grid,
 equation set and options by name too (``benchmark/reference/``).
 
 A driver module has ``Run(cell, seed, run_dir, device)``, which makes the
@@ -82,11 +84,30 @@ def output_steps(cfg) -> int:
     return int(round(m["output_interval"] / m["ts"]))
 
 
+# the coordinate columns of the program's CSV schema, by geometry
+COORD_NAMES = {
+    "R": ("r",),
+    "RL": ("r", "l"),
+    "RZ": ("r", "z"),
+    "RLZ": ("r", "l", "z"),
+    "XYZ": ("x", "y", "z"),
+    "SL": ("lat", "lon"),
+    "SLZ": ("lat", "lon", "z"),
+}
+
+
 def write_ics(path, grid, phys0):
-    """The IC file in the program's CSV schema: coordinates, then one column
-    a variable, 17 significant digits (a float64 reads back exactly)."""
-    coords = ["r", "l"] + (["z"] if grid.geometry == "RLZ" else [])
-    cols = np.concatenate([grid.gridpoints()] + [p.reshape(-1, 1) for p in phys0], axis=1)
+    """The IC file in the program's CSV schema: coordinates named as the
+    program names them for the geometry, then one column a variable, 17
+    significant digits (a float64 reads back exactly)."""
+    if grid.geometry not in COORD_NAMES:
+        raise ValueError(f"no CSV coordinate columns for geometry {grid.geometry!r}")
+    coords = list(COORD_NAMES[grid.geometry])
+    points = grid.gridpoints()
+    if points.shape[1] != len(coords):
+        raise ValueError(f"{grid.geometry} grid points have {points.shape[1]} coordinates, "
+                         f"the schema names {coords}")
+    cols = np.concatenate([points] + [p.reshape(-1, 1) for p in phys0], axis=1)
     np.savetxt(path, cols, delimiter=",", fmt="%.17g", comments="",
                header=",".join(coords + list(grid.params.vars)))
 

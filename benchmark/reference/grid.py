@@ -4,7 +4,9 @@ module holds one geometry of ``scythe_tpu_torch/grids/`` in plain mode with
 the dense DFT, frozen for the benchmark's reference, and the dense FLOPs of
 its transforms (``synthesis_flops``, ``analysis_flops``) that the step's
 FLOP count (``yardsticks.step_flops``) reads.  A geometry with no module is
-refused.
+refused.  As in the port, XYZ and SLZ share the RLZ array ranks
+(``_struct``), SL the RL ones: the option modules that work on coefficients
+(``options/modal_filter_tau.py``) go by it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import fourier
 from .config import GridParameters
 
 
@@ -32,7 +35,10 @@ class Grid:
 
     @property
     def _struct(self) -> str:
-        return self.params.geometry
+        """Structural class: XYZ and SLZ share the RLZ array ranks, SL the RL
+        ones."""
+        g = self.params.geometry
+        return {"XYZ": "RLZ", "SL": "RL", "SLZ": "RLZ"}.get(g, g)
 
     @property
     def nvars(self) -> int:
@@ -41,6 +47,10 @@ class Grid:
     @property
     def num_points(self) -> int:
         return int(np.prod(self.spatial_shape))
+
+    def slot_wavenumbers(self) -> np.ndarray:
+        """|k| of each azimuthal coefficient slot of the dense DFT."""
+        return np.abs(fourier.coeff_wavenumbers(self.nl)).astype(np.float64)
 
 
 def geometry_module(geometry: str):

@@ -1,6 +1,7 @@
 """``options["semiimplicit"]``: the AI2* corrector of
 ``scythe_tpu_torch/timeintegration.py`` on (w, xi), composed into one column
-operator a stage and applied as one matmul, with a scalar Pxi; the implicit
+operator a stage and applied as one matmul, with a scalar Pxi: the reference
+state's column mean times ``si_scale`` (1.0 by default); the implicit
 histories keep the [w, xi] rows alone.
 """
 
@@ -14,6 +15,7 @@ from .. import chebyshev
 STAGE = "implicit"
 ORDER = 0
 IMP_ROWS = 2
+PARAMS = ("si_scale",)
 
 
 def helmholtz_matrix(nz: int, length: float, pxi: float, ts_term: float) -> np.ndarray:
@@ -83,8 +85,10 @@ def semiimplicit_adjustment(ops, ts, w_np1, xi_np1, xidot_n, xidot_nm1, xidot_nm
 def build(model, grid, ctx, dtype):
     p = grid.params
     ts = model.ts
+    si_scale = float(ctx.options.get("si_scale", 1.0))
     ops = semiimplicit_operators(p.zDim, p.zmin, p.zmax, p.b_zDim,
-                                 float(ctx.ref_state.Pxi_bar), ts, dtype, grid.device)
+                                 si_scale * float(ctx.ref_state.Pxi_bar), ts, dtype,
+                                 grid.device)
     w_i, xi_i = p.var_index("w"), p.var_index("xi")
 
     def implicit(var_np1, res, state):

@@ -26,7 +26,7 @@ def build(model, grid, ctx, dtype):
     ramp = torch.clamp((ctx.coords["r"] - (p.xmax - width)) / width, 0.0, 1.0)
     sigma = (torch.sin(0.5 * np.pi * ramp) ** 2 / tau).to(dtype)[None]
 
-    def tendency(expdot, phys):
+    def tendency(expdot, phys, fields):
         return expdot - sigma * (phys - ctx.extras["sponge_ref"])
 
     return tendency

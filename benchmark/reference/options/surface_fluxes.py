@@ -39,7 +39,7 @@ def build_surface_fluxes(grid, ctx, cfg: dict, dtype):
     s_star = float(td.entropy(host(sst), rho0, host(q_star)))
     i_s, i_mu, i_u, i_v = vi("s"), vi("mu"), vi("u"), vi("v")
 
-    def apply(expdot, phys):
+    def apply(expdot, phys, fields):
         u1 = phys[i_u][..., 0]
         v1 = phys[i_v][..., 0]
         spd = torch.sqrt(u1 * u1 + floor * floor + v1 * v1)

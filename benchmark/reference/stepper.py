@@ -4,17 +4,24 @@
 set (``eqsets/<equation_set>.py``) and one module an option
 (``options/<key>.py``), both found by name.  An option module has
 ``STAGE``, ``ORDER`` and ``build(model, grid, ctx, dtype)``, which returns
-the stage's hook:
+the stage's hook.  The stages follow the port's step:
 
-- ``"tendency"``: ``hook(expdot, phys) -> expdot``, after the equation set,
-  in ``ORDER``;
+- ``"tendency"``: ``hook(expdot, phys, fields) -> expdot``, after the
+  equation set, in ``ORDER`` (``fields`` the step's synthesis, every
+  derivative slot, for an option such as the radiating boundary that reads
+  one);
 - ``"implicit"``: ``hook(var_np1, res, state) -> (var_np1, impdot_nm1,
   impdot_nm2)``, after AB3, at most one;
 - ``"update"``: ``hook(var_np1, res) -> var_np1``, after the implicit
   stage, in ``ORDER``, before the equation set's ``after_update``;
+- ``"analysis"``: ``hook(state, fields, var_np1) -> spec``, the step's
+  closing analysis (``fields`` the step's synthesis), at most one; without
+  one the step closes with ``grid.analysis(var_np1)``;
+- ``"filter"``: ``hook(spec) -> spec``, after the analysis, in ``ORDER``;
 
 and may have ``PARAMS`` (further option keys it reads), ``IMP_ROWS`` (the
 rows its implicit histories keep) and ``on_initialize(ctx, grid, spec0)``.
+The options ``build_context`` reads (``CONTEXT_OPTIONS``) need no module.
 
 ``run`` advances a state by ``n`` steps: eagerly, or on a CUDA device with
 the steady step replayed as one CUDA graph (t = 1, 2 eager), so that the
@@ -32,7 +39,10 @@ import torch
 from . import reference_state as rsmod
 from .equations import EqContext, equation_set
 
-STAGES = ("tendency", "implicit", "update")
+STAGES = ("tendency", "implicit", "update", "analysis", "filter")
+# options read by build_context (the reference state it builds), not by an
+# equation set or an option module
+CONTEXT_OPTIONS = ("exact_reference_state",)
 
 
 class ModelState(NamedTuple):
@@ -68,11 +78,7 @@ def explicit_step(phys, expdot_n, expdot_nm1, expdot_nm2, t: int, ts: float):
 
 
 def build_context(model, grid, dtype) -> EqContext:
-    ref = None
-    if model.ref_state_file:
-        p = model.grid_params
-        ref = rsmod.interpolate_reference_file(
-            model.ref_state_file, p.zmin, p.zmax, p.zDim, p.b_zDim, dtype, device=grid.device)
+    ref = rsmod.build_reference_state(model, grid, dtype)
     return EqContext(grid=grid, coords=grid.coords(), params=model.phys(),
                      options=model.opts(), ts=model.ts,
                      var_index=grid.params.var_index, ref_state=ref)
@@ -98,12 +104,13 @@ def build_step(model, grid, ctx: EqContext, dtype):
     """step(state) -> state, as the port's ``build_step``: the synthesis, the
     equation set's tendency, the tendency options, AB3, the implicit option
     (or the histories kept as they come), the update options, the equation
-    set's adjustment and the analysis.  An option that neither the equation
-    set reads nor a module of ``options/`` builds is refused."""
+    set's adjustment, the analysis option (or ``grid.analysis``) and the
+    filter options.  An option that neither the equation set, nor
+    ``build_context``, nor a module of ``options/`` reads is refused."""
     opts = ctx.options
     eqset = equation_set(model.equation_set)
     mods = option_modules(opts)
-    handled = set(eqset.OPTIONS) | set(mods) | {
+    handled = set(eqset.OPTIONS) | set(CONTEXT_OPTIONS) | set(mods) | {
         k for m in mods.values() for k in getattr(m, "PARAMS", ())}
     unknown = {k for k, v in opts.items() if v and k not in handled}
     if unknown:
@@ -112,9 +119,12 @@ def build_step(model, grid, ctx: EqContext, dtype):
                      sorted((m for m in mods.values() if m.STAGE == stage),
                             key=lambda m: m.ORDER)]
              for stage in STAGES}
-    if len(hooks["implicit"]) > 1:
-        raise ValueError("the reference takes one implicit option at a time")
+    for stage in ("implicit", "analysis"):
+        if len(hooks[stage]) > 1:
+            raise ValueError(f"the reference takes one {stage} option at a time")
     implicit = hooks["implicit"][0] if hooks["implicit"] else keep_histories
+    close = hooks["analysis"][0] if hooks["analysis"] else (
+        lambda state, fields, var_np1: grid.analysis(var_np1))
     after_update = getattr(eqset, "after_update", None)
     ts = model.ts
 
@@ -128,7 +138,7 @@ def build_step(model, grid, ctx: EqContext, dtype):
                 phys[v] = arr
         expdot = res.expdot
         for hook in hooks["tendency"]:
-            expdot = hook(expdot, phys)
+            expdot = hook(expdot, phys, fields)
         var_np1, e_nm1, e_nm2 = explicit_step(
             phys, expdot, state.expdot_nm1, state.expdot_nm2, state.t, ts)
         var_np1, i_nm1, i_nm2 = implicit(var_np1, res, state)
@@ -136,7 +146,10 @@ def build_step(model, grid, ctx: EqContext, dtype):
             var_np1 = hook(var_np1, res)
         if after_update is not None:
             var_np1 = after_update(var_np1, res.impdot, ctx)
-        return ModelState(grid.analysis(var_np1), e_nm1, e_nm2, i_nm1, i_nm2, state.t + 1)
+        spec = close(state, fields, var_np1)
+        for hook in hooks["filter"]:
+            spec = hook(spec)
+        return ModelState(spec, e_nm1, e_nm2, i_nm1, i_nm2, state.t + 1)
 
     return step
 

@@ -4,6 +4,10 @@ Tests that need a CUDA card carry the ``chip`` marker and take the ``card``
 fixture, which skips them where torch sees no card; the decision is made
 when the test runs, never while the module is imported.  On a card machine:
 ``python -m pytest benchmark/tests -m chip``.
+
+The tests of a cell take their cells from ``BENCHMARK.json`` (``CELLS``),
+so that a cell added there with its files is tested with no edit here; each
+cell runs at the size its configuration's ``small`` key gives.
 """
 
 import json
@@ -13,6 +17,8 @@ from pathlib import Path
 import pytest
 
 BENCH = Path(__file__).resolve().parents[1]
+CELLS = [w["name"] for w in json.loads((BENCH.parent / "BENCHMARK.json").read_text())[
+    "workloads"]]
 
 
 def pytest_configure(config):
@@ -28,23 +34,22 @@ def card():
     return "cuda"
 
 
-SMALL = {"tc_mature.f32": ({"num_cells": 10, "zDim": 12}, 20.0),
-         "cha_bell.f32": ({"num_cells": 12, "lDim": 32}, 30.0)}
-
-
 @pytest.fixture
 def small_bench(tmp_path):
-    """A benchmark folder of the two cells at a size a test run holds: the
-    configurations' grids shrunk, an output every ten steps, five warm-up
-    steps, ten steps of spin-up in the inputs; the limits as the cells'
-    own."""
+    """A benchmark folder of every cell of ``BENCHMARK.json`` at a size a test
+    run holds: each configuration's grid and output interval as its
+    ``small`` key gives them (an output every few steps), five warm-up
+    steps, ten steps of spin-up in the inputs; the traffic and the limits
+    as the cells' own."""
     for d in ("workloads", "configs", "traffic"):
         (tmp_path / d).mkdir()
-    shutil.copy(BENCH / "traffic" / "integrate_f32.json", tmp_path / "traffic")
-    for cell, (grid, out_s) in SMALL.items():
+    for cell in CELLS:
         c = json.loads((BENCH / "workloads" / f"{cell}.json").read_text())
+        shutil.copy(BENCH / "traffic" / f"{c['traffic']}.json", tmp_path / "traffic")
         cfg = json.loads((BENCH / "configs" / f"{c['config']}.json").read_text())
-        cfg["model"]["grid"].update(grid)
+        small = cfg["small"]
+        cfg["model"]["grid"].update(small["grid"])
+        out_s = small["output_interval"]
         cfg["model"]["output_interval"] = out_s
         cfg["model"]["integration_time"] = 100 * out_s
         cfg["inputs"] = c["config"]

@@ -44,6 +44,9 @@ def test_configs_and_cells_point_at_their_files():
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
+        # the size the benchmark's own tests run the configuration at
+        assert set(cfg["small"]) == {"grid", "output_interval"}, c["name"]
+        assert cfg["small"]["output_interval"] > 0
         assert all(NAME.fullmatch(k) for k in c["reduced"])
     configs = {c["name"] for c in BENCH_JSON["configs"]}
     pairs = set()

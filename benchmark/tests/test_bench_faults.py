@@ -5,14 +5,13 @@ a small size (``small_bench``) with the cells' own limits, once sound and
 once with each fault these cells can have: a step that returns its state
 unchanged, and an answer altered where it is written.  (The cells run one
 member on one card: no batch can lose half its rows and no exchange
-between cards can be left out.)"""
+between cards can be left out.)  The cells are ``BENCHMARK.json``'s."""
 
 import pytest
 import torch
 
 from benchmark import harness
-
-CELLS = ["tc_mature.f32", "cha_bell.f32"]
+from benchmark.tests.conftest import CELLS
 
 
 def run(cell, bench):
@@ -23,8 +22,13 @@ def run(cell, bench):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_sound_run_is_correct(cell, small_bench):
+    from scythe_tpu_torch.ops import _build
+
     correct, out = run(cell, small_bench)
     assert correct, out.checks
+    # the notes name the CSV writer the program used
+    writer = "csv_writer.cpp" if _build.load_host() is not None else "numpy"
+    assert any(n.startswith(f"writer {writer};") for n in out.notes), out.notes
 
 
 @pytest.mark.parametrize("cell", CELLS)

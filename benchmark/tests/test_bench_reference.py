@@ -1,7 +1,8 @@
 """The plain reference (``benchmark/reference``) against the port's CPU path:
-a few steps of each equation set and options the cells run (Cha & Bell's
-one-way set in their inputs' spin-up) at a small grid, in float64, from the
-same inputs: the start-up steps (t = 1, 2) and AB3."""
+a few steps of each equation set and options the cells of ``BENCHMARK.json``
+run (and the equation set of their inputs' spin-up, such as Cha & Bell's
+one-way set) at a small grid, in float64, from the same inputs: the
+start-up steps (t = 1, 2) and AB3."""
 
 import numpy as np
 import pytest
@@ -10,13 +11,22 @@ import torch
 from benchmark import harness
 from benchmark.reference import grid as rgrid
 from benchmark.reference import stepper as rstep
+from benchmark.tests.conftest import CELLS
 
 STEPS = 6
 
 
-@pytest.mark.parametrize("cell, equation_set", [
-    ("tc_mature.f32", None), ("cha_bell.f32", None),
-    ("cha_bell.f32", "Oneway_ShallowWater_Slab")])
+def equation_set_cases():
+    """(cell, None) for each cell's own equation set, and (cell, set) for the
+    set of its inputs' spin-up, where it has one."""
+    for cell in CELLS:
+        yield cell, None
+        spin = harness.load_cell(cell)["cfg"].get("ics", {}).get("spinup")
+        if spin:
+            yield cell, spin["equation_set"]
+
+
+@pytest.mark.parametrize("cell, equation_set", list(equation_set_cases()))
 def test_reference_follows_the_port(cell, equation_set, small_bench, tmp_path):
     import scythe_tpu_torch.config as tconfig
     from scythe_tpu_torch import model as tmodel

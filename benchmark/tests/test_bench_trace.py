@@ -29,10 +29,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from benchmark import harness
 from benchmark import yardsticks as ys
+from benchmark.tests.conftest import CELLS
 
 READERS = ("fetch_ms", "watchdog_ms", "write_ms", "boundary_idle_ms", "capture_ms",
-           "tendency_nodes")
-CELLS = ["tc_mature.f32", "cha_bell.f32"]
+           "tendency_nodes", "write_wait_ms")
 
 
 class _Ops(TorchDispatchMode):
