@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..physics import microphysics as mp
 from ..physics import thermodynamics as td
 from ..physics import turbulence as tb
@@ -116,7 +117,8 @@ def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
     physical_params: K, K_v (default K), Omega (default Earth's).  Options
     as MoistEulerRLZ's, and options['hyperdiffusion_k4'] (a horizontal
     del^4 from refitting the first Laplacian through the step's analysis and
-    synthesis, with an explicit-stability guard).  Two divergences from
+    synthesis, with an explicit-stability guard; the refit is the step's
+    ``hyperdiffusion`` stage, inside ``tendency``).  Two divergences from
     ``scythe_tpu/equations/sphere.py:248,256``, both about sharded runs: the
     guard takes the meridional spacing from the grid's global rDim, where
     the JAX package takes the field's rows (a shard's rows under
@@ -220,13 +222,14 @@ def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
                 f"(K4={k4:.2e}, dx_lat={dx_lat/1e3:.0f} km, ts={ctx.ts}); "
                 "reduce K4 or ts"
             )
-        f2 = ctx.synthesis(ctx.analysis(horiz))
-        horiz2 = (
-            f2["drr"] / aa
-            + f2["dll"] / (aa * cosp * cosp)
-            - tanp * f2["dr"] / aa
-        )
-        lap_all = lap_all - lap_mask * (k4 * horiz2)
+        with trace.stage("hyperdiffusion"):
+            f2 = ctx.synthesis(ctx.analysis(horiz))
+            horiz2 = (
+                f2["drr"] / aa
+                + f2["dll"] / (aa * cosp * cosp)
+                - tanp * f2["dr"] / aa
+            )
+            lap_all = lap_all - lap_mask * (k4 * horiz2)
 
     # perturbation pressure gradients in all three directions; the vertical
     # carries the exact reference-gradient cross term (EqContext.vertical_pgf)

@@ -339,7 +339,10 @@ class CapturedStep:
         if not self._timed_replays:
             return {}
         self._timed_replays = 0
-        return {name: 1e-3 * a.elapsed_time(b) for name, a, b in self.stage_events}
+        out = {}
+        for name, a, b in self.stage_events:  # a stage's segments, around the stages inside it
+            out[name] = out.get(name, 0.0) + 1e-3 * a.elapsed_time(b)
+        return out
 
     def state(self, like, t: int):
         """The buffers' state at step ``t``, in tensors of its own."""

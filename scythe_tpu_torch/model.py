@@ -1011,9 +1011,10 @@ def _log_run(rec, num_ts: int, num_points: int):
     nodes = rec.total("graph.nodes")
     if nodes is not None:
         log.info("Graph: %d nodes a step; by stage: %s", nodes, ", ".join(
-            f"{name} {rec.total(f'graph.nodes.{name}'):.0f}" for name in trace.STAGES
+            f"{name} {rec.total(f'graph.nodes.{name}'):.0f}"
+            for name in trace.STAGES + trace.SUBSTAGES
             if rec.total(f"graph.nodes.{name}") is not None))
-    staged = [(name, rec.mean(f"stage_s.{name}")) for name in trace.STAGES]
+    staged = [(name, rec.mean(f"stage_s.{name}")) for name in trace.STAGES + trace.SUBSTAGES]
     if any(mean is not None for _, mean in staged):
         log.info("Stage device us a step (the last replay of each interval, mean): %s",
                  ", ".join(f"{name} {1e6 * mean:.2f}" for name, mean in staged

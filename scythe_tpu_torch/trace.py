@@ -13,11 +13,16 @@ inside an output interval.
 * ``count(name, n)``: adds ``n`` to a counter (its total, and the number of
   adds, so a counter has a mean too).
 * ``stage(name)``: a stage of the model's step (``model.build_step``;
-  ``graphs._write_back`` is ``copies``).  On an eager step it is only a
-  profiler range.  Inside ``capturing`` (a CUDA graph capture,
-  ``graphs.CapturedStep``) it also counts the nodes the stage adds to the
-  graph being captured, and with ``stage_times`` on it records a pair of
-  timing CUDA events inside the graph, which every replay records anew.
+  ``graphs._write_back`` is ``copies``), or a part of one named on its own
+  (``SUBSTAGES``: an equation set's ``hyperdiffusion`` refit inside
+  ``tendency``).  On an eager step it is only a profiler range.  Inside
+  ``capturing`` (a CUDA graph capture, ``graphs.CapturedStep``) it also
+  counts the nodes the stage adds to the graph being captured, and with
+  ``stage_times`` on it records timing CUDA events inside the graph, which
+  every replay records anew.  Stages nest and count exclusively: a stage
+  entered inside another counts its nodes and its time under its own name,
+  and the outer stage's count leaves them out, so the counts still add up to
+  the graph's nodes.
 
 Every span and counter adds to the process's record (``process()``: the
 captures, the kernels' build) and to the open run record: ``model.run_loop``
@@ -39,6 +44,8 @@ import torch
 
 STAGES = ("synthesis", "tendency", "options", "update", "semiimplicit", "vdiff",
           "condensation", "analysis", "filter", "copies")
+# stages entered inside one of STAGES, on the steps that have them
+SUBSTAGES = ("hyperdiffusion",)
 
 _LOCK = threading.Lock()
 _tls = threading.local()  # .capture: the _Capture of this thread's capture
@@ -192,7 +199,8 @@ class _Capture:
     nodes_now: object  # () -> nodes so far of the graph being captured, or None
     timed: bool
     nodes: dict = field(default_factory=dict)  # {stage: nodes it added}
-    events: list = field(default_factory=list)  # [(stage, start, end)]
+    events: list = field(default_factory=list)  # [(stage, start, end)], a stage's segments
+    open: list = field(default_factory=list)  # the stages entered and not left, outermost first
 
 
 @contextlib.contextmanager
@@ -219,7 +227,7 @@ class stage:
     """``with stage(name):`` marks a stage of the step (see the module
     docstring)."""
 
-    __slots__ = ("name", "_range", "_cap", "_n0", "_start")
+    __slots__ = ("name", "_range", "_cap", "_n0", "_inner", "_start")
 
     def __init__(self, name: str):
         self.name = name
@@ -231,17 +239,29 @@ class stage:
         cap = self._cap = getattr(_tls, "capture", None)
         if cap is not None:
             self._n0 = cap.nodes_now() if cap.nodes_now else 0
+            self._inner = 0  # nodes of the stages entered inside this one
             self._start = _event() if cap.timed else None
+            if cap.open and cap.timed:  # the outer stage's segment ends here
+                outer = cap.open[-1]
+                cap.events.append((outer.name, outer._start, self._start))
+            cap.open.append(self)
         return self
 
     def __exit__(self, *exc):
         cap = self._cap
-        if cap is not None and exc[0] is None:
-            if cap.timed:
-                cap.events.append((self.name, self._start, _event()))
-            if cap.nodes_now:
-                cap.nodes[self.name] = (cap.nodes.get(self.name, 0)
-                                        + cap.nodes_now() - self._n0)
+        if cap is not None:
+            cap.open.pop()
+            if exc[0] is None:
+                if cap.timed:
+                    end = _event()
+                    cap.events.append((self.name, self._start, end))
+                    if cap.open:  # the outer stage's next segment starts here
+                        cap.open[-1]._start = end
+                if cap.nodes_now:
+                    added = cap.nodes_now() - self._n0
+                    cap.nodes[self.name] = cap.nodes.get(self.name, 0) + added - self._inner
+                    if cap.open:
+                        cap.open[-1]._inner += added
         if self._range is not None:
             self._range.__exit__(*exc)
         return False

@@ -13,6 +13,12 @@ the CPU.
   its capture runs as its nodes: the stage node counts cover the ten stages
   in order and add up to the captured graph's nodes, on the flagship, the
   moist semi-implicit core and the TC option bundle.
+* Stages nest: a stage entered inside another counts its nodes (and its
+  timing events) under its own name and the outer stage's count leaves them
+  out, so the counts still add up; an SLZ step with ``hyperdiffusion_k4``
+  counts its del^4 refit as the ``hyperdiffusion`` stage (and without it has
+  no such stage), and an RLZ step's counts are those of stages that do not
+  nest.
 * The launch counters are added once a chunk, and read what they read when
   they were added once a replay.
 * ``ops._build``'s nvcc time is the span ``ops.build``.
@@ -250,6 +256,134 @@ def test_a_primitive_that_counts_no_nodes_counts_none(tmp_path):
     stub_scan(step, 5, state)
     (runner,) = graphs.captured(step).values()
     assert runner.nodes is None and runner.stage_nodes == {}
+
+
+class _Nodes:
+    """A graph being captured: ``add(n)`` adds nodes."""
+
+    def __init__(self):
+        self.n = 0
+
+    def add(self, n):
+        self.n += n
+
+    def __call__(self):
+        return self.n
+
+
+def test_a_nested_stage_counts_its_nodes_once():
+    nodes = _Nodes()
+    with trace.capturing(nodes, "cpu") as cap:
+        with trace.stage("synthesis"):
+            nodes.add(3)
+        with trace.stage("tendency"):
+            nodes.add(5)
+            with trace.stage("hyperdiffusion"):
+                nodes.add(7)
+            nodes.add(2)
+            with trace.stage("hyperdiffusion"):  # a second entry adds to the first
+                nodes.add(1)
+        with trace.stage("copies"):
+            nodes.add(4)
+    assert cap.nodes == {"synthesis": 3, "hyperdiffusion": 8, "tendency": 7, "copies": 4}
+    assert sum(cap.nodes.values()) == nodes.n == 22
+    assert cap.open == []
+
+
+def test_a_nested_stage_splits_the_outer_stages_events(monkeypatch):
+    """With the stage times on, the outer stage's events are the segments
+    around the inner one, which has its own; their times sum by name."""
+    marks = iter(range(100))
+    monkeypatch.setattr(trace, "_event", lambda: next(marks))
+    nodes = _Nodes()
+    with trace.capturing(nodes, "cpu") as cap:
+        cap.timed = True
+        with trace.stage("tendency"):
+            nodes.add(5)
+            with trace.stage("hyperdiffusion"):
+                nodes.add(7)
+        with trace.stage("update"):
+            pass
+    assert cap.events == [("tendency", 0, 1), ("hyperdiffusion", 1, 2), ("tendency", 2, 3),
+                          ("update", 4, 5)]
+    assert cap.nodes == {"hyperdiffusion": 7, "tendency": 5, "update": 0}
+
+    class Mark(int):
+        def elapsed_time(self, other):  # ms, as a CUDA event's
+            return float(other - self)
+
+    runner = graphs.CapturedStep.__new__(graphs.CapturedStep)
+    runner.stage_events = [(n, Mark(a), Mark(b)) for n, a, b in cap.events]
+    runner._timed_replays = 1
+    assert runner.stage_seconds() == {"tendency": 2e-3, "hyperdiffusion": 1e-3,
+                                      "update": 1e-3}
+
+
+def _slz_step(tmp_path, k4):
+    """A small JW06 step with the production options (8 cells x 16 x 8),
+    del^4 on at ``k4`` or off."""
+    from scythe_tpu_torch.examples import jw06_baroclinic_slz as jw
+
+    model = jw.build_model(str(tmp_path / f"jw06_{k4}"), num_cells=8, nl=16, zdim=8, ts=7.5,
+                           l_q=0.0, sponge_top=12.0e3, k4=k4, smag=0.21)
+    grid64 = tx.create_grid(model.grid_params, F64, device="cpu")
+    phys0 = jw.initial_fields(grid64, tmodel.build_context(model, grid64, F64).ref_state)
+    _, _, state, step = jw.prepare_run(model, phys0, F64, "cpu")
+    return step, state
+
+
+def test_an_slz_step_counts_its_del4_refit_as_a_stage(tmp_path):
+    counts = {}
+    for k4 in (6.0e16, 0.0):
+        step, state = _slz_step(tmp_path, k4)
+        before = trace.process()
+        stub = CountingStub()
+        stub_scan(step, 5, state, stub)
+        (runner,) = graphs.captured(step).values()
+        assert sum(runner.stage_nodes.values()) == runner.nodes == stub.total
+        assert set(runner.stage_nodes) - set(trace.STAGES) <= set(trace.SUBSTAGES)
+        added = trace.process().total("graph.nodes.hyperdiffusion") or 0
+        added -= before.total("graph.nodes.hyperdiffusion") or 0
+        assert added == runner.stage_nodes.get("hyperdiffusion", 0)
+        counts[k4] = runner.stage_nodes
+    on, off = counts[6.0e16], counts[0.0]
+    assert on["hyperdiffusion"] > 0 and "hyperdiffusion" not in off
+    # the tendency's own count leaves the refit out
+    assert on["tendency"] == off["tendency"]
+    assert {k: v for k, v in on.items() if k != "hyperdiffusion"} == off
+
+
+class _FlatStage:
+    """The stage marker as it was before stages nested: each adds every
+    node its block adds."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.cap = getattr(trace._tls, "capture", None)
+        if self.cap is not None:
+            self.n0 = self.cap.nodes_now()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cap is not None:
+            self.cap.nodes[self.name] = (self.cap.nodes.get(self.name, 0)
+                                         + self.cap.nodes_now() - self.n0)
+        return False
+
+
+def test_an_rlz_steps_stage_counts_are_unchanged(tmp_path, monkeypatch):
+    _, (model, grid, ctx, state) = _tc(tmp_path, 6)
+    counts = []
+    for marker in (trace.stage, _FlatStage):
+        monkeypatch.setattr(trace, "stage", marker)
+        step = tmodel.build_step(model, grid, ctx, F64)
+        stub_scan(step, 5, state, CountingStub())
+        (runner,) = graphs.captured(step).values()
+        counts.append(runner.stage_nodes)
+    assert counts[0] == counts[1]
+    assert tuple(counts[0]) == trace.STAGES
 
 
 def test_launch_counters_are_added_once_a_chunk(monkeypatch):
