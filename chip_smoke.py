@@ -471,13 +471,36 @@ def cpu_references(names, out_dir):
     return 0
 
 
+# the kernels' launch counters (``trace``) that zero_counts and launched read
+CS, CS_BACK, CS_COMP = ("column_solve.launches", "column_solve.backward_launches",
+                        "column_solve.comp_launches")
+RA, RA_COMP = "rlz_analysis.launches", "rlz_analysis.comp_launches"
+CN, CN_PLAIN = "condensation.launches", "condensation.plain_launches"
+EP = "elementwise_probe.launches"
+_COUNT_BASE = {}  # {counter: its process total at its module's last zero_counts}
+
+
 def zero_counts(*mods):
-    """Every launch count of the kernels' modules to 0 (plain and comp,
-    forward and backward), just before a path is driven."""
-    for mod in mods:
-        for name in dir(mod):
-            if name.endswith("launches") and isinstance(getattr(mod, name), int):
-                setattr(mod, name, 0)
+    """Count the launches of the kernels' modules (their ``trace`` counters
+    ``<module>.<counter>``: plain and comp, forward and backward) from 0,
+    just before a path is driven; ``launched`` reads them."""
+    from scythe_tpu_torch import trace
+
+    names = {mod.__name__.rsplit(".", 1)[1] for mod in mods}
+    for name, stat in trace.process().counters.items():
+        if name.split(".")[0] in names:
+            _COUNT_BASE[name] = stat.total
+
+
+def launched(*names):
+    """The ``trace`` counters ``names`` (``column_solve.launches``, ...)
+    since their modules' last ``zero_counts``: an int for one name, a tuple
+    for several."""
+    from scythe_tpu_torch import trace
+
+    rec = trace.process()
+    got = tuple(int((rec.total(k) or 0) - _COUNT_BASE.get(k, 0)) for k in names)
+    return got[0] if len(got) == 1 else got
 
 
 def say(phase, t0, msg):
@@ -1133,9 +1156,9 @@ def phase_probe(torch, ep):
         f"{list(ep.SHAPE)} f32: rel err {rel:.3e} (tol 1e-5), abs {err:.3e}; kernel "
         f"{kt} ms, plain {pt} ms a call (min {min(kt):.5f} vs {min(pt):.5f})")
     t0 = time.perf_counter()
-    ep.launches = 0
+    zero_counts(ep)
     assert ep.main() == 0
-    launches = ep.launches
+    launches = launched(EP)
     assert launches > 0
     say("probe-entry-point", t0, f"python -m scythe_tpu_torch.ops.elementwise_probe "
         f"in process: Triton kernel launches {launches}")
@@ -1330,11 +1353,11 @@ def phase_jw06(tx, tmodel, tw, torch, cs, ra, tmp, card, out_dir, refs):
 
     zero_counts(cs, ra, cn)
     state, ms_step = run_steps(torch, tmodel, step, state, JW06_STEPS)
-    launches = (cs.launches, ra.launches)
+    launches = launched(CS, RA)
     # the analysis twice a step: the del^4 term refits its first Laplacian
     # through the analysis (equations/sphere.py), then the closing analysis
     assert launches == (JW06_STEPS, 2 * JW06_STEPS), launches
-    cond_launches = (cn.launches, cn.plain_launches)
+    cond_launches = launched(CN, CN_PLAIN)
     assert cond_launches == (JW06_STEPS, 0), cond_launches
     phys = grid.synthesis(state.spec)["val"].cpu().numpy()
     assert phys.shape == (9, 144, 96, 24) and np.isfinite(phys).all()
@@ -1446,7 +1469,7 @@ def phase_ensembles(tx, tmodel, tti, torch, cs, ra, cb, sh, sio, tmp, card):
     f20 = fm.with_(integration_time=60.0, output_interval=60.0)
     zero_counts(cs, ra)
     _, out64 = tmodel.integrate_ensemble(f20, ics64, dtype=torch.float64, device="cuda")
-    fl_launches = (cs.launches, ra.launches)
+    fl_launches = launched(CS, RA)
     assert fl_launches == (0, 0), fl_launches
     grid64, run1 = member_runner(tx, torch, tmodel, tti, f20, torch.float64, "cuda", 1)
     rel = 0.0
@@ -1479,7 +1502,7 @@ def phase_ensembles(tx, tmodel, tti, torch, cs, ra, cb, sh, sio, tmp, card):
     for dtype in (torch.float32, torch.float64):
         zero_counts(cs, ra, cn)
         _, outs[dtype] = tmodel.integrate_ensemble(sm, ics64, dtype=dtype, device="cuda")
-        launches[dtype] = (cs.launches, ra.launches, cn.launches, cn.plain_launches)
+        launches[dtype] = launched(CS, RA, CN, CN_PLAIN)
         # the condensation kernel once a step for all members (its vmap
         # rule), the plain chain never
         assert launches[dtype] == (20, 21, 20, 0), launches
@@ -1702,8 +1725,8 @@ def phase_gradients(tx, torch, cs, ra, sio, tmp, cd, adjoint, refs):
         gp0, gK = torch.autograd.grad(loss, (p0, K))
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches = (cs.launches, cs.backward_launches, ra.launches)
-            cond = (cn.launches, cn.plain_launches)
+            launches = launched(CS, CS_BACK, RA)
+            cond = launched(CN, CN_PLAIN)
             with torch.no_grad():
                 lo, hi = (float(torch.sum(w_t * sim({"K": 100.0 + e}, p0)))
                           for e in (-1e-2, 1e-2))
@@ -1991,8 +2014,8 @@ def phase_comp_moist3d(tx, tmodel, tti, torch, cs, ra, tmp, card, out_dir):
     zero_counts(cs, ra)
     with compensated_grids():
         grid, phys = tx.integrate_model(model, dtype=torch.float32, device="cuda")
-    launches = {"column_solve": cs.launches, "column_solve_comp": cs.comp_launches,
-                "rlz_analysis": ra.launches, "rlz_analysis_comp": ra.comp_launches}
+    launches = {"column_solve": launched(CS), "column_solve_comp": launched(CS_COMP),
+                "rlz_analysis": launched(RA), "rlz_analysis_comp": launched(RA_COMP)}
     assert grid.comp and grid.fast and grid.l_fact is None
     assert launches == {"column_solve": 120, "column_solve_comp": 0, "rlz_analysis": 0,
                         "rlz_analysis_comp": 121}, launches
@@ -2060,8 +2083,8 @@ def phase_comp_moist3d(tx, tmodel, tti, torch, cs, ra, tmp, card, out_dir):
                                   o32.dsynth, ts_term, pxi)
             for _, ts_term, hinv, _ in stages]
     torch.cuda.synchronize()
-    path_launches = cs.comp_launches
-    assert (path_launches, cs.launches) == (2, 0), (path_launches, cs.launches)
+    path_launches = launched(CS_COMP)
+    assert (path_launches, launched(CS)) == (2, 0), (path_launches, launched(CS))
     errs, direct = [], []
     for out, (_, ts_term, hinv, op) in zip(outs, stages):
         ref = cs.apply_column_operator(xi, w, op)  # the plain (3xTF32) kernel
@@ -2089,8 +2112,8 @@ def phase_comp_moist3d(tx, tmodel, tti, torch, cs, ra, tmp, card, out_dir):
     zero_counts(cs, ra)
     adj = [tti.semiimplicit_adjustment(op_p, w, xi, *tend, t) for t in (1, 3)]
     torch.cuda.synchronize()
-    adj_launches = cs.comp_launches
-    assert (adj_launches, cs.launches) == (2, 0), (adj_launches, cs.launches)
+    adj_launches = launched(CS_COMP)
+    assert (adj_launches, launched(CS)) == (2, 0), (adj_launches, launched(CS))
     # its plain version: the same corrector on the CPU, which takes the comp
     # map's plain version (apply_column_operator_comp_plain) on the same inputs
     op_cpu = tti.build_semiimplicit_ops(48, 0.0, zmax, None, pxi, model.ts, torch.float32,
@@ -2144,7 +2167,7 @@ def phase_comp_flagship(tx, torch, cs, ra, cb, tmp):
     zero_counts(cs, ra)
     tw, grid, phys = comp_flagship_workflow(tx, torch, cb, os.path.join(tmp, "flagship_comp"),
                                             torch.float32, "cuda")
-    launches = (cs.launches, cs.comp_launches, ra.launches, ra.comp_launches)
+    launches = launched(CS, CS_COMP, RA, RA_COMP)
     assert launches == (0, 0, 0, 0), launches
     assert grid.comp and grid.fast
     assert phys.shape == (6, 300, 256) and np.isfinite(phys).all()
@@ -2223,7 +2246,7 @@ def phase_factored(tx, tmodel, torch, cs, ra, tmp):
                         name="xyz_factored")
     zero_counts(cs, ra)
     g, p_gpu = tx.integrate_model(xm, dtype=torch.float64, device="cuda", write_outputs=False)
-    launches = (cs.launches, ra.launches, ra.comp_launches)
+    launches = launched(CS, RA, RA_COMP)
     assert g.l_fact is not None and launches == (10, 0, 0), launches
     _, p_cpu = tx.integrate_model(xm, dtype=torch.float64, device="cpu", write_outputs=False)
     rel = per_field_rel(p_gpu, p_cpu)
@@ -2427,10 +2450,10 @@ def phase_sharded_grad(tx, tmodel, torch, cs, ra, cb, tmp, card):
         grads[label], out["grad_s_step"][label] = grad_run(torch, psh, run, spec0, mesh,
                                                            GRAD_STEPS)
         # (column solve forward and recompute, on M^T, analysis kernel)
-        out["launches"][label] = (cs.launches, cs.backward_launches, ra.launches)
+        out["launches"][label] = launched(CS, CS_BACK, RA)
         # the condensation kernel where the column solve runs, its plain chain
         # once a step in the backward
-        out["condensation"][label] = (cn.launches, cn.plain_launches)
+        out["condensation"][label] = launched(CN, CN_PLAIN)
 
     with plain_version_calls(cs, ra) as plain:
         measure("one_device", None, None)
@@ -2502,7 +2525,7 @@ def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
     m20 = moist3d(tx, tmp, n_steps=20, out_every=20, name="sharded")
     zero_counts(cs, ra)
     ref64 = sharded_fields(tx, torch, m20, f64, "cuda:0", None)
-    assert (cs.launches, ra.launches) == (20, 21), (cs.launches, ra.launches)
+    assert launched(CS, RA) == (20, 21), launched(CS, RA)
     rels = {}
     with plain_version_calls(cs, ra) as plain:
         for label, shard in (("psum", (SHARDS, "psum", "gather")),
@@ -2510,7 +2533,7 @@ def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
                              ("halo_pcr", (SHARDS, "halo", "pcr"))):
             zero_counts(cs, ra)
             got = sharded_fields(tx, torch, m20, f64, "cuda:0", shard)
-            counts = (cs.launches, ra.launches)
+            counts = launched(CS, RA)
             # the column solve once a step a shard; the analysis kernel only
             # at set-up (initialize_sharded's whole-field analysis)
             assert counts == (SHARDS * 20, 1), (label, counts)
@@ -2520,7 +2543,7 @@ def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
         ref32 = sharded_fields(tx, torch, m20, f32, "cuda:0", None)
         zero_counts(cs, ra)
         got32 = sharded_fields(tx, torch, m20, f32, "cuda:0", (SHARDS, "psum", "gather"))
-        out["launches"]["sharded_moist3d_f32_psum"] = (cs.launches, ra.launches)
+        out["launches"]["sharded_moist3d_f32_psum"] = launched(CS, RA)
         assert out["launches"]["sharded_moist3d_f32_psum"] == (SHARDS * 20, 1)
         rel32 = per_field_rel(got32, ref32)
         print(f"  sharded moist3d f32 psum vs one device rel err {fmt_rel(rel32)}", flush=True)
@@ -2541,7 +2564,7 @@ def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
     t0 = time.perf_counter()
     zero_counts(cs, ra)
     rel_fl = sharded_flagship_rel(tx, torch, "cuda:0")
-    out["launches"]["sharded_flagship_psum"] = (cs.launches, ra.launches)
+    out["launches"]["sharded_flagship_psum"] = launched(CS, RA)
     assert out["launches"]["sharded_flagship_psum"] == (0, 0)
     fl_bounds = [SHARDED_FLAGSHIP_BOUND.get(n, 1e-12) for n in FLAGSHIP_VARS]
     assert all(r <= b for r, b in zip(rel_fl, fl_bounds)), (rel_fl, fl_bounds)
@@ -2584,7 +2607,7 @@ def phase_sharded(tx, tmodel, torch, cs, ra, cb, tmp, card):
         grid, ctx, state = psh.initialize_sharded(m10, mesh, f64, "psum", device="cuda:0")
         step = psh.build_sharded_step(m10, grid, ctx, f64, mesh, "psum")
         fin = tmodel.make_scan(step, 10)(state)
-        out["launches"]["sharded_nccl_world_of_one"] = (cs.launches, ra.launches)
+        out["launches"]["sharded_nccl_world_of_one"] = launched(CS, RA)
         got = canonical_fields(grid, fin.spec, (1, "psum", "gather"))
         e1 = psh.gather_global(fin.expdot_nm1)  # all_gather_into_tensor
         assert e1.shape == (9,) + grid.spatial_shape and torch.isfinite(e1).all()
@@ -2860,7 +2883,7 @@ def phase_examples(tx, tmodel, tti, torch, cs, ra, tmp, card):
             r = published_run(name, model, dtype, "cuda")
             torch.cuda.synchronize()
             seconds = time.perf_counter() - h0
-            launches = (cs.launches, ra.launches)
+            launches = launched(CS, RA)
         assert launches == (model.num_ts, 0), (name, launches, model.num_ts)
         assert plain == [], (name, sorted(set(plain)))
         check_published(name, r)
@@ -2912,7 +2935,7 @@ def phase_galewsky(torch, cs, ra, t_main):
         t_day = (time.perf_counter() - t0) / d
         if time.perf_counter() - t_main + t_day > GALEWSKY_DEADLINE_S:
             break
-    assert (cs.launches, ra.launches) == (0, 0), (cs.launches, ra.launches)
+    assert launched(CS, RA) == (0, 0), launched(CS, RA)
     out = {"days": days, "seconds_a_day": t_day, "steps_a_day": int(round(86400.0 / gm.ts))}
     say("published-galewsky", t0,
         f"ShallowWaterSphere [3, 384, 512] f64 on cuda, ts {gm.ts} s, {len(days)} days of "
@@ -3017,7 +3040,7 @@ def phase_cli(tx, tmodel, tti, torch, cs, ra, tmp, cli_la):
             assert cli.main(["--dtype", "f32", demo]) == 0
             torch.cuda.synchronize()
             seconds = time.perf_counter() - h0
-            launches = (cs.launches, ra.launches)
+            launches = launched(CS, RA)
     finally:
         os.chdir(here)
     assert launches == (model.num_ts, model.num_ts + 1) == (2400, 2401), launches
@@ -3048,7 +3071,7 @@ def phase_cli(tx, tmodel, tti, torch, cs, ra, tmp, cli_la):
         zero_counts(cs, ra)
         done = graft_entry.dryrun_multichip(DRYRUN_SHARDS, device="cuda")
         torch.cuda.synchronize()
-        launches = (cs.launches, ra.launches)
+        launches = launched(CS, RA)
     out["dryrun_multichip"] = {"steps": len(done), "launches": launches}
     assert len(done) == 19 and launches == DRYRUN_LAUNCHES, out["dryrun_multichip"]
     checked, lines = check_dryrun_kernels(tx, tmodel, tti, torch, cs, ra, tmp, DRYRUN_SHARDS)
@@ -3161,8 +3184,8 @@ def slot_rel(a, b):
 
 
 def kernel_counts(cs, ra):
-    return {"column_solve": cs.launches, "column_solve_comp": cs.comp_launches,
-            "rlz_analysis": ra.launches, "rlz_analysis_comp": ra.comp_launches}
+    return {"column_solve": launched(CS), "column_solve_comp": launched(CS_COMP),
+            "rlz_analysis": launched(RA), "rlz_analysis_comp": launched(RA_COMP)}
 
 
 def graph_nodes(graph):
@@ -3715,8 +3738,8 @@ def phase_condensation(torch, tmp, built):
                 zero_counts(cn)
                 out = mp.condensation_adjustment(work, None, ctx)
                 torch.cuda.synchronize()
-                assert out is work and (cn.launches, cn.plain_launches) == (1, 0), (
-                    cn.launches, cn.plain_launches)
+                assert out is work and launched(CN, CN_PLAIN) == (1, 0), (
+                    launched(CN), launched(CN_PLAIN))
                 rel = {name: float((out[v] - plain[v]).abs().max() / plain[v].abs().max())
                        for name, v in rows}
                 limit = COND_F64_REL if dname == "f64" else COND_F32_ULPS * 2.0**-23
@@ -3839,9 +3862,9 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     built = _build.load()
-    assert built.lib.scythe_column_solve_max_nz() == cs.MAX_NZ
-    assert built.lib.scythe_rlz_analysis_max_nz() == ra.MAX_NZ
-    assert built.lib.scythe_rlz_analysis_max_nl() == ra.MAX_NL
+    assert cs.library().scythe_column_solve_max_nz() == cs.MAX_NZ
+    assert ra.library().scythe_rlz_analysis_max_nz() == ra.MAX_NZ
+    assert ra.library().scythe_rlz_analysis_max_nl() == ra.MAX_NL
     ptxas = [ln.strip() for ln in built.log.splitlines()
              if ln.startswith("==") or "registers" in ln or "spill" in ln]
     say("build", t0,
@@ -3878,9 +3901,9 @@ def main(argv=None):
             t0 = time.perf_counter()
             zero_counts(cs, ra, cn)
             grid, phys = tx.integrate_model(model, dtype=torch.float32, device="cuda")
-            m3d_launches = (cs.launches, ra.launches)
+            m3d_launches = launched(CS, RA)
             assert m3d_launches == (model.num_ts, model.num_ts + 1) == (120, 121), m3d_launches
-            m3d_cond = (cn.launches, cn.plain_launches)
+            m3d_cond = launched(CN, CN_PLAIN)
             assert m3d_cond == (model.num_ts, 0), m3d_cond
             assert phys.shape == (9, 144, 64, 48) and np.isfinite(phys).all()
             wmax = float(phys[MOIST3D_VARS.index("w")].max())
@@ -3912,9 +3935,9 @@ def main(argv=None):
                                  output_interval=900.0)
             zero_counts(cs, ra, cn)
             grid, phys = tx.integrate_model(tc, dtype=torch.float32, device="cuda")
-            tc_launches = (cs.launches, ra.launches)
+            tc_launches = launched(CS, RA)
             assert tc_launches == (tc.num_ts, tc.num_ts + 1) == (900, 901), tc_launches
-            tc_cond = (cn.launches, cn.plain_launches)
+            tc_cond = launched(CN, CN_PLAIN)
             assert tc_cond == (tc.num_ts, 0), tc_cond
             assert phys.shape == (9, 300, 4, 24) and np.isfinite(phys).all()
             qc = float(td.ahyp(torch.from_numpy(phys[6]).double()).max())
@@ -3999,7 +4022,7 @@ def main(argv=None):
             zero_counts(cs, ra, ep)
             tw, grid, phys = flagship_workflow(tx, cb, os.path.join(tmp, "flagship"),
                                                torch.float32, "cuda")
-            fl_launches = (cs.launches, ra.launches, ep.launches)
+            fl_launches = launched(CS, RA, EP)
             assert fl_launches == (0, 0, 0), fl_launches
             assert (grid.params.rDim, grid.params.b_rDim, grid.nl) == (300, 103, 256)
             assert phys.shape == (6, 300, 256) and np.isfinite(phys).all()
@@ -4093,11 +4116,11 @@ def main(argv=None):
             zero_counts(cs, ra)
             _, p_gpu = tx.integrate_model(hm, dtype=torch.float64, device="cuda",
                                           write_outputs=False)
-            hrbl_launches = (cs.launches, ra.launches)
+            hrbl_launches = launched(CS, RA)
             assert hrbl_launches == (0, hm.num_ts + 1) == (0, 101), hrbl_launches
             _, p_cpu = tx.integrate_model(hm, dtype=torch.float64, device="cpu",
                                           write_outputs=False)
-            assert ra.launches == 101  # the CPU run launched nothing
+            assert launched(RA) == 101  # the CPU run launched nothing
             rel_hrbl = per_field_rel(p_gpu, p_cpu)
             assert np.isfinite(p_gpu).all() and max(rel_hrbl) <= 1e-9, rel_hrbl
             assert p_gpu[3].min() < 0.0 and np.abs(p_gpu[5]).max() > 0.0  # inflow, wb written
@@ -4116,7 +4139,7 @@ def main(argv=None):
                 sm = shower(tx, sh, os.path.join(tmp, label), 240, profile)
                 zero_counts(cs, ra)
                 grid, phys = tx.integrate_model(sm, dtype=torch.float32, device="cuda")
-                launches = (cs.launches, ra.launches)
+                launches = launched(CS, RA)
                 assert launches == (sm.num_ts, sm.num_ts + 1) == (240, 241), launches
                 assert phys.shape == (9, 144, 16, 32) and np.isfinite(phys).all()
                 r = sh.readings(phys)
@@ -4182,7 +4205,7 @@ def main(argv=None):
             zero_counts(cs, ra)
             _, p_gpu = tx.integrate_model(zb, dtype=torch.float64, device="cuda",
                                           write_outputs=False)
-            slz_launches = (cs.launches, ra.launches)
+            slz_launches = launched(CS, RA)
             assert slz_launches == (200, 201), slz_launches
             w_abs, u_abs = float(np.abs(p_gpu[5]).max()), float(np.abs(p_gpu[3]).max())
             assert np.isfinite(p_gpu).all() and w_abs < 1e-10 and u_abs < 1e-10, (w_abs, u_abs)
@@ -4197,7 +4220,7 @@ def main(argv=None):
             w2 = wm.williamson2_model(os.path.join(tmp, "williamson2"))
             zero_counts(cs, ra)
             grid, phys = tx.integrate_model(w2, dtype=torch.float64, device="cuda")
-            sl_launches = (cs.launches, ra.launches)
+            sl_launches = launched(CS, RA)
             assert sl_launches == (0, 0), sl_launches
             h2, u2, _ = wm.w2_fields(grid.gridpoints()[:, 0].reshape(grid.spatial_shape))
             l2 = float(np.sqrt(np.mean((phys[0] - h2) ** 2)) / np.sqrt(np.mean(h2**2)))

@@ -17,9 +17,17 @@ import torch
 REGISTRY: dict[str, Callable] = {}
 
 
-def equation_set(name: str | None = None, geometry: str | None = None):
+def equation_set(name: str | None = None, geometry: str | None = None,
+                 condensation: bool = False, implicit_vdiff: bool = False):
+    """Register ``fn`` under ``name`` (its own by default) with what
+    ``model.build_step`` reads of it: the grid ``geometry`` it takes (None:
+    any), whether its step closes with the condensation adjustment, and
+    whether it supports ``options['implicit_vdiff']``."""
+
     def deco(fn):
         fn.geometry = geometry
+        fn.condensation = condensation
+        fn.implicit_vdiff = implicit_vdiff
         REGISTRY[name or fn.__name__] = fn
         return fn
 

@@ -105,7 +105,7 @@ def AdvectionSphere(fields, ctx: EqContext) -> EqResult:
     return EqResult(expdot=stack_tendencies(ctx.grid.nvars, dh.shape, dh.dtype, {0: dh}))
 
 
-@equation_set(geometry="SLZ")
+@equation_set(geometry="SLZ", condensation=True, implicit_vdiff=True)
 def MoistEulerSLZ(fields, ctx: EqContext) -> EqResult:
     """Global 3-D moist compressible core on the SLZ shell: MoistEulerRLZ's
     (s, xi, mu) perturbation thermodynamics, Ooyama warm rain and AI2*

@@ -178,7 +178,7 @@ def Euler_test(fields, ctx: EqContext) -> EqResult:
     )
 
 
-@equation_set(geometry="RZ")
+@equation_set(geometry="RZ", condensation=True)
 def BF02_test(fields, ctx: EqContext) -> EqResult:
     """Bryan & Fritsch-style moist bubble with prognostic supersaturation
     (ref testModels.jl:217-385).  Vars: s xi mu u w mu_l qss."""
@@ -268,7 +268,7 @@ def BF02_test(fields, ctx: EqContext) -> EqResult:
     )
 
 
-@equation_set(geometry="RZ")
+@equation_set(geometry="RZ", condensation=True)
 def rainfall_test(fields, ctx: EqContext) -> EqResult:
     """Full warm-rain benchmark (ref testModels.jl:387-585).
     Vars: s xi mu u w mu_c mu_r qss."""
@@ -379,7 +379,7 @@ def rainfall_test(fields, ctx: EqContext) -> EqResult:
     )
 
 
-@equation_set(geometry="RLZ")
+@equation_set(geometry="RLZ", condensation=True, implicit_vdiff=True)
 def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
     """Full 3-D cylindrical moist compressible Euler core with warm rain:
     the perturbation thermodynamics (s, xi, mu vs a hydrostatic reference
@@ -537,7 +537,7 @@ def MoistEulerRLZ(fields, ctx: EqContext) -> EqResult:
     )
 
 
-@equation_set(geometry="XYZ")
+@equation_set(geometry="XYZ", condensation=True, implicit_vdiff=True)
 def MoistEulerXYZ(fields, ctx: EqContext) -> EqResult:
     """3-D Cartesian-box moist compressible Euler core with warm rain, term
     for term as ``scythe_tpu.equations.test_models.MoistEulerXYZ``: the

@@ -23,12 +23,11 @@ advances on the host.
 * Aliasing: a chunk copies the caller's state into the buffers and returns
   clones of them, so a state kept from an earlier chunk never changes under
   a later replay (five copies a chunk, not a step).
-* Counters: the kernels' launch counts (``ops.column_solve``,
-  ``ops.rlz_analysis``, ``ops.elementwise_probe``, ``ops.condensation``) are
-  Python increments in their wrappers, which a replay does not run.  Their
-  change during the capture is recorded, taken back (the capture launched
-  nothing), and added once a chunk for its replays, so at a chunk's end the
-  counts are the launches that ran.
+* Counters: the kernels' launch counts are ``trace.count`` calls in their
+  wrappers, which a replay does not run.  What the capture's thread counted
+  is held by ``trace.capturing`` (the capture launched nothing) and added
+  once a chunk for its replays, so at a chunk's end the counts are the
+  launches that ran.
 * Tracing (``trace.py``): the span ``graph.capture`` (the warm-up step, the
   capture and the instantiation), the counter ``graph.nodes`` (the
   instantiated graph's nodes) and ``graph.nodes.<stage>``, the nodes each
@@ -56,18 +55,15 @@ import contextlib
 import ctypes
 import functools
 import os
-import sys
 import threading
 import traceback
 
 import torch
 
 from . import trace
+from .device import traced_reason
 
 STARTUP_STEPS = 2  # t = 1 and t = 2 branch on the host t: always eager
-_COUNTED = ("scythe_tpu_torch.ops.column_solve", "scythe_tpu_torch.ops.rlz_analysis",
-            "scythe_tpu_torch.ops.elementwise_probe", "scythe_tpu_torch.ops.condensation")
-_PACKS = ("scythe_tpu_torch.ops.rlz_analysis", "packs")  # must not move under capture
 _LOCK = threading.Lock()
 _disabled = 0
 _TORCH = os.path.dirname(torch.__file__)
@@ -113,40 +109,6 @@ def eager_reason(step, state) -> str | None:
     if not all(isinstance(t, torch.Tensor) for t in tensors):
         return "the state is not made of tensors"
     return traced_reason(tensors)
-
-
-def traced_reason(tensors) -> str | None:
-    """Why autograd or a functorch transform has to see the ops on
-    ``tensors`` one by one, or None: ``scan``'s two input checks, which the
-    condensation adjustment's dispatch makes too."""
-    if torch._C._functorch.peek_interpreter_stack() is not None:
-        return "inside a functorch transform"
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return "an input requires grad"
-    return None
-
-
-def launch_counts() -> dict:
-    """{(module, name): count} of every kernel launch counter."""
-    out = {}
-    for name in _COUNTED:
-        mod = sys.modules.get(name)
-        if mod is None:
-            continue
-        for k, v in vars(mod).items():
-            if (k.endswith("launches") or (name, k) == _PACKS) and type(v) is int:
-                out[(name, k)] = v
-    return out
-
-
-def add_counts(delta: dict, times: int = 1):
-    """Add ``times`` x ``delta`` to the counters, each under its module's lock."""
-    for (name, k), d in delta.items():
-        if not d or not times:
-            continue
-        mod = sys.modules[name]
-        with mod._COUNT_LOCK:
-            setattr(mod, k, getattr(mod, k) + times * d)
 
 
 @functools.cache
@@ -275,7 +237,7 @@ def _where(exc: BaseException) -> str:
 
 class CapturedStep:
     """One captured steady step of ``step`` on states of one layout: the
-    static buffers, the replay, the counters' change a replay stands for,
+    static buffers, the replay, the counts a replay stands for (``counts``),
     and the graph's nodes (``nodes``, None where the capture primitive
     cannot count them) and nodes by stage (``stage_nodes``).  Made by
     ``scan`` from the first steady state it meets, which it advances by one
@@ -297,7 +259,6 @@ class CapturedStep:
         with trace.span("graph.capture"):
             # the warm-up: the first steady step, eagerly, on the card's side stream
             capture.warm(body, device)
-            before = launch_counts()
             try:
                 with trace.capturing(getattr(capture, "nodes_now", None), device) as staged:
                     self.replay = capture.capture(body, device, self.buffers)
@@ -309,15 +270,7 @@ class CapturedStep:
                 raise GraphCaptureError(
                     f"the steady step cannot be captured: {_where(root)}: "
                     f"{type(root).__name__}: {msg}") from e
-            finally:
-                after = launch_counts()
-                self.delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
-                add_counts(self.delta, -1)  # the capture launched nothing
-        if self.delta.get(_PACKS):
-            raise GraphCaptureError(
-                "the compensated analysis packed its operators inside the capture: a "
-                "first-use cost the warm-up step should have paid")
-        self.delta.pop(_PACKS, None)
+        self.counts = staged.counts
         count = getattr(capture, "graph_nodes", None)
         self.nodes = count(self.replay) if count else None
         self.stage_nodes = staged.nodes
@@ -335,7 +288,9 @@ class CapturedStep:
     def run(self, n: int):
         for _ in range(n):
             self.replay()
-        add_counts(self.delta, n)
+        if n:
+            for name, c in self.counts.items():
+                trace.count(name, n * c)
         self.replays += n
         if self.stage_events:
             self._timed_replays += n

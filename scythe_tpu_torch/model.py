@@ -63,14 +63,6 @@ from .physics import thermodynamics as td
 
 log = logging.getLogger("scythe_tpu_torch")
 
-_NEEDS_CONDENSATION = (
-    "BF02_test",
-    "rainfall_test",
-    "MoistEulerRLZ",
-    "MoistEulerXYZ",
-    "MoistEulerSLZ",
-)
-
 
 def build_context(model: ModelParameters, grid: Grid, dtype) -> EqContext:
     ref = rsmod.build_reference_state(model, grid, dtype)
@@ -400,7 +392,6 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype,
         )
     p = grid.params
     semiimplicit = bool(opts.get("semiimplicit"))
-    needs_condensation = model.equation_set in _NEEDS_CONDENSATION
     si_ops = None
     if semiimplicit:
         if ctx.ref_state is None:
@@ -507,7 +498,7 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype,
 
     vdiff_apply = None
     if opts.get("implicit_vdiff"):
-        if model.equation_set not in ("MoistEulerRLZ", "MoistEulerXYZ", "MoistEulerSLZ"):
+        if not eqset.implicit_vdiff:
             raise ValueError(
                 "options['implicit_vdiff'] is supported by the MoistEuler* "
                 f"equation sets, not {model.equation_set!r}"
@@ -581,7 +572,7 @@ def build_step(model: ModelParameters, grid: Grid, ctx: EqContext, dtype,
             if vdiff_apply is not None:
                 var_np1 = vdiff_apply(var_np1, res.k_v, ts)
         with trace.stage("condensation"):
-            if needs_condensation:
+            if eqset.condensation:
                 var_np1 = mp.condensation_adjustment(var_np1, impdot, ctx)
         with trace.stage("analysis"):
             if incremental:

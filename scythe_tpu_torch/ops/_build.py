@@ -3,9 +3,12 @@
 ``load()`` compiles every ``ops/csrc/*.cu`` with nvcc for Hopper (sm_90a),
 one nvcc per source, all started together, and links the objects into one
 shared library with a plain C interface under ``scythe_tpu_torch/_build/``,
-keyed by a hash of the sources and flags; it loads it with ctypes.  Nothing
-is built when the package is imported: the CPU path never needs nvcc.  A
-failed build raises with nvcc's output.
+keyed by a hash of the sources and flags; it loads it with ctypes and
+declares ``scythe_cuda_error_string``, the one entry point every kernel
+shares.  Each ops module declares its own kernels' entry points beside the
+calls whose argument order they describe.  Nothing is built when the
+package is imported: the CPU path never needs nvcc.  A failed build raises
+with nvcc's output.
 
 ``load_host()`` compiles the host code, ``ops/csrc/*.cpp`` (the CSV
 writer), with the host C++ compiler into a library of its own in the same
@@ -65,50 +68,8 @@ def _nvcc() -> str:
     return found
 
 
-# scythe_column_solve_f32 / _f64: x, w, packed M, w_out, xi_out; ncols nz;
-# the plan (ops/column_solve.py plan): RG KSLAB ST, threads, smem, blocks; stream
-COLUMN_SOLVE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-# scythe_column_solve_comp: the same but its plan (ops/column_solve.py
-# plan_comp): SPAN NSPLIT RG NTW, threads, smem, blocks
-COLUMN_SOLVE_COMP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-
-
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("scythe_column_solve_f32", "scythe_column_solve_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = COLUMN_SOLVE_ARGTYPES
-        fn.restype = i32
-    lib.scythe_column_solve_comp.argtypes = COLUMN_SOLVE_COMP_ARGTYPES
-    lib.scythe_column_solve_comp.restype = i32
-    for name in ("scythe_rlz_analysis_f32", "scythe_rlz_analysis_f64"):
-        fn = getattr(lib, name)
-        # x, l_analysis, ring_mask, analysis_r, analysis_z, out; V R L Z B;
-        # the plan (ops/rlz_analysis.py): KT BT C RC LC ZC ST, threads, smem
-        fn.argtypes = [ptr] * 6 + [i32] * 5 + [i32] * 9 + [ptr]
-        fn.restype = i32
-    # the comp mode: x, the packed l_analysis, ring_mask, the packed
-    # analysis_r and analysis_z, out; V R L Z B and the packed operators'
-    # variables; the comp plan: KT BT C RC RP LC ST, threads, smem
-    lib.scythe_rlz_analysis_comp.argtypes = [ptr] * 6 + [i32] * 6 + [i32] * 9 + [ptr, ptr]
-    lib.scythe_rlz_analysis_comp.restype = i32
-    for name in ("scythe_condensation_f32", "scythe_condensation_f64"):
-        fn = getattr(lib, name)
-        # var, sbar, xibar, mubar; their three row strides; npts, inner and
-        # var's two outer strides, nz; the rows s xi mu cloud mu_r qss;
-        # diagnostic, quirks, has_tau; tau_r, cap, factor; blocks, threads;
-        # stream
-        fn.argtypes = ([ptr] * 4 + [i32] * 3 + [i32] * 5 + [i32] * 6 + [i32] * 3
-                       + [ctypes.c_double] * 3 + [i32] * 2 + [ptr])
-        fn.restype = i32
-    for name in (
-        "scythe_column_solve_max_nz",
-        "scythe_rlz_analysis_max_nz",
-        "scythe_rlz_analysis_max_nl",
-    ):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = i32
-    lib.scythe_cuda_error_string.argtypes = [i32]
+    lib.scythe_cuda_error_string.argtypes = [ctypes.c_int]
     lib.scythe_cuda_error_string.restype = ctypes.c_char_p
 
 

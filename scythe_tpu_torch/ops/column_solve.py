@@ -60,21 +60,26 @@ launches the kernel or raises.  Both wrappers go through ``ColumnSolveFn``,
 a ``torch.autograd.Function`` whose backward is the same kernel on M^T
 (``ColumnOperator.packed_T``), whose jvp is the kernel on the tangents and
 whose vmap folds members into the columns; a comp operator takes the comp
-kernel in each.  ``launches`` counts the plain kernel's launches with M,
-``backward_launches`` those with M^T; ``comp_launches`` and
-``comp_backward_launches`` the comp kernel's.
+kernel in each.  Each launch adds 1 to a ``trace`` counter:
+``column_solve.launches`` the plain kernel's with M,
+``column_solve.backward_launches`` those with M^T,
+``column_solve.comp_launches`` and ``column_solve.comp_backward_launches``
+the comp kernel's.  ``library`` declares the library's entry points, beside
+the call whose argument order they describe.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
-import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
+from ._build import load
 from .bf16x3 import comp_einsum, split_op
 
 # largest nz the kernel takes (column_solve.cu kMaxNz): beyond what fits
@@ -105,14 +110,6 @@ MODES = ("plain", "comp")
 COMP_MAX_THREADS = 512  # a block (its launch bounds: 128 registers a thread)
 COMP_MAX_REGS = 128
 COMP_MAX_RG = 8  # row groups a block
-
-launches = 0  # forward (and jvp) launches: the operator M
-backward_launches = 0  # backward launches: M^T
-comp_launches = 0  # the same two counts of the comp kernel
-comp_backward_launches = 0
-# shards running as threads launch at once: a count is read, added and
-# written back under this lock, so none is lost
-_COUNT_LOCK = threading.Lock()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -503,13 +500,32 @@ def _check(xstar, wstar, ops, side) -> tuple[int, int]:
     return ncols, nz
 
 
+# scythe_column_solve_f32 / _f64: x, w, packed M, w_out, xi_out; ncols nz;
+# the plan (plan): RG KSLAB ST, threads, smem, blocks; stream
+COLUMN_SOLVE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# scythe_column_solve_comp: the same but its plan (plan_comp): SPAN NSPLIT
+# RG NTW, threads, smem, blocks
+COLUMN_SOLVE_COMP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library with this module's entry points declared; each
+    returns 0 or an error code (``PLAN_ERRORS``, else a cudaError_t)."""
+    lib = load().lib
+    for name, argtypes in (("scythe_column_solve_f32", COLUMN_SOLVE_ARGTYPES),
+                           ("scythe_column_solve_f64", COLUMN_SOLVE_ARGTYPES),
+                           ("scythe_column_solve_comp", COLUMN_SOLVE_COMP_ARGTYPES),
+                           ("scythe_column_solve_max_nz", [])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
 def _launch(xstar, wstar, packed, transposed=False, comp=False):
     """One kernel launch: [out1 | out2] = [xstar | wstar] A^T for the
     operator A whose packing is ``packed`` (M forward, M^T backward); the
     comp kernel for a comp operator."""
-    global launches, backward_launches, comp_launches, comp_backward_launches
-    from ._build import load
-
     if packed is None:
         raise ValueError(
             "the column solve's backward needs the operator's packed transpose "
@@ -531,7 +547,7 @@ def _launch(xstar, wstar, packed, transposed=False, comp=False):
             f"{want_dtype} {list(want)}; got {packed.dtype} {list(packed.shape)} on "
             f"{packed.device}"
         )
-    lib = load().lib
+    lib = library()
     if comp:
         p = plan_comp(ncols, nz)
         fn = lib.scythe_column_solve_comp
@@ -552,16 +568,8 @@ def _launch(xstar, wstar, packed, transposed=False, comp=False):
     if err != 0:
         msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
         raise RuntimeError(f"column_solve kernel launch failed: {msg} ({err}); {p}")
-    with _COUNT_LOCK:
-        if comp:
-            if transposed:
-                comp_backward_launches += 1
-            else:
-                comp_launches += 1
-        elif transposed:
-            backward_launches += 1
-        else:
-            launches += 1
+    kind = ("comp_" if comp else "") + ("backward_launches" if transposed else "launches")
+    trace.count(f"column_solve.{kind}", 1)
     return w_out, xi_out
 
 
@@ -574,7 +582,7 @@ class ColumnSolveFn(torch.autograd.Function):
     * backward: the map is linear, so the cotangents of (out1, out2) times A
       are those of (a, b): the same Function with A^T (``packed_T`` on the
       card; on the CPU the view M.T), one more kernel launch, counted in
-      ``backward_launches``;
+      ``column_solve.backward_launches``;
     * jvp: the same launch on the tangents;
     * vmap: the batch is folded into the columns, one launch for all members.
 

@@ -20,28 +20,32 @@ by its transcendentals' latency (one point a thread), far from the bytes.
 
 Everything that varies by configuration is a scalar of ``Params``, which
 ``microphysics.condensation_params`` reads once from the context for both
-paths.  ``condensation_adjustment`` takes the plain chain for a CPU tensor
-and the kernel for a CUDA tensor: in place where neither autograd nor a
-functorch transform sees the call, otherwise through ``CondensationFn``,
-out of place, whose backward and jvp differentiate the plain chain and
-whose vmap rule folds the members into one launch.  ``launches`` counts the
-kernel's launches, ``plain_launches`` the plain chain's runs on a CUDA
-tensor (the rules' recomputes); ``graphs`` reads both.
+paths.  ``condensation_adjustment``, the step's call, takes the plain chain
+(``microphysics.condensation_adjustment_plain``) for a CPU tensor and the
+kernel for a CUDA tensor: in place where neither autograd nor a functorch
+transform sees the call, otherwise through ``CondensationFn``, out of place,
+whose backward and jvp differentiate the plain chain and whose vmap rule
+folds the members into one launch.  Each launch adds 1 to the ``trace``
+counter ``condensation.launches``, each run of the plain chain on a CUDA
+tensor (the rules' recomputes) to ``condensation.plain_launches``.
+``library`` declares the kernel's entry points, beside the call whose
+argument order they describe.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-import threading
 from dataclasses import dataclass
 
 import torch
 
-THREADS = 128  # threads a block, one point a thread
+from .. import trace
+from ..device import traced_reason
+from ._build import load
 
-launches = 0  # kernel launches
-plain_launches = 0  # runs of the plain chain on a CUDA tensor (CondensationFn's rules)
-_COUNT_LOCK = threading.Lock()
+THREADS = 128  # threads a block, one point a thread
 
 
 @dataclass(frozen=True)
@@ -116,17 +120,32 @@ def _check(var, refs, prm: Params) -> tuple[int, int, int]:
     return npts, inner, nz
 
 
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library with this module's entry points declared; each
+    returns 0 or a cudaError_t."""
+    lib = load().lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("scythe_condensation_f32", "scythe_condensation_f64"):
+        fn = getattr(lib, name)
+        # var, sbar, xibar, mubar; their three row strides; npts, inner and
+        # var's two outer strides, nz; the rows s xi mu cloud mu_r qss;
+        # diagnostic, quirks, has_tau; tau_r, cap, factor; blocks, threads;
+        # stream
+        fn.argtypes = ([ptr] * 4 + [i32] * 3 + [i32] * 5 + [i32] * 6 + [i32] * 3
+                       + [ctypes.c_double] * 3 + [i32] * 2 + [ptr])
+        fn.restype = i32
+    return lib
+
+
 def condensation_adjust(var, sbar, xibar, mubar, prm: Params):
     """The adjustment of ``var`` [nvars, *spatial] (z last, in a layout
     ``takes_layout`` accepts, on a CUDA device) by the kernel, in place in
     its s, mu and cloud rows; the reference columns are read at [:, 0].
     Returns ``var``; raises on what the kernel does not take."""
-    global launches
-    from ._build import load
-
     refs = (sbar, xibar, mubar)
     npts, inner, nz = _check(var, refs, prm)
-    lib = load().lib
+    lib = library()
     fn = lib.scythe_condensation_f32 if var.dtype == torch.float32 else (
         lib.scythe_condensation_f64)
     blocks = -(-npts // THREADS)
@@ -144,21 +163,33 @@ def condensation_adjust(var, sbar, xibar, mubar, prm: Params):
     if err != 0:
         msg = lib.scythe_cuda_error_string(err).decode()
         raise RuntimeError(f"condensation kernel launch failed: {msg} ({err})")
-    with _COUNT_LOCK:
-        launches += 1
+    trace.count("condensation.launches", 1)
     return var
 
 
 def _plain(var, sbar, xibar, mubar, prm):
     """The plain chain, which the rules below differentiate; a run on a CUDA
-    tensor is counted in ``plain_launches``."""
-    global plain_launches
+    tensor is counted in ``condensation.plain_launches``."""
     from ..physics.microphysics import condensation_adjustment_plain
 
     if var.is_cuda:
-        with _COUNT_LOCK:
-            plain_launches += 1
+        trace.count("condensation.plain_launches", 1)
     return condensation_adjustment_plain(var, sbar, xibar, mubar, prm)
+
+
+def condensation_adjustment(var, sbar, xibar, mubar, prm: Params):
+    """The adjustment of ``var`` [nvars, *spatial] (z last) with the
+    reference columns sbar, xibar, mubar [nz, k] (read at [:, 0]): on the
+    CPU the plain chain, into a new tensor; on a CUDA device the kernel, in
+    place in ``var``'s own rows, which it returns, where neither autograd nor
+    a functorch transform sees the call, otherwise through
+    ``CondensationFn``, out of place."""
+    refs = (sbar, xibar, mubar)
+    if not var.is_cuda:
+        return _plain(var, *refs, prm)
+    if traced_reason((var, *refs)) is None:
+        return condensation_adjust(var, *refs, prm)
+    return CondensationFn.apply(var, *refs, prm)
 
 
 class CondensationFn(torch.autograd.Function):
@@ -174,7 +205,7 @@ class CondensationFn(torch.autograd.Function):
       spatial axes after it, z last), one launch for all members.
 
     On the card the rules' recomputes are the only runs of the plain chain
-    (``plain_launches``): the forward is always the kernel."""
+    (``condensation.plain_launches``): the forward is always the kernel."""
 
     generate_vmap_rule = False
 

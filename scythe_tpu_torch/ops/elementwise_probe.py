@@ -23,7 +23,8 @@ libdevice.
 
 The wrapper ``probe_expr`` takes the plain version for tensors on the CPU
 and launches the Triton kernel for tensors on a CUDA device; there is no
-fallback between the two.  ``launches`` counts kernel launches only.
+fallback between the two.  Each kernel launch adds 1 to the ``trace``
+counter ``elementwise_probe.launches``.
 Triton is imported, and its cache pointed into ``scythe_tpu_torch/_build``,
 only when the kernel is first launched.
 
@@ -36,11 +37,11 @@ import functools
 
 import torch
 
+from .. import trace
+
 K = 10.0  # the probe's diffusivity
 SHAPE = (9, 144, 3072)  # [V, R, L x Z] of moist3d (64 x 48)
 BLOCK = 1024
-
-launches = 0
 
 
 def probe_expr_plain(val, dr, drr, dl, dll, dz, dzz, rinv):
@@ -110,7 +111,6 @@ def _check(args):
 
 
 def _launch(args, V, R, LZ):
-    global launches
     if args[0].dtype != torch.float32:
         raise ValueError(f"the probe kernel takes float32, got {args[0].dtype}")
     if not all(t.is_contiguous() for t in args):
@@ -121,7 +121,7 @@ def _launch(args, V, R, LZ):
         kernel[(R, triton.cdiv(LZ, BLOCK))](
             *args, out, R, LZ, K, V=V, BLOCK=BLOCK, num_warps=8,
         )
-    launches += 1
+    trace.count("elementwise_probe.launches", 1)
     return out
 
 

@@ -30,20 +30,26 @@ folds members into V (one launch), its backward the transposed chain as
 einsums (the JAX package has no backward kernel either; in comp mode
 the transposed chain of the operators O_hi + O_lo in f32, where the JAX
 package's gradient through its compensated ``_mm`` rounds the cotangents to
-bf16).  ``launches`` counts plain-mode kernel launches, ``comp_launches``
-comp-mode ones.
+bf16).  Each launch adds 1 to a ``trace`` counter, ``rlz_analysis.launches``
+in plain mode and ``rlz_analysis.comp_launches`` in comp mode, and each
+packing of the comp operators to ``rlz_analysis.packs``; a packing inside a
+CUDA graph capture raises (a first-use cost the warm-up step should have
+paid).  ``library`` declares the library's entry points, beside the calls
+whose argument order they describe.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
-import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
+from .. import trace
+from ._build import load
 from .bf16x3 import comp_einsum
 
 # the kernel's limits (rlz_analysis.cu): nz as the column solve's, nl as the
@@ -79,12 +85,6 @@ PLAN_ERRORS = {
 }
 
 MODES = ("plain", "comp")
-
-launches = 0  # plain-mode launches
-comp_launches = 0  # comp-mode launches
-# shards running as threads launch at once: a count is read, added and
-# written back under this lock, so none is lost
-_COUNT_LOCK = threading.Lock()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -531,9 +531,6 @@ def pack_comp_operators(l_analysis, analysis_r, analysis_z) -> CompOperators:
                          int(analysis_r.shape[1]))
 
 
-packs = 0  # pack_comp_operators calls made by comp_operators
-
-
 def _versions(*ts):
     return tuple(t._version for t in ts)
 
@@ -541,17 +538,20 @@ def _versions(*ts):
 def comp_operators(l_analysis, analysis_r, analysis_z) -> CompOperators:
     """The packed form of a compensated grid's operators, made once: it is
     kept on the analysis_r tensor with the operators it was made from and
-    their versions, and made again only if one of them changed."""
-    global packs
+    their versions, and made again only if one of them changed; raises
+    where it would be made inside a CUDA graph capture."""
     kept = getattr(analysis_r, "_rlz_comp_packed", None)
     if kept is not None:
         la, az, versions, packed = kept
         if (la is l_analysis and az is analysis_z
                 and versions == _versions(l_analysis, analysis_r, analysis_z)):
             return packed
+    if analysis_r.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the compensated analysis packs its operators inside the capture: a "
+            "first-use cost the warm-up step should have paid")
     packed = pack_comp_operators(l_analysis, analysis_r, analysis_z)
-    with _COUNT_LOCK:
-        packs += 1
+    trace.count("rlz_analysis.packs", 1)
     _keep(analysis_r, l_analysis, analysis_z, packed)
     return packed
 
@@ -595,10 +595,33 @@ def _check(phys, ops, mode="plain") -> tuple[int, int, int, int, int]:
     return V, R, L, Z, B
 
 
-def _launch(phys, ops, shape, mode):
-    global launches, comp_launches
-    from ._build import load
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library with this module's entry points declared; a
+    launch returns 0 or an error code (``PLAN_ERRORS``, else a
+    cudaError_t)."""
+    lib = load().lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # x, l_analysis, ring_mask, analysis_r, analysis_z, out; V R L Z B; the
+    # plan: KT BT C RC LC ZC ST, threads, smem; stream
+    plain = [ptr] * 6 + [i32] * 5 + [i32] * 9 + [ptr]
+    # the comp mode: x, the packed l_analysis, ring_mask, the packed
+    # analysis_r and analysis_z, out; V R L Z B and the packed operators'
+    # variables; the comp plan: KT BT C RC RP LC ST, threads, smem; stream,
+    # and the clock marks' buffer (None but in
+    # tools/torch_comp_analysis_check.py --profile)
+    comp = [ptr] * 6 + [i32] * 6 + [i32] * 9 + [ptr, ptr]
+    for name, argtypes in (("scythe_rlz_analysis_f32", plain),
+                           ("scythe_rlz_analysis_f64", plain),
+                           ("scythe_rlz_analysis_comp", comp),
+                           ("scythe_rlz_analysis_max_nz", []),
+                           ("scythe_rlz_analysis_max_nl", [])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, i32
+    return lib
 
+
+def _launch(phys, ops, shape, mode):
     V, R, L, Z, B = shape
     if not 1 <= Z <= MAX_NZ or not 1 <= L <= MAX_NL:
         raise ValueError(
@@ -617,7 +640,7 @@ def _launch(phys, ops, shape, mode):
         if not t.is_contiguous():
             raise ValueError("the rlz_analysis kernel needs contiguous tensors")
     p = plan(phys.shape, B, phys.dtype, mode)
-    lib = load().lib
+    lib = library()
     out = torch.empty((V, B, L, Z), dtype=phys.dtype, device=phys.device)
     ptrs = (phys.data_ptr(), *(o.data_ptr() for o in ops), out.data_ptr())
     with torch.cuda.device(phys.device):
@@ -635,11 +658,7 @@ def _launch(phys, ops, shape, mode):
     if err != 0:
         msg = PLAN_ERRORS.get(err) or lib.scythe_cuda_error_string(err).decode()
         raise RuntimeError(f"rlz_analysis kernel launch failed: {msg} ({err}); {p}")
-    with _COUNT_LOCK:
-        if mode == "comp":
-            comp_launches += 1
-        else:
-            launches += 1
+    trace.count(f"rlz_analysis.{'comp_' if mode == 'comp' else ''}launches", 1)
     return out
 
 

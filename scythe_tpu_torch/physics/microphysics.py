@@ -13,7 +13,6 @@ import math
 import numpy as np
 import torch
 
-from .. import graphs
 from ..ops import condensation as cond_ops
 from . import thermodynamics as td
 
@@ -211,20 +210,14 @@ def condensation_adjustment(var_np1, impdot_n, ctx):
 
     ``var_np1``: [nvars, *spatial] with z last; uses vars s, xi, mu, mu_c
     (or mu_l), mu_r (optional), qss.  Returns the state with the s, mu and
-    cloud rows adjusted and the others as they were.  On the CPU the plain
-    chain returns a new tensor.  On a CUDA device the kernel of
-    ``ops/condensation.py`` runs: in place in ``var_np1``'s own rows, which
-    it returns, where neither autograd nor a functorch transform sees the
-    call; otherwise through ``CondensationFn``, out of place.
+    cloud rows adjusted and the others as they were, by
+    ``ops.condensation.condensation_adjustment``: the plain chain below on
+    the CPU, the kernel on a CUDA device (in place where neither autograd
+    nor a functorch transform sees the call).
     """
-    prm = condensation_params(ctx)
     rs = ctx.ref_state
-    refs = (rs.sbar, rs.xibar, rs.mubar)
-    if not var_np1.is_cuda:
-        return condensation_adjustment_plain(var_np1, *refs, prm)
-    if graphs.traced_reason((var_np1, *refs)) is None:
-        return cond_ops.condensation_adjust(var_np1, *refs, prm)
-    return cond_ops.CondensationFn.apply(var_np1, *refs, prm)
+    return cond_ops.condensation_adjustment(var_np1, rs.sbar, rs.xibar, rs.mubar,
+                                            condensation_params(ctx))
 
 
 def condensation_adjustment_plain(var_np1, sbar, xibar, mubar, prm):

@@ -11,7 +11,12 @@ inside an output interval.
   it adds its duration to the registry (count, total, max) and stamps its
   start on the clock the profiler's events use (``time.time_ns``).
 * ``count(name, n)``: adds ``n`` to a counter (its total, and the number of
-  adds, so a counter has a mean too).
+  adds, so a counter has a mean too).  The kernels' wrappers count their
+  launches so (``<module>.<counter>``: ``column_solve.launches``,
+  ``rlz_analysis.packs``, ``condensation.plain_launches``, ...).  Inside
+  ``capturing`` an add on the capturing thread is held on the capture, not
+  added: a capture launches nothing, and each replay of the graph stands for
+  what the capture held (``graphs.CapturedStep.run`` adds it).
 * ``stage(name)``: a stage of the model's step (``model.build_step``;
   ``graphs._write_back`` is ``copies``), or a part of one named on its own
   (``SUBSTAGES``: an equation set's ``hyperdiffusion`` refit inside
@@ -28,9 +33,7 @@ Every span and counter adds to the process's record (``process()``: the
 captures, the kernels' build) and to the open run record: ``model.run_loop``
 opens one a call (``run()``), and ``last_run()`` is the latest call's spans
 and counters alone.  Adds take one lock: sharded steps run their shards as
-threads.  The kernels' launch counters stay ints in their modules
-(``ops.column_solve``, ``ops.rlz_analysis``, ``ops.elementwise_probe``);
-``process()`` reads them through ``graphs.launch_counts``.
+threads.  This module imports nothing of the package.
 """
 
 from __future__ import annotations
@@ -141,7 +144,11 @@ class span:
 
 
 def count(name: str, n) -> None:
-    _add("counters", name, n)
+    cap = getattr(_tls, "capture", None)
+    if cap is not None:
+        cap.counts[name] = cap.counts.get(name, 0) + n
+    else:
+        _add("counters", name, n)
 
 
 @contextlib.contextmanager
@@ -165,15 +172,9 @@ def last_run() -> Record:
 
 
 def process() -> Record:
-    """A copy of the process's record, with the kernels' launch counters
-    (``<module>.<counter>``, e.g. ``column_solve.launches``)."""
-    from . import graphs
-
+    """A copy of the process's record."""
     with _LOCK:
-        rec = _process.copy()
-    for (mod, k), v in graphs.launch_counts().items():
-        rec.counters[f"{mod.rsplit('.', 1)[1]}.{k}"] = Stat(1, v, v)
-    return rec
+        return _process.copy()
 
 
 # ---------------------------------------------------------------- stages
@@ -201,13 +202,15 @@ class _Capture:
     nodes: dict = field(default_factory=dict)  # {stage: nodes it added}
     events: list = field(default_factory=list)  # [(stage, start, end)], a stage's segments
     open: list = field(default_factory=list)  # the stages entered and not left, outermost first
+    counts: dict = field(default_factory=dict)  # {counter: what the capture's adds held}
 
 
 @contextlib.contextmanager
 def capturing(nodes_now, device):
     """Within, in this thread: the stage markers count the nodes each adds
     (``nodes_now()`` before and after it) and, with ``stage_times`` on and a
-    card, record their events.  Yields the ``_Capture``."""
+    card, record their events; counter adds are held in ``counts``.  Yields
+    the ``_Capture``."""
     cap = _Capture(nodes_now, bool(_stage_times) and torch.device(device).type == "cuda")
     prev = getattr(_tls, "capture", None)
     _tls.capture = cap

@@ -35,6 +35,7 @@ import torch
 from scythe_tpu import timeintegration as jti
 from scythe_tpu.ops.pallas_semiimplicit import fused_column_solve as pallas_solve
 from scythe_tpu_torch import timeintegration as tti
+from scythe_tpu_torch import trace
 from scythe_tpu_torch.ops import column_solve
 from scythe_tpu_torch.ops.bf16x3 import bf16_round
 
@@ -114,10 +115,10 @@ def test_wrapper_on_cpu_takes_plain_and_counts_nothing():
     x = torch.from_numpy(rng.normal(size=(37, 24)))
     w = torch.from_numpy(rng.normal(size=(37, 24)))
     ops = (ot.col_filter, ot.col_deriv, ot.hinv, ot.synth, ot.dsynth)
-    before = column_solve.launches
+    before = trace.process().total("column_solve.launches") or 0
     got = column_solve.fused_column_solve(x, w, *ops, 0.125, 1.0e5, mode="plain")
     ref = column_solve.fused_column_solve_plain(x, w, *ops, 0.125, 1.0e5)
-    assert column_solve.launches == before
+    assert (trace.process().total("column_solve.launches") or 0) == before
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -125,10 +126,10 @@ def test_wrapper_on_cpu_takes_plain_and_counts_nothing():
 def test_apply_operator_on_cpu_takes_plain_and_counts_nothing():
     _, ot = _ops(24, 0.1, 1.0e5, zmax=1000.0)
     x, w = _columns(37, 24, 1)
-    before = column_solve.launches
+    before = trace.process().total("column_solve.launches") or 0
     got = column_solve.apply_column_operator(x, w, ot.solve)
     ref = torch.cat([x, w], dim=1) @ ot.solve.M.T
-    assert column_solve.launches == before
+    assert (trace.process().total("column_solve.launches") or 0) == before
     assert torch.equal(got[0], ref[:, :24]) and torch.equal(got[1], ref[:, 24:])
     assert got[0].is_contiguous() and got[1].is_contiguous()
 
@@ -549,10 +550,11 @@ def test_comp_matches_pallas_comp_interpret(nz, ncols, stage):
         jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), oj.col_filter, oj.col_deriv, hj,
         oj.synth, oj.dsynth, ts_term, pxi, interpret=True, mode="comp")
     ops = (ot.col_filter, ot.col_deriv, ht, ot.synth, ot.dsynth)
-    before = column_solve.comp_launches
+    before = trace.process().total("column_solve.comp_launches") or 0
     got = column_solve.fused_column_solve(x.float(), w.float(), *(o.float() for o in ops),
                                           ts_term, pxi)
-    assert column_solve.comp_launches == before  # the CPU takes the plain version
+    # the CPU takes the plain version
+    assert (trace.process().total("column_solve.comp_launches") or 0) == before
     ref = column_solve.fused_column_solve_plain(x, w, *ops, ts_term, pxi)
     for g, k, r in zip(got, (wk, xk), ref):
         k = np.asarray(k)
@@ -789,9 +791,10 @@ def test_use_pallas_adjustment_matches_pallas_comp_interpret(monkeypatch, nz, nc
     args = _adjust_args(nz, ncols, nz + t)
     wj, xj = jti.semiimplicit_adjustment(oj, *(jnp.asarray(a, jnp.float32) for a in args),
                                          jnp.asarray(t))
-    before = column_solve.comp_launches
+    before = trace.process().total("column_solve.comp_launches") or 0
     got = tti.semiimplicit_adjustment(ot, *(torch.from_numpy(a).float() for a in args), t)
-    assert column_solve.comp_launches == before  # the CPU takes the plain version
+    # the CPU takes the plain version
+    assert (trace.process().total("column_solve.comp_launches") or 0) == before
     ref = tti.semiimplicit_adjustment(o64, *map(torch.from_numpy, args), t)
     plain32 = tti.build_semiimplicit_ops(nz, 0.0, 10000.0, None, pxi, ts, torch.float32,
                                          "cpu")

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from scythe_tpu_torch import trace
 from scythe_tpu_torch.equations.common import EqContext
 from scythe_tpu_torch.examples.tc_intensification_rlz import ZTOP, jordan_sounding
 from scythe_tpu_torch.ops import condensation as cond_ops
@@ -111,6 +112,18 @@ def _edges(ctx, seed):
     return var
 
 
+def _launched():
+    """(kernel launches, plain-chain runs on the card) so far (``trace``)."""
+    rec = trace.process()
+    return (rec.total("condensation.launches") or 0,
+            rec.total("condensation.plain_launches") or 0)
+
+
+def _since(start):
+    """``_launched()`` less ``start``."""
+    return tuple(now - then for now, then in zip(_launched(), start))
+
+
 def _both(var64, ctx, dtype, layout="step"):
     """(kernel, plain, input) of the same input in ``dtype`` on the card, as
     float64 on the host; the kernel through the dispatch, which must take it
@@ -122,10 +135,10 @@ def _both(var64, ctx, dtype, layout="step"):
     plain = mp.condensation_adjustment_plain(var, *_refs(ctx), mp.condensation_params(ctx))
     work = var.clone()
     assert work.stride() == var.stride() and cond_ops.takes_layout(work)
-    n0, p0 = cond_ops.launches, cond_ops.plain_launches
+    start = _launched()
     out = mp.condensation_adjustment(work, None, ctx)
     assert out is work  # in place
-    assert (cond_ops.launches - n0, cond_ops.plain_launches - p0) == (1, 0)
+    assert _since(start) == (1, 0)
     torch.cuda.synchronize()
     for v, name in enumerate(NAMES):
         if name not in OUT_ROWS:
@@ -213,26 +226,26 @@ def test_the_function_on_the_card(card, sounding, rule):
     adjust = mp.condensation_adjustment
     rng = torch.Generator(device="cuda").manual_seed(4)
     t = torch.randn(var.shape, dtype=var.dtype, device="cuda", generator=rng)
-    n0, p0 = cond_ops.launches, cond_ops.plain_launches
+    start = _launched()
     if rule == "grad":
         leaf = var.clone().requires_grad_(True)
         out = adjust(leaf, None, ctx)
         assert out is not leaf and torch.equal(leaf.detach(), var)
-        assert (cond_ops.launches - n0, cond_ops.plain_launches - p0) == (1, 0)
+        assert _since(start) == (1, 0)
         (got,) = torch.autograd.grad(out, leaf, t)
-        assert cond_ops.plain_launches - p0 == 1
+        assert _since(start)[1] == 1
         leaf2 = var.clone().requires_grad_(True)
         (want,) = torch.autograd.grad(plain(leaf2, *refs, prm), leaf2, t)
         outs = [(out.detach(), plain(var, *refs, prm), F64_REL), (got, want, 1e-12)]
     elif rule == "jvp":
         out, got = torch.func.jvp(lambda v: adjust(v, None, ctx), (var,), (t,))
-        assert (cond_ops.launches - n0, cond_ops.plain_launches - p0) == (1, 1)
+        assert _since(start) == (1, 1)
         want_out, want = torch.func.jvp(lambda v: plain(v, *refs, prm), (var,), (t,))
         outs = [(out, want_out, F64_REL), (got, want, 1e-12)]
     else:
         members = torch.stack([var, var + 1e-3 * t, var - 1e-3 * t])
         out = torch.func.vmap(lambda v: adjust(v, None, ctx))(members)
-        assert (cond_ops.launches - n0, cond_ops.plain_launches - p0) == (1, 0)
+        assert _since(start) == (1, 0)
         outs = [(out[i], plain(members[i], *refs, prm), F64_REL) for i in range(3)]
     torch.cuda.synchronize()
     for got, want, limit in outs:
@@ -242,25 +255,24 @@ def test_the_function_on_the_card(card, sounding, rule):
 
 def test_a_captured_tc_step_launches_the_kernel_once(card, tmp_path):
     from scythe_tpu_torch import model as tmodel
-    from scythe_tpu_torch import trace
     from scythe_tpu_torch.examples.tc_intensification_rlz import tc_mature_model
 
     model = tc_mature_model(os.path.join(str(tmp_path), "tc"), t_end=600.0,
                             output_interval=600.0)
     grid, ctx, state = tmodel.initialize(model, torch.float32, "cuda")
     step = tmodel.build_step(model, grid, ctx, torch.float32)
-    n0, p0 = cond_ops.launches, cond_ops.plain_launches
+    start = _launched()
     s3 = tmodel.make_scan(step, 2)(state)  # t = 1, 2: eager
-    assert cond_ops.launches - n0 == 2
+    assert _since(start)[0] == 2
     before = trace.process().counters.get("graph.nodes.condensation")
     total0 = before.total if before else 0.0
     g = tmodel.make_scan(step, 5)(s3)  # the warm-up step, the capture, 4 replays
     torch.cuda.synchronize()
     nodes = trace.process().counters["graph.nodes.condensation"].total - total0
     assert nodes == 1, nodes  # the kernel, on the state as the step lays it out
-    assert cond_ops.launches - n0 == 2 + 5
+    assert _since(start)[0] == 2 + 5
     tmodel.make_scan(step, 7)(g)  # 7 replays
     torch.cuda.synchronize()
-    assert cond_ops.launches - n0 == 2 + 5 + 7
-    assert cond_ops.plain_launches == p0
+    assert _since(start)[0] == 2 + 5 + 7
+    assert _since(start)[1] == 0
     assert torch.isfinite(g.spec).all()

@@ -1,8 +1,9 @@
 """The condensation adjustment's dispatch and its one source of scalars, on
 the CPU: ``microphysics.condensation_params`` gives today's formulas for
 every option variant; a CPU tensor, a tensor that requires grad and a call
-under ``torch.func`` take the plain chain and leave the kernel's counters at
-0; a card tensor takes the kernel, in place or through ``CondensationFn``;
+under ``torch.func`` take the plain chain and leave the kernel's ``trace``
+counters as they were; a card tensor takes the kernel, in place or through
+``CondensationFn``;
 the Function's backward, jvp and vmap rules against the plain chain's own
 (its forward on the CPU is the plain chain); the wrapper refuses what the
 kernel does not take; and the plain chain of each variant against the JAX
@@ -20,7 +21,7 @@ import torch
 from scythe_tpu.equations.common import EqContext as JCtx
 from scythe_tpu.physics import microphysics as jmp
 from scythe_tpu.physics import reference_state as jrs
-from scythe_tpu_torch import graphs
+from scythe_tpu_torch import device, trace
 from scythe_tpu_torch.equations.common import EqContext as TCtx
 from scythe_tpu_torch.ops import condensation as cond_ops
 from scythe_tpu_torch.physics import microphysics as tmp_
@@ -135,11 +136,18 @@ def test_plain_chain_of_each_variant_matches_jax(variant, ref_states):
     assert not np.array_equal(got[names.index("mu")], var[names.index("mu")])
 
 
+def _launched():
+    """(kernel launches, plain-chain runs on a card tensor) so far."""
+    rec = trace.process()
+    return (rec.total("condensation.launches") or 0,
+            rec.total("condensation.plain_launches") or 0)
+
+
 @pytest.fixture
 def zero_counts():
-    cond_ops.launches = cond_ops.plain_launches = 0
+    before = _launched()
     yield
-    assert cond_ops.launches == cond_ops.plain_launches == 0
+    assert _launched() == before
 
 
 @pytest.mark.parametrize("case", ["cpu", "requires_grad", "vmap", "jvp"])
@@ -213,7 +221,7 @@ def test_dispatch_decision_on_a_card_tensor(ref_states, monkeypatch):
         torch.zeros(2, 3))
     tmp_.condensation_adjustment(torch.zeros(9, 4, 16), None, ct)
     assert seen == ["in place", "fn", "fn", "in place", "fn", "plain"]
-    assert graphs.traced_reason((_OnCard(True),)) == "an input requires grad"
+    assert device.traced_reason((_OnCard(True),)) == "an input requires grad"
 
 
 def _step_layout(var):
@@ -241,7 +249,7 @@ def test_layouts_the_kernel_takes():
 
 
 @pytest.mark.parametrize("layout", ["step", "contiguous", "other"])
-def test_dispatch_hands_the_kernel_its_inputs(layout, ref_states, monkeypatch):
+def test_dispatch_hands_the_kernel_its_inputs(layout, ref_states, monkeypatch, zero_counts):
     """On a card, outside autograd and functorch, the wrapper gets var_np1
     itself, whatever its layout, the three reference columns and the
     context's Params, and its result is returned; a layout the kernel does
@@ -254,7 +262,6 @@ def test_dispatch_hands_the_kernel_its_inputs(layout, ref_states, monkeypatch):
     if layout == "other":
         with pytest.raises(ValueError, match="block contiguous"):
             tmp_.condensation_adjustment(var, None, ct)
-        assert cond_ops.launches == 0
         return
     calls = []
     monkeypatch.setattr(cond_ops, "condensation_adjust",
@@ -322,7 +329,7 @@ def test_condensation_fn_rules_match_the_plain_chains(rule, ref_states, zero_cou
                 torch.stack([var, var]), torch.stack([sbar, sbar]))
 
 
-def test_wrapper_refuses_what_the_kernel_does_not_take(ref_states):
+def test_wrapper_refuses_what_the_kernel_does_not_take(ref_states, zero_counts):
     _, ct = _contexts(RAIN, {}, *ref_states)
     prm = tmp_.condensation_params(ct)
     rs = ct.ref_state
@@ -343,19 +350,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(ref_states):
     for args, match in bad:
         with pytest.raises(ValueError, match=match):
             cond_ops.condensation_adjust(*args)
-    assert cond_ops.launches == 0
 
 
-def test_counters_are_read_by_the_graphs_and_the_trace():
-    from scythe_tpu_torch import trace
-
-    counts = graphs.launch_counts()
-    for k in ("launches", "plain_launches"):
-        assert ("scythe_tpu_torch.ops.condensation", k) in counts
-    assert "condensation.launches" in trace.process().counters
-    graphs.add_counts({("scythe_tpu_torch.ops.condensation", "launches"): 2}, 3)
-    try:
-        assert cond_ops.launches == 6 + counts[("scythe_tpu_torch.ops.condensation",
-                                               "launches")]
-    finally:
-        graphs.add_counts({("scythe_tpu_torch.ops.condensation", "launches"): 2}, -3)
+def test_counters_are_read_by_the_graphs_and_the_trace(ref_states):
+    """The plain chain's runs on a card tensor are the ``trace`` counter
+    ``condensation.plain_launches``: added at once, and held on the capture
+    inside ``trace.capturing`` (what ``graphs.CapturedStep`` adds a replay)."""
+    _, ct = _contexts(RAIN, {}, *ref_states)
+    var = torch.from_numpy(_state(RAIN)).as_subclass(_CardTensor)
+    args = (var, *_refs(ct), tmp_.condensation_params(ct))
+    n0, p0 = _launched()
+    cond_ops._plain(*args)
+    assert _launched() == (n0, p0 + 1)
+    with trace.capturing(None, "cpu") as cap:
+        cond_ops._plain(*args)
+        cond_ops._plain(*args)
+    assert cap.counts == {"condensation.plain_launches": 2}
+    assert _launched() == (n0, p0 + 1)

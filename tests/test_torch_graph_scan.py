@@ -6,9 +6,10 @@ takes its capture primitive as a parameter, and here ``StubGraph`` stands
 in for it: its capture runs the captured function once on the static
 buffers, records every host read and every tensor made from host data or
 written from a host value inside it (what a CUDA capture refuses), and takes
-back what that run did to the buffers (its Python ran and moved the launch
-counters, as in a CUDA capture); its replay calls the function again and
-takes back the counters' change, as a replay runs no Python.  Float64, inputs from a seed or the configurations' own ICs.
+back what that run did to the buffers (its Python ran and counted its
+launches, which ``trace.capturing`` holds, as in a CUDA capture); its replay
+calls the function again inside a capturing block of its own whose counts
+it drops, as a replay runs no Python.  Float64, inputs from a seed or the configurations' own ICs.
 
 * The runner equals the eager loop bit for bit, and both are within 1e-9 of
   ``scythe_tpu.model.make_scan`` (each variable's max|ref|, the
@@ -20,7 +21,8 @@ takes back the counters' change, as a replay runs no Python.  Float64, inputs fr
   kept from one interval is unchanged after the next; the launch counters
   advance on every replay; grad, vmap, sharded steps and
   ``disable_graphs()`` stay eager; a capture that fails raises, naming its
-  line, and nothing falls back.
+  line, and nothing falls back: a compensated packing inside the capture
+  among such failures.
 * Every steady step of chip_smoke.py's capture sweep (all 21 equation
   sets, every build_step option among them) makes no host read and no host
   tensor, and its stub replay equals the eager loop bit for bit.
@@ -52,12 +54,13 @@ import scythe_tpu_torch as tx
 from scythe_tpu_torch import graphs
 from scythe_tpu_torch import model as tmodel
 from scythe_tpu_torch import timeintegration as tti
+from scythe_tpu_torch import trace
 from scythe_tpu_torch.equations import common as tcommon
 from scythe_tpu_torch.examples import cha_bell_initialization as cb
 from scythe_tpu_torch.examples import jw06_baroclinic_slz as jwx
 from scythe_tpu_torch.examples import tc_intensification_rlz as tct
 from scythe_tpu_torch.examples import williamson_sphere as wm
-from scythe_tpu_torch.ops import column_solve
+from scythe_tpu_torch.ops import rlz_analysis as ra
 from scythe_tpu_torch.parallel import mesh as pmesh
 from scythe_tpu_torch.parallel import sharding as psh
 from scythe_tpu_torch.physics import turbulence as ttb
@@ -117,11 +120,6 @@ def host_ops():
         yield found
 
 
-def _set_counts(counts):
-    for (mod, k), v in counts.items():
-        setattr(sys.modules[mod], k, v)
-
-
 class StubGraph:
     """The capture primitive on the CPU (see the module docstring).  With
     ``strict`` a host op inside the capture raises, as a CUDA capture
@@ -146,10 +144,9 @@ class StubGraph:
         if self.strict and found:
             raise RuntimeError(f"operation not permitted when stream is capturing: {found}")
 
-        def replay():
-            before = graphs.launch_counts()
-            fn()
-            _set_counts(before)
+        def replay():  # a replay runs no Python: what it counts is held, and dropped
+            with trace.capturing(lambda: 0, device):
+                fn()
 
         return replay
 
@@ -338,27 +335,28 @@ def test_a_kept_state_never_changes_under_a_later_replay(flagship_small):
     assert_states_equal(third, tmodel.make_scan(step, 15)(flagship_small[3]))
 
 
+def _launched(names):
+    return tuple(trace.process().total(k) or 0 for k in names)
+
+
 def test_launch_counters_advance_on_every_replay(flagship_small):
-    """A replay runs no Python: the runner adds the counters' change of the
-    capture, which it took back, once a chunk for each of its replays."""
+    """A replay runs no Python: the runner adds what the capture counted,
+    which the capture held, once a chunk for each of its replays."""
     inner = _step(flagship_small)
+    names = ("column_solve.launches", "column_solve.backward_launches")
 
     def step(state):  # a wrapper that counts as a kernel's does
-        with column_solve._COUNT_LOCK:
-            column_solve.launches += 1
-            column_solve.backward_launches += 2
+        trace.count(names[0], 1)
+        trace.count(names[1], 2)
         return inner(state)
 
-    column_solve.launches = column_solve.backward_launches = 0
-    try:
-        stub_scan(step, 6, flagship_small[3])
-        assert (column_solve.launches, column_solve.backward_launches) == (6, 12)
-        (runner,) = graphs.captured(step).values()
-        assert runner.replays == 3
-        stub_scan(step, 4, stub_scan(step, 1, flagship_small[3]))
-        assert (column_solve.launches, column_solve.backward_launches) == (11, 22)
-    finally:
-        column_solve.launches = column_solve.backward_launches = 0
+    n0, b0 = _launched(names)
+    stub_scan(step, 6, flagship_small[3])
+    assert _launched(names) == (n0 + 6, b0 + 12)
+    (runner,) = graphs.captured(step).values()
+    assert runner.replays == 3 and runner.counts == {names[0]: 1, names[1]: 2}
+    stub_scan(step, 4, stub_scan(step, 1, flagship_small[3]))
+    assert _launched(names) == (n0 + 11, b0 + 22)
 
 
 def test_what_stays_eager(flagship_small, tmp_path):
@@ -430,12 +428,60 @@ def test_a_capture_error_raises_and_never_falls_back(flagship_small):
 
     class Broken(StubGraph):
         def capture(self, fn, device, buffers):
+            fn()  # counted, and held
             raise RuntimeError("no graph today")
 
+    def counted(state):
+        trace.count("column_solve.launches", 1)
+        return inner(state)
+
+    before = _launched(("column_solve.launches",))[0]
     with pytest.raises(graphs.GraphCaptureError, match="no graph today"):
-        stub_scan(inner, 6, flagship_small[3], Broken())
-    # the counters are as they were: the failed capture launched nothing
-    assert column_solve.launches == 0
+        stub_scan(counted, 6, flagship_small[3], Broken())
+    # the start-up and warm-up steps' counts only: the failed capture launched nothing
+    assert _launched(("column_solve.launches",))[0] == before + 3
+
+
+class _CardTensor(torch.Tensor):
+    """A CPU tensor that the kernels' wrappers take for a CUDA one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_a_compensated_pack_inside_the_capture_names_its_line(flagship_small, monkeypatch):
+    """Operators the compensated analysis packs inside the capture (a
+    first-use cost the warm-up step should have paid) raise, and the capture
+    names the line of ``rlz_analysis.comp_operators`` that refused them."""
+    gp = tx.GridParameters(geometry="RLZ", xmin=0.0, xmax=3.0e5, num_cells=8, lDim=16,
+                           zmin=0.0, zmax=1.0e4, zDim=12, vars={"a": 1, "b": 2})
+    g = tx.create_grid(gp, torch.float32, matmul="compensated", device="cpu")
+    inner = _step(flagship_small)
+    capturing = []
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: bool(capturing))
+
+    class Capturing(StubGraph):
+        def capture(self, fn, device, buffers):
+            capturing.append(True)
+            try:
+                return super().capture(fn, device, buffers)
+            finally:
+                capturing.clear()
+
+    def step(state):  # operators made anew each step: packed anew
+        ra.comp_operators(g.l_analysis, g.analysis_r.clone().as_subclass(_CardTensor),
+                          g.analysis_z)
+        return inner(state)
+
+    packs = trace.process().total("rlz_analysis.packs") or 0
+    with pytest.raises(graphs.GraphCaptureError,
+                       match="packs its operators inside the capture") as e:
+        stub_scan(step, 6, flagship_small[3], Capturing())
+    assert f"{os.sep}ops{os.sep}rlz_analysis.py:" in str(e.value)
+    assert "raise RuntimeError(" in str(e.value)
+    assert (trace.process().total("rlz_analysis.packs") or 0) == packs + 3  # t = 1, 2, warm-up
+    assert not graphs.captured(step)
 
 
 def test_write_back_orders_the_history_shift():

@@ -13,8 +13,11 @@ steps on 2 thread-shards and graft_entry.entry() one step, on the CPU.  It
 differentiates the moist core through
 adjoint.make_simulator and runs a two-member integrate_ensemble, and each
 kernel wrapper's output carries its Function's grad_fn when its input needs
-a gradient (the wrappers once returned outputs with no graph)."""
+a gradient (the wrappers once returned outputs with no graph).  The layers
+import one way: ``physics/`` and ``ops/`` never import the graph runner, and
+``trace.py`` imports nothing of the package."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -78,8 +81,11 @@ SCRIPT = textwrap.dedent(
     )
     grid, phys = tx.integrate_model(model, dtype=torch.float64, device="cpu")
     assert np.isfinite(phys).all() and phys.shape == (9, 12, 8, 8)
-    assert column_solve.launches == rlz_analysis.launches == 0
-    assert elementwise_probe.launches == 0 and "triton" not in sys.modules
+    from scythe_tpu_torch import trace
+    launched = trace.process()
+    for k in ("column_solve.launches", "rlz_analysis.launches", "elementwise_probe.launches"):
+        assert (launched.total(k) or 0) == 0, k
+    assert "triton" not in sys.modules
     assert not any(m == "jax" or m.startswith(("jax.", "scythe_tpu."))
                    for m in sys.modules if sys.modules[m] is not None)
     # the flagship two-way slab model, and every equation set registered
@@ -260,3 +266,37 @@ def test_port_source_never_imports_jax():
                         assert not s.startswith(("import jax", "from jax")), (name, s)
                         assert not s.startswith(("import scythe_tpu.", "from scythe_tpu ",
                                                  "from scythe_tpu.")), (name, s)
+
+
+def _package_imports(path, package):
+    """The package's modules that the module at ``path`` (named ``package``
+    plus its own name) imports, at its top or inside a function."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names if a.name.split(".")[0] == "scythe_tpu_torch"}
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                parts = package.split(".")
+                base = parts[:len(parts) - node.level]
+                mod = ".".join(base + ([node.module] if node.module else []))
+            else:
+                mod = node.module or ""
+            if mod.split(".")[0] == "scythe_tpu_torch":
+                out |= {mod} | {f"{mod}.{a.name}" for a in node.names}
+    return out
+
+
+def test_layers_point_one_way():
+    """No module of ``physics/`` or ``ops/`` imports the graph runner, and
+    the trace registry imports no module of the package."""
+    pkg = os.path.join(REPO, "scythe_tpu_torch")
+    for sub in ("physics", "ops"):
+        for name in sorted(os.listdir(os.path.join(pkg, sub))):
+            if name.endswith(".py"):
+                got = _package_imports(os.path.join(pkg, sub, name),
+                                       f"scythe_tpu_torch.{sub}.{name[:-3]}")
+                assert "scythe_tpu_torch.graphs" not in got, (sub, name, got)
+    assert _package_imports(os.path.join(pkg, "trace.py"), "scythe_tpu_torch.trace") == set()

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from scythe_tpu_torch import trace
 from scythe_tpu_torch.ops import elementwise_probe as ep
 
 torch.set_num_threads(2)
@@ -42,9 +43,9 @@ def test_plain_matches_jax_expression():
 
 def test_wrapper_on_cpu_takes_plain_and_counts_nothing():
     args = [torch.from_numpy(a) for a in _inputs(1)]
-    before = ep.launches
+    before = trace.process().total("elementwise_probe.launches") or 0
     got = ep.probe_expr(*args)
-    assert ep.launches == before
+    assert (trace.process().total("elementwise_probe.launches") or 0) == before
     assert torch.equal(got, ep.probe_expr_plain(*args))
 
 

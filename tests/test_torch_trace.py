@@ -20,7 +20,8 @@ the CPU.
   no such stage), and an RLZ step's counts are those of stages that do not
   nest.
 * The launch counters are added once a chunk, and read what they read when
-  they were added once a replay.
+  they were added once a replay; a count another thread makes during a
+  capture lands once, and is not multiplied by the replays.
 * ``ops._build``'s nvcc time is the span ``ops.build``.
 """
 
@@ -41,7 +42,6 @@ from scythe_tpu_torch import model as tmodel
 from scythe_tpu_torch import trace
 from scythe_tpu_torch.examples import cha_bell_initialization as cb
 from scythe_tpu_torch.ops import _build
-from scythe_tpu_torch.ops import column_solve
 
 from test_torch_graph_scan import StubGraph, _moist, _tc, stub_scan
 
@@ -386,29 +386,54 @@ def test_an_rlz_steps_stage_counts_are_unchanged(tmp_path, monkeypatch):
     assert tuple(counts[0]) == trace.STAGES
 
 
-def test_launch_counters_are_added_once_a_chunk(monkeypatch):
+def test_launch_counters_are_added_once_a_chunk():
     _, (model, grid, ctx, state) = _flagship_state()
     inner = tmodel.build_step(model, grid, ctx, F64)
+    name = "column_solve.launches"
 
     def step(state):  # a wrapper that counts as a kernel's does
-        with column_solve._COUNT_LOCK:
-            column_solve.launches += 1
+        trace.count(name, 1)
         return inner(state)
 
-    calls = []
-    add = graphs.add_counts
-    monkeypatch.setattr(graphs, "add_counts",
-                        lambda delta, times=1: (calls.append(times), add(delta, times)))
-    column_solve.launches = 0
-    try:
-        out = stub_scan(step, 8, state)  # 2 start-up, the warm-up, 5 replays
-        assert column_solve.launches == 8
-        assert calls == [-1, 5]  # the capture's taken back, then once a chunk
-        stub_scan(step, 4, out)
-        assert column_solve.launches == 12 and calls == [-1, 5, 4]
-        assert trace.process().total("column_solve.launches") == 12
-    finally:
-        column_solve.launches = 0
+    def total_and_adds():
+        stat = trace.process().stat(name)
+        return (stat.total, stat.count) if stat else (0, 0)
+
+    n0, c0 = total_and_adds()
+    out = stub_scan(step, 8, state)  # 2 start-up, the warm-up, 5 replays
+    # an add a start-up and warm-up step, the capture's held, then one for the replays
+    assert total_and_adds() == (n0 + 8, c0 + 4)
+    stub_scan(step, 4, out)
+    assert total_and_adds() == (n0 + 12, c0 + 5)
+
+
+class _OtherThread(StubGraph):
+    """A stub capture during which another thread counts, as a shard thread
+    or ``run_loop``'s writer may."""
+
+    def capture(self, fn, device, buffers):
+        t = threading.Thread(target=trace.count, args=("other.thread", 1))
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+        return super().capture(fn, device, buffers)
+
+
+def test_another_threads_count_during_a_capture_lands_once():
+    _, (model, grid, ctx, state) = _flagship_state()
+    inner = tmodel.build_step(model, grid, ctx, F64)
+    name = "column_solve.launches"
+
+    def step(state):
+        trace.count(name, 1)
+        return inner(state)
+
+    other0, n0 = (trace.process().total(k) or 0 for k in ("other.thread", name))
+    stub_scan(step, 8, state, _OtherThread())  # 2 start-up, the warm-up, 5 replays
+    (runner,) = graphs.captured(step).values()
+    assert runner.counts == {name: 1}
+    assert (trace.process().total("other.thread") or 0) == other0 + 1
+    assert (trace.process().total(name) or 0) == n0 + 8
 
 
 def test_the_build_time_is_its_span(tmp_path, monkeypatch):

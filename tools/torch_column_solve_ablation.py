@@ -114,7 +114,7 @@ SHAPES = ((9216, 48), (1200, 24))
 COMP_SHAPES = ((9216, 48), (1200, 24), (2304, 32), (13824, 24))
 
 
-def build(_build, tmp: Path, profile: bool) -> dict:
+def build(_build, cs, tmp: Path, profile: bool) -> dict:
     """One library a variant, all nvcc started together."""
     src = (_build.CSRC / "column_solve.cu").read_text()
     procs = {}
@@ -129,7 +129,8 @@ def build(_build, tmp: Path, profile: bool) -> dict:
         cu.write_text(text)
         so = cu.with_suffix(".so")
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.COMPILE_FLAGS, "-shared", "-o", str(so), str(cu)],
+            [_build._nvcc(), *_build.COMPILE_FLAGS, "-I", str(_build.CSRC), "-shared", "-o",
+             str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -137,8 +138,8 @@ def build(_build, tmp: Path, profile: bool) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{out}")
         lib = ctypes.CDLL(str(so))
-        lib.scythe_column_solve_f32.argtypes = _build.COLUMN_SOLVE_ARGTYPES
-        lib.scythe_column_solve_comp.argtypes = _build.COLUMN_SOLVE_COMP_ARGTYPES
+        lib.scythe_column_solve_f32.argtypes = cs.COLUMN_SOLVE_ARGTYPES
+        lib.scythe_column_solve_comp.argtypes = cs.COLUMN_SOLVE_COMP_ARGTYPES
         libs[name] = lib
     return libs
 
@@ -204,7 +205,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        libs = build(_build, Path(tmp), args.profile)
+        libs = build(_build, cs, Path(tmp), args.profile)
         comp_libs = {n: libs.pop(n) for n, _ in COMP_VARIANTS}
         prof_lib = libs.pop("comp profile", None)
         for ncols, nz in SHAPES:

@@ -246,9 +246,9 @@ def main(argv=None) -> int:
                                  bound_ms=bound)
         if args.sweep and name in smoke.ANALYSIS_COMP_SHAPES:
             print(f"  sweep {name}:", flush=True)
-            sweep(torch, ra, built.lib, smoke, x32, opsc)
+            sweep(torch, ra, ra.library(), smoke, x32, opsc)
         if args.profile and name in smoke.ANALYSIS_COMP_SHAPES:
-            marks, ctas = profile(torch, ra, built.lib, x32, opsc)
+            marks, ctas = profile(torch, ra, ra.library(), x32, opsc)
             print(f"  clock64 {name} ({ctas} blocks), mean cycles a block: "
                   f"{json.dumps(marks)}", flush=True)
             summary[name]["clock64"] = marks
